@@ -5,12 +5,16 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi) and device name;
-2. build the hand-written CUDA kernels (ops/csrc/ell_kernels.cu);
+2. build the hand-written CUDA kernels (ops/csrc/ell_kernels.cu) and
+   report each instance's registers, spills and shared memory (ptxas);
 3. each kernel at the Criteo slice's shapes (B=2048, K=39, E=16, D=2^20)
    against its plain PyTorch version on the card, on inputs with
    duplicate, padding, wrapped-negative and out-of-range indices and
-   f32 and f16 values; then the kernel, the plain version and a one-call
-   PyTorch yardstick timed with CUDA events on Criteo-shaped inputs;
+   f32 and f16 values, and again at the edge shapes the kernels' designs
+   branch on (K in {1, 33, 39, 64}, E in {1, 5, 16}, B a multiple of no
+   block's rows); then the kernel, the plain version and a one-call
+   PyTorch yardstick timed with CUDA events on Criteo-shaped inputs,
+   beside the time of an empty launch (``floor_us``);
 4. the slice: a synthetic Criteo-shaped rowrec shard → ``ell_batches`` →
    ``StagingPipeline(device="cuda")`` → FactorizationMachine SGD steps
    (f32 values), then LogisticRegression steps (f16 values), with the
@@ -19,14 +23,16 @@ Phases (any failure exits non-zero and prints no result line):
    loss and gradients held against the plain versions on the card;
 5. the ``entry()`` forward on the card against the CPU.
 
-It prints a ``{"kernels": [...]}`` line and a ``{"slice": {...}}`` line,
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+It prints a ``{"ptxas": [...]}``, a ``{"kernels": [...]}`` and a
+``{"slice": {...}}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +50,11 @@ N_BATCHES = 32
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 SRC = "dmlc_core_tpu_torch/ops/csrc/ell_kernels.cu"
+# (B, K, E, D) of the edge inputs beside the slice's: K below, at and
+# above a warp and the Criteo width, E scalar-lane (1, 5) and 16-byte-lane
+# (16), B a multiple of neither K1's 16 rows a block nor K3's 8
+KERNEL_NAMES = ("ell_matvec_fwd", "ell_matvec_bwd", "fm_pair_fwd", "fm_pair_bwd")
+EDGE_SHAPES = [(1037, k, e, 1000) for k in (1, 33, 39, 64) for e in (1, 5, 16)]
 # forward: elementwise |kernel - plain| <= FWD_ABS + FWD_REL·scale, where
 # scale is the sum of the magnitudes of the terms summed (the sums run in
 # another order, and the pair term ½Σ(s² − q) cancels, so its rounding
@@ -117,6 +128,52 @@ def edge_inputs(rng, dev, f16: bool):
     )
 
 
+def edge_shape_inputs(rng, dev, f16: bool, b: int, k: int, d: int):
+    """ELL inputs at an edge shape: indices over [-d, d) (half of them
+    wrapped negatives), a row of duplicates, padding slots and rows, and
+    one index above and one below the range in rows 3 and 4."""
+    idx = rng.integers(-d, d, (b, k))
+    val = rng.normal(size=(b, k)).astype(np.float32)
+    idx[1] = idx[1, 0]                                 # duplicates
+    idx[2, k // 2:] = 0                                # padding slots
+    val[2, k // 2:] = 0
+    idx[b - 3:] = 0                                    # padding rows
+    val[b - 3:] = 0
+    idx[3, 0] = d + 5                                  # out of range
+    idx[4, k - 1] = -d - 5
+    return (
+        torch.from_numpy(idx.astype(np.int32)).to(dev),
+        torch.from_numpy(val).to(dev, torch.float16 if f16 else torch.float32),
+    )
+
+
+def check_kernels(idx, val, w, v, g, tag: str, err: dict) -> None:
+    """K1-K4 against their plain versions on one input; the largest
+    errors are kept in ``err``."""
+    from dmlc_core_tpu_torch.ops import fm as opfm, sparse as ops
+
+    d = w.shape[0]
+    # magnitudes of the summed terms (NaN in out-of-range rows, whose
+    # entries are compared by their NaN pattern alone)
+    scale_k1 = ops.ell_matvec_fwd_plain(idx, val.abs(), w.abs())
+    scale_s = opfm.fm_pair_fwd_plain(idx, val.abs(), v.abs())[1]
+    err["ell_matvec_fwd"] = max(err["ell_matvec_fwd"], close_enough(
+        ops.ell_matvec_fwd_kernel(idx, val, w),
+        ops.ell_matvec_fwd_plain(idx, val, w), "fwd", f"K1 {tag}", scale_k1))
+    err["ell_matvec_bwd"] = max(err["ell_matvec_bwd"], close_enough(
+        ops.ell_matvec_bwd_kernel(idx, val, g, d),
+        ops.ell_matvec_bwd_plain(idx, val, g, d), "grad", f"K2 {tag}"))
+    pk, sk = opfm.fm_pair_fwd_kernel(idx, val, v)
+    pp, sp = opfm.fm_pair_fwd_plain(idx, val, v)
+    err["fm_pair_fwd"] = max(err["fm_pair_fwd"],
+                             close_enough(pk, pp, "fwd", f"K3 pair {tag}",
+                                          (scale_s ** 2).sum(-1)),
+                             close_enough(sk, sp, "fwd", f"K3 s {tag}", scale_s))
+    err["fm_pair_bwd"] = max(err["fm_pair_bwd"], close_enough(
+        opfm.fm_pair_bwd_kernel(idx, val, v, sp, g),
+        opfm.fm_pair_bwd_plain(idx, val, v, sp, g), "grad", f"K4 {tag}"))
+
+
 def time_ms(fn, flush, n: int = 30) -> float:
     """Median device time of ``fn()`` over ``n`` calls (CUDA events),
     with the 50 MB L2 flushed before each so it starts cold. A device
@@ -145,40 +202,28 @@ def bound(nbytes: float, ops: float):
 
 def kernel_phase(dev, flush):
     """Compare K1-K4 with their plain versions on edge inputs, then time
-    kernel / plain / library on Criteo-shaped inputs. Returns rows of the
-    kernels line (without launches)."""
+    kernel / plain / library on Criteo-shaped inputs, beside an empty
+    launch. Returns rows of the kernels line (without launches)."""
     import torch.nn.functional as F
 
-    from dmlc_core_tpu_torch.ops import fm as opfm, sparse as ops
+    from dmlc_core_tpu_torch.ops import _build, fm as opfm, sparse as ops
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=dev).manual_seed(1)
     w = torch.randn(D, generator=gen, device=dev) * 0.01
     v = torch.randn(D, E, generator=gen, device=dev) * 0.01
     g = torch.randn(B, generator=gen, device=dev)
-    err = dict.fromkeys(("ell_matvec_fwd", "ell_matvec_bwd", "fm_pair_fwd", "fm_pair_bwd"), 0.0)
+    err = dict.fromkeys(KERNEL_NAMES, 0.0)
     for f16 in (False, True):
         tag = "f16" if f16 else "f32"
         idx, val = edge_inputs(rng, dev, f16)
-        # magnitudes of the summed terms (NaN in out-of-range rows, whose
-        # entries are compared by their NaN pattern alone)
-        scale_k1 = ops.ell_matvec_fwd_plain(idx, val.abs(), w.abs())
-        scale_s = opfm.fm_pair_fwd_plain(idx, val.abs(), v.abs())[1]
-        err["ell_matvec_fwd"] = max(err["ell_matvec_fwd"], close_enough(
-            ops.ell_matvec_fwd_kernel(idx, val, w),
-            ops.ell_matvec_fwd_plain(idx, val, w), "fwd", f"K1 {tag}", scale_k1))
-        err["ell_matvec_bwd"] = max(err["ell_matvec_bwd"], close_enough(
-            ops.ell_matvec_bwd_kernel(idx, val, g, D),
-            ops.ell_matvec_bwd_plain(idx, val, g, D), "grad", f"K2 {tag}"))
-        pk, sk = opfm.fm_pair_fwd_kernel(idx, val, v)
-        pp, sp = opfm.fm_pair_fwd_plain(idx, val, v)
-        err["fm_pair_fwd"] = max(err["fm_pair_fwd"],
-                                 close_enough(pk, pp, "fwd", f"K3 pair {tag}",
-                                              (scale_s ** 2).sum(-1)),
-                                 close_enough(sk, sp, "fwd", f"K3 s {tag}", scale_s))
-        err["fm_pair_bwd"] = max(err["fm_pair_bwd"], close_enough(
-            opfm.fm_pair_bwd_kernel(idx, val, v, sp, g),
-            opfm.fm_pair_bwd_plain(idx, val, v, sp, g), "grad", f"K4 {tag}"))
+        check_kernels(idx, val, w, v, g, tag, err)
+        for b, k, e, d in EDGE_SHAPES:
+            idx_e, val_e = edge_shape_inputs(rng, dev, f16, b, k, d)
+            check_kernels(idx_e, val_e, torch.randn(d, generator=gen, device=dev),
+                          torch.randn(d, e, generator=gen, device=dev),
+                          torch.randn(b, generator=gen, device=dev),
+                          f"{tag} B={b} K={k} E={e}", err)
     torch.cuda.synchronize()
 
     # timing inputs: the main path's shape and data (f32 values)
@@ -214,6 +259,7 @@ def kernel_phase(dev, flush):
          lambda: torch.zeros(D, E, device=dev).index_add_(0, j, contrib_v),
          bk * (4 + vb) + B * 4 + B * E * 4 + uniq * E * 4 + D * E * 4, 5 * bk * E),
     ]
+    floor_ms = time_ms(lambda: _build.empty_launch(dev), flush)
     out = []
     for name, replaces, kern, plain, lib, nbytes, nops in rows:
         ms = time_ms(kern, flush)
@@ -225,6 +271,7 @@ def kernel_phase(dev, flush):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(lib, flush),
             "kernel_ms": ms, "bound_us": bound_ms * 1e3,
+            "floor_us": floor_ms * 1e3,
         })
     return out
 
@@ -344,6 +391,10 @@ def profile_steps(model, batch, lr: float, n: int = 8):
     return {
         "steps": n, "wall_ms_per_step": wall / n * 1e3,
         "device_ms_per_step": busy / n * 1e3, "device_busy_share": busy / wall,
+        # K1-K4 by name (their share of the step is this over the above)
+        "kernel_ms_per_step": {
+            name: sum(t for key, t in dev if f"{name}_kernel" in key) * 1e-3 / n
+            for name in KERNEL_NAMES},
         "top": [{"name": k[:90], "ms_per_step": t * 1e-3 / n}
                 for k, t in sorted(dev, key=lambda kt: -kt[1])[:8]],
     }
@@ -386,6 +437,23 @@ def slice_phase(dev, num_features: int = D, embed_dim: int = E,
     return out
 
 
+def ptxas_summary(log: str):
+    """Registers, spill bytes and shared memory of each compiled kernel
+    instance, from nvcc's ``-Xptxas -v`` output (empty when the library
+    was already built)."""
+    out = []
+    for m in re.finditer(
+        r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads\s+ptxas info\s+: Used (\d+) registers"
+        r"(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", log, re.S):
+        name, stores, loads, regs, smem = m.groups()
+        short = re.search(r"\d((?:ell_matvec|fm_pair|empty)\w*?_kernel(?:I\w*?E)?)E*v", name)
+        out.append({"function": short.group(1) if short else name,
+                    "registers": int(regs), "spill_bytes": int(stores) + int(loads),
+                    "smem_bytes": int(smem or 0)})
+    return out
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -417,8 +485,7 @@ def main() -> None:
     t0 = time.perf_counter()
     so = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s -> {so.name}")
-    if _build.build_log:
-        print(_build.build_log.strip()[-3000:])
+    print(json.dumps({"ptxas": ptxas_summary(_build.build_log)}))
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = kernel_phase(dev, flush)

@@ -22,7 +22,7 @@ import torch
 
 from ..utils.logging import Error
 
-__all__ = ["KERNELS", "build", "launch", "launches", "reset_launches"]
+__all__ = ["KERNELS", "build", "empty_launch", "launch", "launches", "reset_launches"]
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ell_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / ".build" / "kernels"
@@ -39,6 +39,8 @@ KERNELS = {
     "fm_pair_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P],
     "fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P],
 }
+# entry points that are no kernel of any path (not counted)
+_UNCOUNTED = {"empty_launch": [_P]}
 
 # successful launches per kernel; a run that resets these and reads them
 # after its main path shows which kernels that path went through
@@ -92,7 +94,7 @@ def _library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in KERNELS.items():
+            for name, argtypes in {**KERNELS, **_UNCOUNTED}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -100,13 +102,23 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream (appended as
-    the last argument); raises on a refused launch and counts the rest."""
+def _call(name: str, device: torch.device, *args) -> None:
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise Error(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream (appended as
+    the last argument); raises on a refused launch and counts the rest."""
+    _call(name, device, *args)
     launches[name] += 1
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch a kernel that does nothing on ``device``'s current stream:
+    timed like a kernel, it is the floor every launch pays. Not counted."""
+    _call("empty_launch", device)

@@ -4,11 +4,12 @@ card (marked ``gpu``: skips where torch.cuda.is_available() is False).
     python -m pytest tests/test_torch_kernels_gpu.py -q
 
 Inputs include duplicates, padding, wrapped negatives and out-of-range
-indices, with f32 and f16 values. Tolerances: forward 1e-6 + 1e-5 of the
-summed terms' magnitudes (sums in another order; the pair term
-½Σ(s² − q) cancels, so its rounding error scales with s²); gradients
-1e-4 of max |g| (f32 atomics add in an order that changes from run to
-run)."""
+indices, with f32 and f16 values, at the slice's shape and at the edge
+shapes K1's and K3's designs branch on (K, E, B, and operands that are
+not 16-byte aligned). Tolerances: forward 1e-6 + 1e-5 of the summed
+terms' magnitudes (sums in another order; the pair term ½Σ(s² − q)
+cancels, so its rounding error scales with s²); gradients 1e-4 of max |g|
+(f32 atomics add in an order that changes from run to run)."""
 
 import numpy as np
 import pytest
@@ -58,10 +59,14 @@ def grad_close(got, want):
     assert float((got[fin] - want[fin]).abs().max()) <= tol
 
 
-SHAPES = [(37, 5, 100, 3), (2048, 39, 1 << 20, 16)]
+# (B, K, D, E): a small case, the slice, and the edge shapes K1's and K3's
+# designs branch on: K from 1 to past two warps, E from one scalar lane to
+# 16-byte lanes, B a multiple of neither K1's 16 rows a block nor K3's 8
+SHAPES = {"small": (37, 5, 100, 3), "slice": (2048, 39, 1 << 20, 16)}
+SHAPES.update({f"K{k}-E{e}": (1037, k, 1000, e) for k in (1, 33, 39, 64) for e in (1, 5, 16)})
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=["small", "slice"])
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.float16])
 def test_kernels_match_plain_versions(cuda, shape, vdtype):
     B, K, D, E = shape
@@ -97,3 +102,27 @@ def test_fm_step_on_card_matches_cpu(cuda):
     assert float(loss_g) == pytest.approx(float(loss_c), rel=1e-5)
     for k, p in cpu.state_dict().items():
         grad_close(gpu.state_dict()[k].cpu(), p)
+
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.float16])
+def test_forward_kernels_on_unaligned_operands(cuda, vdtype):
+    """Contiguous operands that start one element past a 16-byte boundary
+    take K1's and K3's scalar loads."""
+    B, K, D, E = 203, 39, 1000, 16
+    idx, val, w, v, _ = inputs(cuda, B, K, D, E, vdtype, seed=3)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    idx, val, v = shifted(idx), shifted(val), shifted(v)
+    assert idx.data_ptr() % 16 and val.data_ptr() % 8 and v.data_ptr() % 16
+    fwd_close(tops.ell_matvec_fwd_kernel(idx, val, w), tops.ell_matvec_fwd_plain(idx, val, w),
+              tops.ell_matvec_fwd_plain(idx, val.abs(), w.abs()))
+    pk, sk = tfm.fm_pair_fwd_kernel(idx, val, v)
+    pp, sp = tfm.fm_pair_fwd_plain(idx, val, v)
+    scale_s = tfm.fm_pair_fwd_plain(idx, val.abs(), v.abs())[1]
+    fwd_close(pk, pp, (scale_s ** 2).sum(-1))
+    fwd_close(sk, sp, scale_s)
+    torch.cuda.synchronize()

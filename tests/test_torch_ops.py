@@ -6,7 +6,11 @@ Inputs come from a numpy seed and include duplicate indices, padding
 slots (index 0, value 0), wrapped negatives in [-D, -1] and out-of-range
 indices (>= D, < -D), which jnp.take reads as NaN and its gradient drops.
 Tolerances: forward rtol 1e-5 / atol 1e-6 (sums in another order);
-gradients 1e-4 of max |g| (scatter-adds in another order)."""
+gradients 1e-4 of max |g| (scatter-adds in another order). At the edge
+shapes the kernels' designs branch on (K in {1, 33, 39, 64}, E in {1, 5,
+16}), the forward tolerance is the one the kernels are held to:
+1e-6 + 1e-5 of the summed terms' magnitudes (the pair term ½Σ(s² − q)
+cancels, so its rounding error scales with s², not with the result)."""
 
 import jax
 import jax.numpy as jnp
@@ -189,3 +193,67 @@ def test_non_cpu_tensors_never_take_the_plain_versions():
     with pytest.raises(Error):
         tfm.fm_pair(tt(idx).to("meta"), tt(val).to("meta"),
                     torch.zeros(D, E, device="meta"))
+
+
+# K from 1 to past two warps, E from one scalar lane to 16-byte lanes, and
+# B a multiple of neither K1's 16 rows a block nor K3's 8
+EDGE_K = [1, 33, 39, 64]
+EDGE_E = [1, 5, 16]
+EDGE_B, EDGE_D = 37, 60
+
+
+def edge_inputs(seed, k, vdtype):
+    """Indices over [-D, D) (half wrapped negatives), a row of duplicates,
+    padding slots and rows, one index above and one below the range."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-EDGE_D, EDGE_D, (EDGE_B, k)).astype(np.int32)
+    val = rng.normal(size=(EDGE_B, k)).astype(vdtype)
+    idx[1] = idx[1, 0]
+    idx[2, k // 2:] = 0
+    val[2, k // 2:] = 0
+    idx[EDGE_B - 3:] = 0
+    val[EDGE_B - 3:] = 0
+    idx[3, 0] = EDGE_D + 5
+    idx[4, k - 1] = -EDGE_D - 5
+    return idx, val
+
+
+def assert_fwd_close(got, want, scale):
+    """|got - want| <= 1e-6 + 1e-5·scale where finite, NaN where NaN."""
+    got, want, scale = (np.asarray(a, np.float64) for a in (got, want, scale))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    assert (np.abs(got - want)[fin] <= 1e-6 + 1e-5 * scale[fin]).all()
+
+
+@pytest.mark.parametrize("vdtype", [np.float32, np.float16])
+@pytest.mark.parametrize("k", EDGE_K)
+def test_ell_matvec_plain_matches_jax_at_edge_shapes(k, vdtype):
+    idx, val = edge_inputs(20 + k, k, vdtype)
+    w = np.random.default_rng(21).normal(size=EDGE_D).astype(np.float32)
+    want = np.asarray(jops.ell_matvec(idx, val, w))
+    assert np.isnan(want[[3, 4]]).all() and not np.isnan(np.delete(want, [3, 4])).any()
+    got = tops.ell_matvec_fwd_plain(tt(idx), tt(val), tt(w))
+    scale = np.asarray(jops.ell_matvec(idx, np.abs(val), np.abs(w)))
+    assert_fwd_close(got.numpy(), want, scale)
+
+
+@pytest.mark.parametrize("vdtype", [np.float32, np.float16])
+@pytest.mark.parametrize("e", EDGE_E)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_fm_pair_plain_matches_jax_at_edge_shapes(k, e, vdtype):
+    idx, val = edge_inputs(30 + k + e, k, vdtype)
+    v = np.random.default_rng(31).normal(size=(EDGE_D, e)).astype(np.float32)
+    params = {"w": jnp.zeros(EDGE_D), "v": v, "b": jnp.zeros(())}
+    want = np.asarray(JaxFM(EDGE_D, embed_dim=e).forward(
+        params, {"indices": idx, "values": val}))
+    pair, s = tfm.fm_pair_fwd_plain(tt(idx), tt(val), tt(v))
+    # the summed terms' magnitudes: s of |val|·|v|, per row Σ_e of its square
+    scale_s = np.asarray(jops.ell_matmul(idx, np.abs(val), np.abs(v)))
+    assert_fwd_close(pair.numpy(), want, (scale_s ** 2).sum(-1))
+    # s is Σ_k val·v[idx]: NaN in the out-of-range rows, ell_matmul elsewhere
+    ok = np.ones(EDGE_B, bool)
+    ok[[3, 4]] = False
+    assert np.isnan(s.numpy()[~ok]).all()
+    s_want = np.asarray(jops.ell_matmul(idx[ok], val[ok], v))
+    assert_fwd_close(s.numpy()[ok], s_want, scale_s[ok])
