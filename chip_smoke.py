@@ -11,10 +11,16 @@ Phases (any failure exits non-zero and prints no result line):
    against its plain PyTorch version on the card, on inputs with
    duplicate, padding, wrapped-negative and out-of-range indices and
    f32 and f16 values, and again at the edge shapes the kernels' designs
-   branch on (K in {1, 33, 39, 64}, E in {1, 5, 16}, B a multiple of no
-   block's rows); then the kernel, the plain version and a one-call
-   PyTorch yardstick timed with CUDA events on Criteo-shaped inputs,
-   beside the time of an empty launch (``floor_us``);
+   branch on (K in {1, 33, 39, 64}, E in {1, 5, 16}, E = 33 and 64 in
+   chunks of the gradient scatters, B a multiple of no block's rows nor
+   B*K of the scatters' tiles), on the scatters' own edge inputs (every
+   row naming the same K rows; every entry naming its own row, so a
+   tile's table holds a whole tile of keys) and on a dense gradient that
+   is not 16-byte aligned (through the C entry point); then the kernel,
+   the plain version and a one-call PyTorch yardstick timed with CUDA
+   events on Criteo-shaped inputs, beside the time of an empty launch
+   (``floor_us``) and, for the scatters, of the zero-fill of their dense
+   gradient (``zero_fill_us``);
 4. the slice: a synthetic Criteo-shaped rowrec shard → ``ell_batches`` →
    ``StagingPipeline(device="cuda")`` → FactorizationMachine SGD steps
    (f32 values), then LogisticRegression steps (f16 values), with the
@@ -23,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
    loss and gradients held against the plain versions on the card;
 5. the ``entry()`` forward on the card against the CPU.
 
-It prints a ``{"ptxas": [...]}``, a ``{"kernels": [...]}`` and a
+It fails if any kernel instance spills registers. It prints a
+``{"ptxas": [...]}`` (with the scatters' dynamic shared memory), a
+``{"kernels": [...]}`` and a
 ``{"slice": {...}}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -52,9 +60,14 @@ PEAK_F32 = 67e12
 SRC = "dmlc_core_tpu_torch/ops/csrc/ell_kernels.cu"
 # (B, K, E, D) of the edge inputs beside the slice's: K below, at and
 # above a warp and the Criteo width, E scalar-lane (1, 5) and 16-byte-lane
-# (16), B a multiple of neither K1's 16 rows a block nor K3's 8
+# (16), E in more than one of K4's 16-column chunks with a scalar (33) and
+# a float4 (64) flush, B a multiple of neither K1's 16 rows a block nor
+# K3's 8, and B*K a multiple of none of K2's and K4's 256-entry tiles
 KERNEL_NAMES = ("ell_matvec_fwd", "ell_matvec_bwd", "fm_pair_fwd", "fm_pair_bwd")
 EDGE_SHAPES = [(1037, k, e, 1000) for k in (1, 33, 39, 64) for e in (1, 5, 16)]
+EDGE_SHAPES += [(1037, 39, e, 1000) for e in (33, 64)]
+# the gradient scatters' own edge inputs (see scatter_inputs)
+SCATTER_KINDS = ("contention", "distinct")
 # forward: elementwise |kernel - plain| <= FWD_ABS + FWD_REL·scale, where
 # scale is the sum of the magnitudes of the terms summed (the sums run in
 # another order, and the pair term ½Σ(s² − q) cancels, so its rounding
@@ -147,6 +160,55 @@ def edge_shape_inputs(rng, dev, f16: bool, b: int, k: int, d: int):
     )
 
 
+def scatter_inputs(rng, dev, f16: bool, kind: str):
+    """ELL inputs at the slice's B and K for the gradient scatters' tile
+    tables: ``contention``, every row naming the same K rows (each tile
+    names each row ~6.5 times); ``distinct``, every entry naming its own
+    row of D = B*K (each tile's table holds a whole tile of keys).
+    Returns (idx, val, D)."""
+    if kind == "contention":
+        d = 1000
+        idx = np.broadcast_to(rng.integers(-d, d, K), (B, K))
+    else:
+        d = B * K
+        idx = rng.permutation(d).reshape(B, K)
+    val = rng.normal(size=(B, K)).astype(np.float32)
+    return (
+        torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int32)).to(dev),
+        torch.from_numpy(val).to(dev, torch.float16 if f16 else torch.float32),
+        d,
+    )
+
+
+def shifted(t):
+    """A copy of ``t`` that starts one element past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def check_unaligned_scatters(idx, val, v, s, g, err: dict) -> None:
+    """K2 and K4 through their C entry points into zeroed dense gradients
+    that are not 16-byte aligned (the wrappers' own are), against the
+    plain versions."""
+    from dmlc_core_tpu_torch.ops import _build, fm as opfm, sparse as ops
+
+    d, e = v.shape
+    f16 = int(val.dtype == torch.float16)
+    gw = shifted(torch.zeros(d, device=v.device))
+    gv = shifted(torch.zeros(d, e, device=v.device))
+    if not (gw.data_ptr() % 16 and gv.data_ptr() % 16):
+        fail("the shifted dense gradients are 16-byte aligned")
+    b, k = idx.shape
+    _build.launch("ell_matvec_bwd", v.device, idx.data_ptr(), val.data_ptr(), f16,
+                  g.data_ptr(), gw.data_ptr(), b, k, d)
+    _build.launch("fm_pair_bwd", v.device, idx.data_ptr(), val.data_ptr(), f16,
+                  v.data_ptr(), s.data_ptr(), g.data_ptr(), gv.data_ptr(), b, k, e, d)
+    err["ell_matvec_bwd"] = max(err["ell_matvec_bwd"], close_enough(
+        gw, ops.ell_matvec_bwd_plain(idx, val, g, d), "grad", "K2 unaligned gw"))
+    err["fm_pair_bwd"] = max(err["fm_pair_bwd"], close_enough(
+        gv, opfm.fm_pair_bwd_plain(idx, val, v, s, g), "grad", "K4 unaligned gv"))
+
+
 def check_kernels(idx, val, w, v, g, tag: str, err: dict) -> None:
     """K1-K4 against their plain versions on one input; the largest
     errors are kept in ``err``."""
@@ -218,12 +280,18 @@ def kernel_phase(dev, flush):
         tag = "f16" if f16 else "f32"
         idx, val = edge_inputs(rng, dev, f16)
         check_kernels(idx, val, w, v, g, tag, err)
+        check_unaligned_scatters(idx, val, v, opfm.fm_pair_fwd_plain(idx, val, v)[1], g, err)
         for b, k, e, d in EDGE_SHAPES:
             idx_e, val_e = edge_shape_inputs(rng, dev, f16, b, k, d)
             check_kernels(idx_e, val_e, torch.randn(d, generator=gen, device=dev),
                           torch.randn(d, e, generator=gen, device=dev),
                           torch.randn(b, generator=gen, device=dev),
                           f"{tag} B={b} K={k} E={e}", err)
+        for kind in SCATTER_KINDS:
+            idx_s, val_s, d = scatter_inputs(rng, dev, f16, kind)
+            check_kernels(idx_s, val_s, torch.randn(d, generator=gen, device=dev),
+                          torch.randn(d, E, generator=gen, device=dev), g,
+                          f"{tag} {kind}", err)
     torch.cuda.synchronize()
 
     # timing inputs: the main path's shape and data (f32 values)
@@ -237,31 +305,35 @@ def kernel_phase(dev, flush):
     contrib_w = (g[:, None] * val).reshape(-1)
     contrib_v = (g[:, None, None] * val[..., None]
                  * (s[:, None, :] - val[..., None] * v[idx.long()])).reshape(-1, E)
+    # (name, site, kernel, plain, library, bytes, operations, zero-fill of
+    # the dense gradient the wrapper allocates or None)
     rows = [
         ("ell_matvec_fwd", "dmlc_core_tpu/ops/sparse.py:17",
          lambda: ops.ell_matvec_fwd_kernel(idx, val, w),
          lambda: ops.ell_matvec_fwd_plain(idx, val, w),
          lambda: F.embedding_bag(idx, w[:, None], per_sample_weights=val, mode="sum"),
-         bk * (4 + vb) + uniq * 4 + B * 4, 2 * bk),
+         bk * (4 + vb) + uniq * 4 + B * 4, 2 * bk, None),
         ("ell_matvec_bwd", "dmlc_core_tpu/ops/sparse.py:17",
          lambda: ops.ell_matvec_bwd_kernel(idx, val, g, D),
          lambda: ops.ell_matvec_bwd_plain(idx, val, g, D),
          lambda: torch.zeros(D, device=dev).index_add_(0, j, contrib_w),
-         bk * (4 + vb) + B * 4 + D * 4, 2 * bk),
+         bk * (4 + vb) + B * 4 + D * 4, 2 * bk,
+         lambda: torch.zeros(D, dtype=torch.float32, device=dev)),
         ("fm_pair_fwd", "dmlc_core_tpu/models/fm.py:46",
          lambda: opfm.fm_pair_fwd_kernel(idx, val, v),
          lambda: opfm.fm_pair_fwd_plain(idx, val, v),
          lambda: F.embedding_bag(idx, v, per_sample_weights=val, mode="sum"),
-         bk * (4 + vb) + uniq * E * 4 + B * 4 + B * E * 4, 4 * bk * E + 3 * B * E),
+         bk * (4 + vb) + uniq * E * 4 + B * 4 + B * E * 4, 4 * bk * E + 3 * B * E, None),
         ("fm_pair_bwd", "dmlc_core_tpu/models/fm.py:46",
          lambda: opfm.fm_pair_bwd_kernel(idx, val, v, s, g),
          lambda: opfm.fm_pair_bwd_plain(idx, val, v, s, g),
          lambda: torch.zeros(D, E, device=dev).index_add_(0, j, contrib_v),
-         bk * (4 + vb) + B * 4 + B * E * 4 + uniq * E * 4 + D * E * 4, 5 * bk * E),
+         bk * (4 + vb) + B * 4 + B * E * 4 + uniq * E * 4 + D * E * 4, 5 * bk * E,
+         lambda: torch.zeros(D, E, dtype=torch.float32, device=dev)),
     ]
     floor_ms = time_ms(lambda: _build.empty_launch(dev), flush)
     out = []
-    for name, replaces, kern, plain, lib, nbytes, nops in rows:
+    for name, replaces, kern, plain, lib, nbytes, nops, zero_fill in rows:
         ms = time_ms(kern, flush)
         bound_ms, bound_by = bound(nbytes, nops)
         out.append({
@@ -272,6 +344,7 @@ def kernel_phase(dev, flush):
             "library_ms": time_ms(lib, flush),
             "kernel_ms": ms, "bound_us": bound_ms * 1e3,
             "floor_us": floor_ms * 1e3,
+            "zero_fill_us": None if zero_fill is None else time_ms(zero_fill, flush) * 1e3,
         })
     return out
 
@@ -439,8 +512,7 @@ def slice_phase(dev, num_features: int = D, embed_dim: int = E,
 
 def ptxas_summary(log: str):
     """Registers, spill bytes and shared memory of each compiled kernel
-    instance, from nvcc's ``-Xptxas -v`` output (empty when the library
-    was already built)."""
+    instance, from nvcc's ``-Xptxas -v`` output."""
     out = []
     for m in re.finditer(
         r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
@@ -485,7 +557,13 @@ def main() -> None:
     t0 = time.perf_counter()
     so = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s -> {so.name}")
-    print(json.dumps({"ptxas": ptxas_summary(_build.build_log)}))
+    ptxas = ptxas_summary(_build.build_log)
+    print(json.dumps({"ptxas": ptxas, "dynamic_smem_bytes": _build.scatter_smem_bytes(K)}))
+    if not ptxas:
+        fail("no register report from the compiler (-Xptxas -v)")
+    spills = [p["function"] for p in ptxas if p["spill_bytes"]]
+    if spills:
+        fail(f"kernel instances spill registers: {spills}")
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = kernel_phase(dev, flush)

@@ -22,7 +22,10 @@ import torch
 
 from ..utils.logging import Error
 
-__all__ = ["KERNELS", "build", "empty_launch", "launch", "launches", "reset_launches"]
+__all__ = [
+    "KERNELS", "build", "empty_launch", "launch", "launches", "reset_launches",
+    "scatter_smem_bytes",
+]
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ell_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / ".build" / "kernels"
@@ -40,7 +43,7 @@ KERNELS = {
     "fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P],
 }
 # entry points that are no kernel of any path (not counted)
-_UNCOUNTED = {"empty_launch": [_P]}
+_UNCOUNTED = {"empty_launch": [_P], "scatter_smem_bytes": [_I, _I]}
 
 # successful launches per kernel; a run that resets these and reads them
 # after its main path shows which kernels that path went through
@@ -70,11 +73,14 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernels if this source/flags pair has no library yet;
     returns the library's path. The compiler's output (register and
-    shared memory use per kernel) is kept in ``build_log``."""
+    shared memory use per kernel) is kept beside the library and in
+    ``build_log``."""
     global build_log
     key = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
     out = _BUILD_DIR / f"ell_kernels-{key.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -85,6 +91,7 @@ def build() -> Path:
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise Error(f"nvcc failed on {_SRC.name}:\n{build_log[-4000:]}")
+    log.write_text(build_log)
     os.replace(tmp, out)
     return out
 
@@ -122,3 +129,12 @@ def empty_launch(device: torch.device) -> None:
     """Launch a kernel that does nothing on ``device``'s current stream:
     timed like a kernel, it is the floor every launch pays. Not counted."""
     _call("empty_launch", device)
+
+
+def scatter_smem_bytes(k: int) -> Dict[str, int]:
+    """Dynamic shared memory of one block of each gradient scatter at ``k``
+    entries a row, which the compiler's register and shared memory report
+    does not include."""
+    lib = _library()
+    return {"ell_matvec_bwd": lib.scatter_smem_bytes(0, k),
+            "fm_pair_bwd": lib.scatter_smem_bytes(1, k)}

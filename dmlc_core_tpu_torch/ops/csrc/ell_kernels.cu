@@ -24,10 +24,14 @@
 // dependent DRAM round trips a gather costs (index, then row), and by
 // the atomics on hot rows (the 13 dense Criteo columns appear in every
 // row). The forward gathers (K1, K3) issue all of a row's loads before
-// using any, so a row costs two round trips, not one per entry.
+// using any, so a row costs two round trips, not one per entry. The
+// gradient scatters (K2, K4) sum each tile of the batch in shared memory
+// first, so a row costs one global reduction per tile, not one per entry.
 //
 // empty_launch launches a kernel that does nothing: its time is the
 // floor any launch timed the same way pays, printed beside the bounds.
+// scatter_smem_bytes reports the dynamic shared memory of a K2 or K4
+// block, which the compiler's -Xptxas -v report does not show.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -95,6 +99,11 @@ __device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
                "l"(gmem), "n"(BYTES) : "memory");
+}
+
+// Asks L2 to fetch the line holding `p` (no register, no wait).
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // Waits for every cp.async this thread issued.
@@ -205,21 +214,140 @@ void launch_ell_matvec_fwd(const int32_t* idx, const V* val, const float* w,
         idx, val, w, out, B, K, D);
 }
 
-// K2: gw[idx[b,k]] += g[b] * val[b,k] over a zeroed dense gw.
-// Bound: reads idx, val and g once; the scatter touches at most B*K words
-// of gw. Design: one thread per (b,k) with an f32 atomicAdd; duplicate
-// and hot indices serialise in L2, and the sum order varies by run.
+// The gradient scatters K2 and K4 share one design: tile-local
+// aggregation in shared memory, with no grouping by destination. A block
+// takes a tile of kTile consecutive entries of the flat [B, K] batch (not
+// whole rows, so shared memory is bounded for any K), one entry a thread.
+// Each valid entry wraps its index and inserts the row j it names into an
+// open-addressing hash table in shared memory (64-bit keys, so any j < D;
+// capacity 2*kTile, so the table never fills and a probe ends). The thread
+// that claims a key with atomicCAS takes the next compact slot from a
+// shared counter, so values need kTile slots, not one per table entry.
+// After a barrier every entry adds its contribution into its slot with
+// shared-memory f32 atomics, and after another every occupied slot is
+// flushed once into the dense gradient with global reductions. A row that
+// several entries of a tile name (the 13 dense Criteo columns are in every
+// row: a tile of 256 entries names each ~6.5 times) costs one global
+// reduction per tile instead of one per entry. A NaN contribution makes its
+// slot NaN, and the flush carries it to the same gradient entries a
+// per-entry atomic would; invalid indices insert nothing and add nothing.
+//
+// kTile = 256, so a block has 256 threads. These kernels are bound by the
+// latency of a thread's chain (index load, gather, insert, barrier, shared
+// atomics, barrier, flush), not by the global atomics a larger tile would
+// save: at the Criteo slice (B*K = 79,872) 312 blocks of 256 fit on the
+// 132 SMs in one wave, and tiles of 128 and of 512 were both slower
+// (ops/scatter_variants.py times each choice; PERF.md has the numbers).
+constexpr int kTile = 256;
+constexpr int kTableCap = 2 * kTile;  // a power of two >= 2 * kTile
+constexpr int kTableLog = 9;
+static_assert(kTableCap == 1 << kTableLog, "table capacity");
+constexpr unsigned long long kEmptyKey = ~0ull;
+
+// A tile's hash table in shared memory: keys[pos] is the row claimed at
+// table position pos, slot_at[pos] its compact slot, key_of[slot] the row
+// of each slot, *count the slots claimed.
+struct TileTable {
+  unsigned long long* keys;  // [kTableCap]
+  unsigned long long* key_of;  // [kTile]
+  int* slot_at;  // [kTableCap]
+  int* count;
+
+  static constexpr __host__ __device__ size_t bytes() {
+    return kTableCap * 8 + kTile * 8 + kTableCap * 4 + 16;
+  }
+  // Carves the table from `p` (8-byte aligned) and returns what follows.
+  __device__ unsigned char* carve(unsigned char* p) {
+    keys = reinterpret_cast<unsigned long long*>(p);
+    key_of = keys + kTableCap;
+    slot_at = reinterpret_cast<int*>(key_of + kTile);
+    count = slot_at + kTableCap;
+    return p + bytes();
+  }
+  // Empties the table; the block syncs before the first insert.
+  __device__ void clear() {
+    for (int h = threadIdx.x; h < kTableCap; h += kTile) keys[h] = kEmptyKey;
+    if (threadIdx.x == 0) *count = 0;
+  }
+  // The table position of row j, claiming it (and a slot) if it is new;
+  // `claimed` says whether this call did. The key is read before any CAS:
+  // a tile names its hot rows many times.
+  __device__ int insert(int64_t j, bool& claimed) {
+    const unsigned long long key = static_cast<unsigned long long>(j);
+    unsigned h = static_cast<unsigned>((key * 0x9E3779B97F4A7C15ull) >>
+                                       (64 - kTableLog));
+    const volatile unsigned long long* seen = keys;
+    for (;;) {
+      unsigned long long k = seen[h];
+      if (k == kEmptyKey) {
+        k = atomicCAS(keys + h, kEmptyKey, key);
+        if (k == kEmptyKey) {
+          const int slot = atomicAdd(count, 1);
+          slot_at[h] = slot;
+          key_of[slot] = key;
+          claimed = true;
+          return static_cast<int>(h);
+        }
+      }
+      if (k == key) {
+        claimed = false;
+        return static_cast<int>(h);
+      }
+      h = (h + 1) & (kTableCap - 1);
+    }
+  }
+};
+
+// Batch rows of a tile's entries: entry i of the tile that starts at flat
+// entry t0 lies in row row(i). One 64-bit division a thread, then a 32-bit
+// one (rem0 + i < K + kTile).
+struct TileRows {
+  int64_t row0;
+  int rem0, K;
+  __device__ TileRows(int64_t t0, int k)
+      : row0(t0 / k), rem0(static_cast<int>(t0 - t0 / k * k)), K(k) {}
+  __device__ int rel(int i) const {  // row(i) - row0
+    return static_cast<int>(static_cast<unsigned>(rem0 + i) / static_cast<unsigned>(K));
+  }
+  __device__ int64_t row(int i) const { return row0 + rel(i); }
+};
+
+// K2: gw[idx[b,k]] += g[b] * val[b,k] over a zeroed dense gw, the
+// gradient of K1 w.r.t. w (jax.grad of dmlc_core_tpu/ops/sparse.py:17
+// ell_matvec, a scatter-add). Bound: reads idx and val once, g once, and
+// writes the dense gw (the wrapper's zero-fill included): 1.445 us at the
+// Criteo slice over 3.35 TB/s, below the launch floor. What held the slice-1
+// kernel back: one thread and one f32 atomic per entry, and 26.6 k of its
+// 80 k atomics land on the 13 hot words, which share one 128-byte line and
+// serialise there. Design: the shared tile aggregation above, with one
+// value per slot. A thread loads its entry's idx, val and g[b], inserts
+// it, adds g*val into its slot after a barrier, and the block flushes each
+// slot with one scalar global reduction: the 13 hot words take 312
+// reductions each instead of 2048.
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTile)
 ell_matvec_bwd_kernel(const int32_t* __restrict__ idx,
                       const V* __restrict__ val,
                       const float* __restrict__ g, float* __restrict__ gw,
                       int B, int K, int64_t D) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<int64_t>(B) * K) return;
-  const int64_t j = wrap_index(idx[t], D);
-  if (j < 0) return;
-  atomicAdd(gw + j, g[t / K] * to_f32(val[t]));
+  extern __shared__ __align__(16) unsigned char smem[];
+  TileTable tb;
+  float* sum = reinterpret_cast<float*>(tb.carve(smem));  // [kTile]
+  tb.clear();
+  sum[threadIdx.x] = 0.f;
+  const int64_t n = static_cast<int64_t>(B) * K;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t t = t0 + threadIdx.x;
+  const int64_t j = t < n ? wrap_index(idx[t], D) : -1;
+  const float c = t < n ? g[TileRows(t0, K).row(threadIdx.x)] * to_f32(val[t]) : 0.f;
+  __syncthreads();  // the table is empty
+  bool claimed;
+  const int pos = j >= 0 ? tb.insert(j, claimed) : -1;
+  __syncthreads();  // every slot is claimed
+  if (pos >= 0) atomicAdd(sum + tb.slot_at[pos], c);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < *tb.count)
+    atomicAdd(gw + tb.key_of[threadIdx.x], sum[threadIdx.x]);
 }
 
 // K3: with xv[b,k,e] = val[b,k] * v[idx[b,k], e],
@@ -366,35 +494,216 @@ void launch_fm_pair_fwd(const int32_t* idx, const V* val, const float* v,
 }
 
 // K4: gv[idx[b,k], e] += g[b] * val[b,k] * (s[b,e] - val[b,k] * v[idx,e])
-// over a zeroed dense gv (the derivative of the pair term).
-// Bound: reads idx, val, g, s once and B*K gathered rows of v; the
-// scatter touches at most B*K rows of gv. Design: one thread per
-// (b,k,e), e fastest so a warp's gathers and atomics hit two whole
-// E-float rows; f32 atomicAdd, so hot rows serialise and the sum order
-// varies by run.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
+// over a zeroed dense gv, the gradient of K3's pair term w.r.t. v (jax.grad
+// of dmlc_core_tpu/models/fm.py:46-54). Bound: reads idx, val, g and s once
+// and the rows of v the batch's distinct indices name, and writes the dense
+// gv (the wrapper's 64 MiB zero-fill included): 21.257 us at the Criteo
+// slice over 3.35 TB/s, most of it the zero-fill. What held the slice-1
+// kernel back: one thread and one scalar f32 atomic per (b,k,e), 1.28 M
+// atomics, of which 426 k land on the 13 hot rows (208 floats, 7 L2 lines)
+// and serialise there. Design: the shared tile aggregation above, with
+// kChunk floats per slot. Columns past kChunk are further chunks on the
+// grid's second dimension (a block loops over its chunks, reusing its
+// table), so shared memory is bounded for any E. A thread loads its entry's
+// idx, val and g[b] and issues the gather of its row of v as cp.async
+// copies into the entry's own row of a staging buffer (16 bytes each where
+// E*4 is a multiple of 16, else 4); the block copies the few rows of s its
+// tile spans (8 at K = 39) the same way, so each s word is read once per
+// tile, not once per entry. Only then is the key inserted, so every copy
+// is in flight while the table fills, and a thread that claims a slot asks
+// L2 for the slot's row of gv. After the wait and a barrier, lanes over
+// (entry, column) compute all their g*x*(s - x*v) terms, then add them into
+// the slots (16 lanes cover one entry's 16 columns, so a warp's shared
+// atomics touch two slot rows), and the flush adds each slot
+// row with float4 reductions (red.global.add.v4.f32, the sm_90 float4
+// atomicAdd) where gv is 16-byte aligned and E*4 is a multiple of 16, else
+// with scalar ones: a unique row costs 4 vector reductions at E = 16
+// instead of 16 scalar atomics, a hot row one set per tile instead of one
+// per batch row.
+constexpr int kChunk = 16;  // columns of gv a block aggregates at once
+constexpr int kStride = kTile / kChunk;  // entries a pass of lanes covers
+static_assert(kTile % kChunk == 0, "a thread keeps one column");
+
+// An entry of K4's tile: its table position (-1: no contribution), its row
+// relative to the tile's first, its value and g * value.
+struct alignas(16) FmEntry {
+  int pos, row;
+  float x, gx;
+};
+
+// rows of s a tile spans
+inline int fm_tile_rows(int K) {
+  const int r = (kTile + K - 2) / K + 1;
+  return r < kTile ? r : kTile;
+}
+
+// slot sums, gathered rows of v, the table, the entries, the rows of s
+inline size_t fm_pair_bwd_smem(int K) {
+  return 2 * kTile * kChunk * 4 + TileTable::bytes() + kTile * sizeof(FmEntry) +
+         static_cast<size_t>(fm_tile_rows(K)) * kChunk * 4;
+}
+
+// COPY: bytes a cp.async moves (16 or 4); RED4: float4 flush.
+template <typename V, int COPY, bool RED4>
+__global__ void __launch_bounds__(kTile)
 fm_pair_bwd_kernel(const int32_t* __restrict__ idx,
                    const V* __restrict__ val,
                    const float* __restrict__ v, const float* __restrict__ s,
                    const float* __restrict__ g, float* __restrict__ gv,
                    int B, int K, int E, int64_t D) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<int64_t>(B) * K * E) return;
-  const int64_t bk = t / E;
-  const int e = static_cast<int>(t - bk * E);
-  const int64_t b = bk / K;
-  const int64_t j = wrap_index(idx[bk], D);
-  if (j < 0) return;
-  const float x = to_f32(val[bk]);
-  const float vj = v[j * E + e];
-  // x * vj rounded as s's own term was (no fused multiply-add), so a row
-  // whose s is that one term gets the exact zero gradient
-  atomicAdd(gv + j * E + e, g[b] * x * (s[b * E + e] - __fmul_rn(x, vj)));
+  constexpr int CW = COPY / 4;  // floats a copy moves
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sum = reinterpret_cast<float*>(smem);  // [kTile][kChunk]
+  float* vrow = sum + kTile * kChunk;           // [kTile][kChunk]
+  TileTable tb;
+  FmEntry* ent = reinterpret_cast<FmEntry*>(tb.carve(
+      reinterpret_cast<unsigned char*>(vrow + kTile * kChunk)));  // [kTile]
+  float* srow = reinterpret_cast<float*>(ent + kTile);  // [tile rows][kChunk]
+  tb.clear();
+  const int64_t n = static_cast<int64_t>(B) * K;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const TileRows rows(t0, K);
+  const int64_t t = t0 + threadIdx.x;
+  const int64_t j = t < n ? wrap_index(idx[t], D) : -1;
+  FmEntry me;
+  me.row = rows.rel(threadIdx.x);
+  me.x = t < n ? to_f32(val[t]) : 0.f;
+  me.gx = t < n ? g[rows.row0 + me.row] * me.x : 0.f;
+  // rows of s the tile's entries lie in
+  const int live = n - t0 < kTile ? static_cast<int>(n - t0) : kTile;
+  const int nrows = rows.rel(live - 1) + 1;
+  // this entry's row of v and the tile's rows of s for chunk c0, copied
+  // into shared memory: all in flight before any is used
+  auto issue = [&](int c0) {
+    const int ec = min(kChunk, E - c0);
+    if (j >= 0) {
+      const float* src = v + j * E + c0;
+#pragma unroll
+      for (int u = 0; u < kChunk; u += CW)
+        if (u < ec) copy_async<COPY>(vrow + threadIdx.x * kChunk + u, src + u);
+    }
+    for (int u = threadIdx.x; u < nrows * (kChunk / CW); u += kTile) {
+      const int r = u / (kChunk / CW), c = u % (kChunk / CW) * CW;
+      if (c < ec) copy_async<COPY>(srow + r * kChunk + c, s + (rows.row0 + r) * E + c0 + c);
+    }
+  };
+  auto zero_sums = [&]() {
+    for (int u = threadIdx.x; u < kTile * kChunk / 4; u += kTile)
+      reinterpret_cast<float4*>(sum)[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  int c0 = blockIdx.y * kChunk;
+  issue(c0);
+  __syncthreads();  // the table is empty
+  bool claimed = false;
+  me.pos = j >= 0 ? tb.insert(j, claimed) : -1;
+  ent[threadIdx.x] = me;
+  zero_sums();
+  // lanes over (entry, column): this thread adds column e of entries
+  // threadIdx.x / kChunk + q * kStride
+  const int e = threadIdx.x % kChunk;
+  const int i0 = threadIdx.x / kChunk;
+  for (;;) {
+    const int ec = min(kChunk, E - c0);  // columns in this chunk
+    // the slot's row of gv, fetched into L2 while the copies land, so the
+    // flush's reductions find it there
+    if (claimed)
+      for (int c = 0; c < ec; c += 8) prefetch_l2(gv + j * E + c0 + c);
+    wait_async();
+    __syncthreads();  // slots claimed, rows landed, entries written, sums zeroed
+    // every contribution first, then the atomics: the compiler cannot move
+    // a shared load past an atomic on the same memory
+    int at[kChunk];
+    float add[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int i = i0 + q * kStride;
+      const FmEntry en = ent[i];
+      at[q] = en.pos >= 0 && e < ec ? tb.slot_at[en.pos] * kChunk + e : -1;
+      // x * v rounded as s's own term was (no fused multiply-add), so a row
+      // whose s is that one term gets the exact zero gradient
+      add[q] = en.gx * (srow[en.row * kChunk + e] - __fmul_rn(en.x, vrow[i * kChunk + e]));
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      if (at[q] >= 0) atomicAdd(sum + at[q], add[q]);
+    __syncthreads();  // sums complete; the staged rows are free
+    const int next = c0 + gridDim.y * kChunk;
+    if (next < E) issue(next);  // in flight during the flush
+    const int slots = *tb.count;
+    if constexpr (RED4) {
+      for (int u = threadIdx.x; u < slots * (kChunk / 4); u += kTile) {
+        const int slot = u / (kChunk / 4), c = 4 * (u % (kChunk / 4));
+        if (c < ec)
+          atomicAdd(reinterpret_cast<float4*>(gv + tb.key_of[slot] * E + c0 + c),
+                    *reinterpret_cast<const float4*>(sum + slot * kChunk + c));
+      }
+    } else {
+      for (int u = threadIdx.x; u < slots * kChunk; u += kTile) {
+        const int slot = u / kChunk, c = u % kChunk;
+        if (c < ec) atomicAdd(gv + tb.key_of[slot] * E + c0 + c, sum[u]);
+      }
+    }
+    if (next >= E) break;
+    __syncthreads();  // the flush has read the sums
+    zero_sums();
+    c0 = next;
+  }
 }
 
-inline unsigned blocks_for(int64_t threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+// Dynamic shared memory above 48 KB must be allowed per kernel first.
+template <typename Kern>
+cudaError_t allow_smem(Kern kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+inline unsigned tiles_for(int B, int K) {
+  return static_cast<unsigned>((static_cast<int64_t>(B) * K + kTile - 1) / kTile);
+}
+
+template <typename V, int COPY, bool RED4>
+cudaError_t launch_fm_pair_bwd_as(const int32_t* idx, const V* val,
+                                  const float* v, const float* s,
+                                  const float* g, float* gv, int B, int K,
+                                  int E, int64_t D, cudaStream_t st) {
+  auto kernel = fm_pair_bwd_kernel<V, COPY, RED4>;
+  const size_t bytes = fm_pair_bwd_smem(K);
+  const cudaError_t rc = allow_smem(kernel, bytes);
+  if (rc != cudaSuccess) return rc;
+  const int chunks = (E + kChunk - 1) / kChunk;  // a block loops past 65535
+  const dim3 grid(tiles_for(B, K), chunks < 65535 ? chunks : 65535);
+  kernel<<<grid, kTile, bytes, st>>>(idx, val, v, s, g, gv, B, K, E, D);
+  return cudaGetLastError();
+}
+
+// 16-byte copies where rows of v and s are a whole number of them, float4
+// reductions where gv's rows are.
+template <typename V>
+cudaError_t launch_fm_pair_bwd(const int32_t* idx, const V* val,
+                               const float* v, const float* s, const float* g,
+                               float* gv, int B, int K, int E, int64_t D,
+                               cudaStream_t st) {
+  const bool copy16 = E % 4 == 0 && aligned(v, 16) && aligned(s, 16);
+  const bool red4 = E % 4 == 0 && aligned(gv, 16);
+  if (copy16 && red4)
+    return launch_fm_pair_bwd_as<V, 16, true>(idx, val, v, s, g, gv, B, K, E, D, st);
+  if (copy16)
+    return launch_fm_pair_bwd_as<V, 16, false>(idx, val, v, s, g, gv, B, K, E, D, st);
+  if (red4)
+    return launch_fm_pair_bwd_as<V, 4, true>(idx, val, v, s, g, gv, B, K, E, D, st);
+  return launch_fm_pair_bwd_as<V, 4, false>(idx, val, v, s, g, gv, B, K, E, D, st);
+}
+
+constexpr size_t kMatvecBwdSmem = TileTable::bytes() + kTile * 4;
+
+template <typename V>
+cudaError_t launch_ell_matvec_bwd(const int32_t* idx, const V* val,
+                                  const float* g, float* gw, int B, int K,
+                                  int64_t D, cudaStream_t st) {
+  ell_matvec_bwd_kernel<V><<<tiles_for(B, K), kTile, kMatvecBwdSmem, st>>>(
+      idx, val, g, gw, B, K, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -422,17 +731,15 @@ int ell_matvec_fwd(const void* idx, const void* val, int val_f16,
 int ell_matvec_bwd(const void* idx, const void* val, int val_f16,
                    const void* g, void* gw, int B, int K, int64_t D,
                    void* stream) {
-  const dim3 grid(blocks_for(static_cast<int64_t>(B) * K));
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const float* gf = static_cast<const float*>(g);
+  float* o = static_cast<float*>(gw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (val_f16)
-    ell_matvec_bwd_kernel<__half><<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(idx), static_cast<const __half*>(val),
-        static_cast<const float*>(g), static_cast<float*>(gw), B, K, D);
-  else
-    ell_matvec_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(idx), static_cast<const float*>(val),
-        static_cast<const float*>(g), static_cast<float*>(gw), B, K, D);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_ell_matvec_bwd(
+        ix, static_cast<const __half*>(val), gf, o, B, K, D, st));
+  return static_cast<int>(launch_ell_matvec_bwd(
+      ix, static_cast<const float*>(val), gf, o, B, K, D, st));
 }
 
 int fm_pair_fwd(const void* idx, const void* val, int val_f16, const void* v,
@@ -455,19 +762,23 @@ int fm_pair_fwd(const void* idx, const void* val, int val_f16, const void* v,
 int fm_pair_bwd(const void* idx, const void* val, int val_f16, const void* v,
                 const void* s, const void* g, void* gv, int B, int K, int E,
                 int64_t D, void* stream) {
-  const dim3 grid(blocks_for(static_cast<int64_t>(B) * K * E));
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const float* vf = static_cast<const float*>(v);
+  const float* sf = static_cast<const float*>(s);
+  const float* gf = static_cast<const float*>(g);
+  float* o = static_cast<float*>(gv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (val_f16)
-    fm_pair_bwd_kernel<__half><<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(idx), static_cast<const __half*>(val),
-        static_cast<const float*>(v), static_cast<const float*>(s),
-        static_cast<const float*>(g), static_cast<float*>(gv), B, K, E, D);
-  else
-    fm_pair_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(idx), static_cast<const float*>(val),
-        static_cast<const float*>(v), static_cast<const float*>(s),
-        static_cast<const float*>(g), static_cast<float*>(gv), B, K, E, D);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_fm_pair_bwd(
+        ix, static_cast<const __half*>(val), vf, sf, gf, o, B, K, E, D, st));
+  return static_cast<int>(launch_fm_pair_bwd(
+      ix, static_cast<const float*>(val), vf, sf, gf, o, B, K, E, D, st));
+}
+
+// Dynamic shared memory of a K2 (fm = 0) or K4 (fm = 1) block at K, in
+// bytes.
+int scatter_smem_bytes(int fm, int K) {
+  return static_cast<int>(fm ? fm_pair_bwd_smem(K) : kMatvecBwdSmem);
 }
 
 int empty_launch(void* stream) {

@@ -257,3 +257,78 @@ def test_fm_pair_plain_matches_jax_at_edge_shapes(k, e, vdtype):
     assert np.isnan(s.numpy()[~ok]).all()
     s_want = np.asarray(jops.ell_matmul(idx[ok], val[ok], v))
     assert_fwd_close(s.numpy()[ok], s_want, scale_s[ok])
+
+
+def hot_inputs(seed, k, vdtype):
+    """The Criteo layout at the edge width: every row shares its first
+    min(13, k) columns (ids 0-12), the rest over [-D, D) (half wrapped
+    negatives); one row repeats a single index k times, and the last three
+    rows are padding. No out-of-range index: its NaN would reach every
+    shared row."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-EDGE_D, EDGE_D, (EDGE_B, k)).astype(np.int32)
+    hot = min(13, k)
+    idx[:, :hot] = np.arange(hot)
+    val = rng.normal(size=(EDGE_B, k)).astype(vdtype)
+    idx[1] = EDGE_D - 1
+    idx[EDGE_B - 3:] = 0
+    val[EDGE_B - 3:] = 0
+    return idx, val
+
+
+# the edge inputs at every K, and the hot layout at every K
+GRAD_LAYOUTS = {"edge": edge_inputs, "hot": hot_inputs}
+
+
+@pytest.mark.parametrize("vdtype", [np.float32, np.float16])
+@pytest.mark.parametrize("k", EDGE_K)
+@pytest.mark.parametrize("layout", list(GRAD_LAYOUTS))
+def test_ell_matvec_bwd_plain_matches_jax_grad(layout, k, vdtype):
+    """The plain gradient K2 is held to on the card, against jax.grad."""
+    idx, val = GRAD_LAYOUTS[layout](40 + k, k, vdtype)
+    rng = np.random.default_rng(41)
+    w = rng.normal(size=EDGE_D).astype(np.float32)
+    g = rng.normal(size=EDGE_B).astype(np.float32)
+    want = np.asarray(jax.grad(lambda w: jnp.sum(jops.ell_matvec(idx, val, w) * g))(w))
+    got = tops.ell_matvec_bwd_plain(tt(idx), tt(val), tt(g), EDGE_D)
+    assert got.dtype == torch.float32 and got.shape == (EDGE_D,)
+    assert_grad_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "layout,k,e",
+    [("edge", k, e) for k in EDGE_K for e in EDGE_E] + [("hot", k, 16) for k in EDGE_K],
+)
+@pytest.mark.parametrize("vdtype", [np.float32, np.float16])
+def test_fm_pair_bwd_plain_matches_jax_grad(layout, k, e, vdtype):
+    """The plain gradient K4 is held to on the card, against jax.grad of
+    the JAX FM's pair term (at K = 1 exactly 0)."""
+    idx, val = GRAD_LAYOUTS[layout](50 + k + e, k, vdtype)
+    rng = np.random.default_rng(51)
+    v = rng.normal(size=(EDGE_D, e)).astype(np.float32)
+    g = rng.normal(size=EDGE_B).astype(np.float32)
+    model = JaxFM(EDGE_D, embed_dim=e)
+    batch = {"indices": idx, "values": val}
+
+    def pair(v):
+        return model.forward({"w": jnp.zeros(EDGE_D), "v": v, "b": jnp.zeros(())}, batch)
+
+    want = np.asarray(jax.grad(lambda v: jnp.sum(pair(v) * g))(v))
+    # an out-of-range row poisons the entries of its other, valid indices:
+    # edge rows 3 and 4 have some where K > 1
+    assert np.isnan(want).any() == (layout == "edge" and k > 1)
+    _, s = tfm.fm_pair_fwd_plain(tt(idx), tt(val), tt(v))
+    got = tfm.fm_pair_bwd_plain(tt(idx), tt(val), tt(v), s, tt(g))
+    assert got.dtype == torch.float32 and got.shape == (EDGE_D, e)
+    assert_grad_close(got.numpy(), want)
+
+
+def test_scatter_variants_apply_to_the_kernel_source():
+    """Every variant ops/scatter_variants.py times is a substitution that
+    still applies to csrc/ell_kernels.cu (it builds nothing here)."""
+    from dmlc_core_tpu_torch.ops import _build, scatter_variants
+
+    src = _build._SRC.read_text()
+    for name, subs in scatter_variants.VARIANTS.items():
+        assert all(old in src for old, _ in subs), name
+        assert scatter_variants._source(subs) != src or not subs, name
