@@ -21,18 +21,35 @@ Phases (any failure exits non-zero and prints no result line):
    events on Criteo-shaped inputs, beside the time of an empty launch
    (``floor_us``) and, for the scatters, of the zero-fill of their dense
    gradient (``zero_fill_us``);
-4. the slice: a synthetic Criteo-shaped rowrec shard → ``ell_batches`` →
-   ``StagingPipeline(device="cuda")`` → FactorizationMachine SGD steps
-   (f32 values), then LogisticRegression steps (f16 values), with the
-   kernels' launch counts read around each path, finite falling loss,
-   the first staged batch equal to the host bytes, and the first step's
-   loss and gradients held against the plain versions on the card;
-5. the ``entry()`` forward on the card against the CPU.
+4. the native producers on the host alone (no card): Criteo rowrec → ELL
+   (f16 and f32), Criteo sparse libsvm and libfm → ELL, HIGGS libsvm and
+   csv → dense, each held bit for bit against its plain version
+   (``plain_batches``: the numpy rowrec decoder, or the text parser's
+   Python grammar → ``FixedShapeBatcher``; neither runs the native parse
+   core) on one block of rows, then timed in rows/s over a file of 2^18
+   rows with one producer and with the thread count ``picked_threads``
+   gives, and the plain version timed over the block, beside the host's
+   CPU counts;
+5. the slices, each producer → ``StagingPipeline(device="cuda")`` → SGD
+   steps, after a warm-up pass once with one producer thread and once
+   with ``picked_threads`` sub-shards (the main run: the kernels' launch counts read around it,
+   finite falling loss, row-weighted, and the first staged batch equal
+   to the host bytes): a synthetic
+   Criteo-shaped rowrec shard (32 batches of rows, written 4 times over) → ``ell_batches`` → FactorizationMachine
+   (f32 values) and LogisticRegression (f16 values); the same rows as
+   sparse libsvm → ``ell_batches(format="libsvm")`` → FactorizationMachine;
+   on these ELL paths the first step's loss and gradients are held
+   against the plain versions on the card. Then HIGGS csv →
+   ``dense_batches`` → LogisticRegression on ``x`` at B = 32768, whose
+   first step is held against the same step on the CPU;
+6. the ``entry()`` forward on the card against the CPU.
 
-It fails if any kernel instance spills registers. It prints a
-``{"ptxas": [...]}`` (with the scatters' dynamic shared memory), a
-``{"kernels": [...]}`` and a
-``{"slice": {...}}`` line, the nvidia-smi line, and last
+The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
+built with g++ beside the kernels' nvcc build, and its stamped source hash
+must equal the sha256 of the file. It fails if any kernel instance spills
+registers. It prints a ``{"ptxas": [...]}`` (with the scatters' dynamic
+shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}`` and
+a ``{"slice": {...}}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -46,6 +63,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,6 +71,14 @@ import torch
 B, K, E, D = 2048, 39, 16, 1 << 20
 N_DENSE = 13  # Criteo: 13 dense columns in every row + 26 categorical
 N_BATCHES = 32
+# the Criteo slice's file holds its N_BATCHES batches this many times over,
+# so each pass times 128 steps
+SLICE_REPEATS = 4
+# HIGGS: 28 dense features, staged 32768 rows a batch (bench.py:47)
+HIGGS_D, HIGGS_B, HIGGS_BATCHES = 28, 32768, 16
+# the producer phase: plain versions run one block of rows, the native
+# producers are timed over a file of the block repeated to 2^18 rows
+BLOCK_ROWS, PRODUCER_ROWS = 1 << 15, 1 << 18
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -349,21 +375,166 @@ def kernel_phase(dev, flush):
     return out
 
 
-def write_shard(path: str, rows: int, num_features: int, seed: int = 0) -> None:
+def criteo_data(rng, rows: int, num_features: int):
+    """Criteo-shaped rows (``criteo_rows``) with labels from a planted
+    model whose dense columns carry most of the signal."""
+    idx, val = criteo_rows(rng, rows, num_features)
+    planted = rng.normal(size=num_features).astype(np.float32)
+    planted[:N_DENSE] *= 4.0
+    labels = ((planted[idx] * val).sum(1) > 0).astype(np.float32)
+    return idx, val, labels
+
+
+def rowrec_bytes(idx, val, labels) -> bytes:
+    import io
+
     from dmlc_core_tpu_torch.data.row_block import RowBlock
     from dmlc_core_tpu_torch.data.rowrec import write_rowrec
 
-    rng = np.random.default_rng(seed)
-    idx, val = criteo_rows(rng, rows, num_features)
-    planted = rng.normal(size=num_features).astype(np.float32)
-    planted[:N_DENSE] *= 4.0  # the dense columns carry most of the signal
-    labels = ((planted[idx] * val).sum(1) > 0).astype(np.float32)
+    n = len(labels)
     blk = RowBlock(
-        offset=np.arange(rows + 1, dtype=np.int64) * K, label=labels,
+        offset=np.arange(n + 1, dtype=np.int64) * K, label=labels,
         index=idx.reshape(-1).astype(np.uint32), value=val.reshape(-1),
     )
+    out = io.BytesIO()
+    write_rowrec(out, [blk])
+    return out.getvalue()
+
+
+def text_lines(cols, sep: str) -> bytes:
+    """Columns of strings → the lines of a text file."""
+    return "".join(sep.join(r) + "\n" for r in zip(*[c.tolist() for c in cols])).encode()
+
+
+def criteo_text(idx, val, labels, fmt: str) -> bytes:
+    """Criteo rows as sparse libsvm (13 ``j:val`` tokens and 26 bare ids,
+    value 1) or libfm (``field:id:val`` and ``field:id``), as bench.py
+    writes them."""
+    cols = [np.char.mod("%d", labels.astype(np.int64))]
+    for j in range(N_DENSE):
+        tag = f"{j}:{j}" if fmt == "libfm" else f"{j}"
+        cols.append(np.char.mod(f"{tag}:%.6f", val[:, j]))
+    for j in range(N_DENSE, K):
+        cols.append(np.char.mod(f"{j}:%d" if fmt == "libfm" else "%d", idx[:, j]))
+    return text_lines(cols, " ")
+
+
+def higgs_data(rng, rows: int):
+    """HIGGS-shaped rows: 28 N(0,1) features, labels from a planted model."""
+    x = rng.normal(size=(rows, HIGGS_D)).astype(np.float32)
+    labels = (x @ rng.normal(size=HIGGS_D) > 0).astype(np.float32)
+    return x, labels
+
+
+def higgs_text(x, labels, fmt: str) -> bytes:
+    """HIGGS rows as libsvm (``j:val``, ids 0-27) or csv (label first)."""
+    cols = [np.char.mod("%d", labels.astype(np.int64))]
+    for j in range(HIGGS_D):
+        cols.append(np.char.mod("%.6f" if fmt == "csv" else f"{j}:%.6f", x[:, j]))
+    return text_lines(cols, "," if fmt == "csv" else " ")
+
+
+def write_file(path: str, block: bytes, repeats: int = 1) -> str:
     with open(path, "wb") as f:
-        write_rowrec(f, [blk])
+        for _ in range(repeats):
+            f.write(block)
+    return path
+
+
+def picked_threads(rows: int, batch: int) -> int:
+    """The producer fan-out for a file of ``rows`` rows (bench.py's rule):
+    every usable CPU, but no more sub-shards than leave each four full
+    batches."""
+    from dmlc_core_tpu_torch.utils.cpus import parse_threads
+
+    return parse_threads(max(1, rows // (batch * 4)))
+
+
+def native_source(uri, spec, nthread=None):
+    from dmlc_core_tpu_torch.staging.fused import dense_batches, ell_batches
+
+    if spec.layout == "dense":
+        return dense_batches(uri, spec, nthread=nthread)
+    return ell_batches(uri, spec, nthread=nthread)
+
+
+def rows_per_sec(source) -> float:
+    """Drain a producer alone; its rows over the wall time."""
+    t0 = time.perf_counter()
+    rows = sum(b.n_valid for b in source)
+    dt = time.perf_counter() - t0
+    source.close()
+    return rows / dt
+
+
+def batch_bits(batch):
+    """A batch's arrays as bytes, with the sign of a zero value dropped:
+    the native libsvm → dense kernel adds a row's features into a zeroed
+    row, so a -0.0 feature stages as +0.0 (as in the JAX package)."""
+    return [batch.n_valid] + [
+        (v + v.dtype.type(0) if v.dtype.kind == "f" else v).tobytes()
+        for v in batch.as_dict().values()]
+
+
+def same_batches(native, plain, what: str) -> int:
+    """Native and plain producer batches equal bit for bit (each checked
+    as it is yielded: both recycle ring slots); returns the batch count."""
+    n = 0
+    for a, b in zip(native, plain, strict=True):
+        if batch_bits(a) != batch_bits(b):
+            fail(f"{what}: native batch {n} differs from the plain version")
+        n += 1
+    native.close()
+    plain.close()
+    return n
+
+
+def producer_phase():
+    """Every native producer against its plain version, and its rows/s on
+    the host with one thread and with ``picked_threads``."""
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+    from dmlc_core_tpu_torch.staging.fused import plain_batches
+
+    rng = np.random.default_rng(2)
+    idx, val, labels = criteo_data(rng, BLOCK_ROWS, D)
+    x, ylab = higgs_data(rng, BLOCK_ROWS)
+    blocks = {
+        "criteo.rec": rowrec_bytes(idx, val, labels),
+        "criteo.libsvm": criteo_text(idx, val, labels, "libsvm"),
+        "criteo.libfm": criteo_text(idx, val, labels, "libfm"),
+        "higgs.libsvm": higgs_text(x, ylab, "libsvm"),
+        "higgs.csv": higgs_text(x, ylab, "csv"),
+    }
+    ell = lambda vdt: BatchSpec(batch_size=B, max_nnz=K, value_dtype=vdt)  # noqa: E731
+    dense = lambda vdt: BatchSpec(batch_size=HIGGS_B, layout="dense",  # noqa: E731
+                                  num_features=HIGGS_D, value_dtype=vdt)
+    streams = [
+        ("rowrec_f16", "criteo.rec", "", ell(np.float16)),
+        ("rowrec_f32", "criteo.rec", "", ell(np.float32)),
+        ("criteo_libsvm_f32", "criteo.libsvm", "?format=libsvm", ell(np.float32)),
+        ("criteo_libfm_f32", "criteo.libfm", "?format=libfm", ell(np.float32)),
+        ("higgs_libsvm_f16", "higgs.libsvm", "", dense(np.float16)),
+        ("higgs_csv_f32", "higgs.csv", "?format=csv&label_column=0", dense(np.float32)),
+    ]
+    out = {"host_cpus": os.cpu_count(), "affinity_cpus": len(os.sched_getaffinity(0)),
+           "block_rows": BLOCK_ROWS, "rows": PRODUCER_ROWS, "streams": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, block in blocks.items():
+            write_file(os.path.join(tmp, "block-" + name), block)
+            write_file(os.path.join(tmp, name), block, PRODUCER_ROWS // BLOCK_ROWS)
+        for name, fname, query, spec in streams:
+            small = os.path.join(tmp, "block-" + fname) + query
+            big = os.path.join(tmp, fname) + query
+            n = same_batches(native_source(small, spec), plain_batches(small, spec), name)
+            threads = picked_threads(PRODUCER_ROWS, spec.batch_size)
+            out["streams"][name] = {
+                "batches_compared": n,
+                "native_rows_per_sec_1thread": rows_per_sec(native_source(big, spec)),
+                "nthread": threads,
+                "native_rows_per_sec": rows_per_sec(native_source(big, spec, threads)),
+                "plain_rows_per_sec": rows_per_sec(plain_batches(small, spec)),
+            }
+    return out
 
 
 def plain_loss(params, batch):
@@ -380,16 +551,29 @@ def plain_loss(params, batch):
     return weighted_mean(bce_with_logits(scores, batch["labels"]), batch["weights"])
 
 
-def drive(model, path, spec, dev, lr):
-    """One pass of the main path: ell_batches → StagingPipeline → SGD.
+class RowLog:
+    """A producer that notes each batch's valid rows as the staging thread
+    pulls it (on the host: the timed loop gains no device work)."""
+
+    def __init__(self, source) -> None:
+        self.source, self.rows = source, []
+        self.ring_slots = source.ring_slots
+
+    def __iter__(self):
+        for batch in self.source:
+            self.rows.append(batch.n_valid)
+            yield batch
+
+
+def drive(name, model, source, dev, lr, min_steps: int = 20):
+    """One pass of a path: producer → StagingPipeline → SGD steps.
     Returns (stats, first batch, params before the first step)."""
     from dmlc_core_tpu_torch.ops import _build
-    from dmlc_core_tpu_torch.staging.fused import ell_batches
     from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
 
-    source = ell_batches(path, spec)
-    pipe = StagingPipeline(source, device=dev)
-    losses, step_s, wait_s = [], [], 0.0
+    log = RowLog(source)
+    pipe = StagingPipeline(log, device=dev)
+    losses, step_s, wait_s, first_wait = [], [], 0.0, None
     first = params0 = None
     _build.reset_launches()
     t_start = time.perf_counter()
@@ -402,6 +586,7 @@ def drive(model, path, spec, dev, lr):
         if batch is None:
             break
         if first is None:
+            first_wait = t1 - t0
             first = {k: t.clone() for k, t in batch.items()}
             params0 = {k: p.detach().clone() for k, p in model.params().items()}
         losses.append(float(model.sgd_step(batch, lr=lr)))  # syncs the step
@@ -412,17 +597,21 @@ def drive(model, path, spec, dev, lr):
     if not drain_close(pipe, source):
         fail("staging pipeline did not close cleanly")
     n = len(losses)
-    if n < 20:
-        fail(f"only {n} steps ran")
+    if n < min_steps:
+        fail(f"{name}: only {n} steps ran")
     if not all(np.isfinite(losses)):
-        fail(f"non-finite loss: {losses}")
-    head, tail = np.mean(losses[:4]), np.mean(losses[-4:])
+        fail(f"{name}: non-finite loss: {losses}")
+    # row-weighted: a sub-shard's short tail batch counts by its rows
+    rows = log.rows
+    head = np.average(losses[:4], weights=rows[:4])
+    tail = np.average(losses[-4:], weights=rows[-4:])
     if not tail < head:
-        fail(f"loss did not fall: first steps {head}, last steps {tail}")
+        fail(f"{name}: loss did not fall: first steps {head}, last steps {tail}: {losses}")
     return {
         "steps": n, "step_ms": statistics.median(step_s) * 1e3,
+        "step_ms_first": step_s[0] * 1e3, "steps_s_total": sum(step_s),
         "staged_rows_per_sec": thr["rows_per_sec"],
-        "wait_share": wait_s / wall, "wall_s": wall,
+        "wait_share": wait_s / wall, "wall_s": wall, "first_batch_wait_s": first_wait,
         "stage_seconds": {k[5:]: v for k, v in thr.items() if k.startswith("secs_")},
         "loss_first": losses[0], "loss_last": losses[-1],
         "launches": launches,
@@ -440,6 +629,20 @@ def check_first_step(model, first, params0):
     close_enough(loss_k.reshape(1), loss_p.detach().reshape(1), "fwd", "first-step loss")
     for k in grads_p:
         close_enough(grads_k[k], grads_p[k], "grad", f"first-step grad {k}")
+
+
+def check_first_step_on_cpu(model, make, first, params0):
+    """The first step's loss and gradients on the card against the same
+    step on the CPU (a dense model: no kernel, a matmul in another
+    order)."""
+    model.load_state_dict(params0)
+    loss_d, grads_d = model.loss_and_grads(first)
+    cpu = make("cpu")
+    cpu.load_state_dict({k: p.cpu() for k, p in params0.items()})
+    loss_c, grads_c = cpu.loss_and_grads({k: t.cpu() for k, t in first.items()})
+    close_enough(loss_d.cpu().reshape(1), loss_c.reshape(1), "fwd", "first-step loss vs CPU")
+    for k in grads_c:
+        close_enough(grads_d[k].cpu(), grads_c[k], "grad", f"first-step grad {k} vs CPU")
 
 
 def profile_steps(model, batch, lr: float, n: int = 8):
@@ -473,38 +676,77 @@ def profile_steps(model, batch, lr: float, n: int = 8):
     }
 
 
-def check_staged(path, spec, dev, first) -> None:
-    """The first staged batch equals the host batch's bytes."""
-    from dmlc_core_tpu_torch.staging.fused import ell_batches
-
-    src = ell_batches(path, spec)
+def check_staged(uri, spec, first) -> None:
+    """The first staged batch equals the first host batch's bytes."""
+    src = native_source(uri, spec)
     host = next(iter(src)).as_dict()
-    src.close()
     for k, v in host.items():
         if not np.array_equal(first[k].cpu().numpy(), v):
             fail(f"staged {k} differs from the host batch")
+    src.close()
 
 
 def slice_phase(dev, num_features: int = D, embed_dim: int = E,
                 n_batches: int = N_BATCHES):
+    """Each path at full width: (name, uri, spec, model, lr, first-step
+    check), driven through its native producer three times: a warm-up
+    pass, a pass with one thread (``one_thread``) and a pass with the
+    thread count ``picked_threads`` gives (the main run: checks, profile
+    and launches)."""
     from dmlc_core_tpu_torch.models import FactorizationMachine, LogisticRegression
     from dmlc_core_tpu_torch.staging.batcher import BatchSpec
 
+    def fm(d):
+        return FactorizationMachine(num_features, embed_dim, device=d,
+                                    generator=torch.Generator(device=d).manual_seed(0))
+
+    def lr_sparse(d):
+        return LogisticRegression(num_features, device=d,
+                                  generator=torch.Generator(device=d).manual_seed(0))
+
+    def lr_dense(d):
+        return LogisticRegression(HIGGS_D, device=d,
+                                  generator=torch.Generator(device=d).manual_seed(0))
+
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "criteo.rec")
-        write_shard(path, n_batches * B, num_features)
-        for name, make, vdt, lr in (
-            ("fm", lambda g: FactorizationMachine(num_features, embed_dim, device=dev, generator=g),
-             np.float32, 0.5),
-            ("lr", lambda g: LogisticRegression(num_features, device=dev, generator=g),
-             np.float16, 0.5),
-        ):
-            spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=vdt)
-            model = make(torch.Generator(device=dev).manual_seed(0))
-            stats, first, params0 = drive(model, path, spec, dev, lr)
-            check_staged(path, spec, dev, first)
-            check_first_step(model, first, params0)
+        rng = np.random.default_rng(0)
+        idx, val, labels = criteo_data(rng, n_batches * B, num_features)
+        rows = n_batches * B * SLICE_REPEATS
+        rec = write_file(os.path.join(tmp, "criteo.rec"), rowrec_bytes(idx, val, labels),
+                         SLICE_REPEATS)
+        svm = write_file(os.path.join(tmp, "criteo.libsvm"),
+                         criteo_text(idx, val, labels, "libsvm"), SLICE_REPEATS)
+        x, ylab = higgs_data(rng, HIGGS_B)
+        csv = write_file(os.path.join(tmp, "higgs.csv"), higgs_text(x, ylab, "csv"),
+                         HIGGS_BATCHES)
+        ell = lambda vdt: BatchSpec(batch_size=B, max_nnz=K, value_dtype=vdt)  # noqa: E731
+        paths = [
+            ("fm", rec, ell(np.float32), fm, 0.5, "kernels"),
+            ("lr", rec, ell(np.float16), lr_sparse, 0.5, "kernels"),
+            ("libsvm_fm", svm + "?format=libsvm", ell(np.float32), fm, 0.5, "kernels"),
+            ("csv_lr", csv + "?format=csv&label_column=0",
+             BatchSpec(batch_size=HIGGS_B, layout="dense", num_features=HIGGS_D),
+             lr_dense, 1.0, "cpu"),
+        ]
+        for name, uri, spec, make, lr, check in paths:
+            n_rows = HIGGS_B * HIGGS_BATCHES if spec.layout == "dense" else rows
+            threads = picked_threads(n_rows, spec.batch_size)
+            min_steps = HIGGS_BATCHES - 2 if spec.layout == "dense" else 20
+            # a pass that pays the path's first-use costs (allocator
+            # growth, library handles), so the two timed passes start warm
+            drive(name, make(dev), native_source(uri, spec), dev, lr, min_steps)
+            one, _, _ = drive(name, make(dev), native_source(uri, spec), dev, lr, min_steps)
+            model = make(dev)
+            stats, first, params0 = drive(
+                name, model, native_source(uri, spec, threads), dev, lr, min_steps)
+            stats["nthread"] = threads
+            stats["one_thread"] = one
+            check_staged(uri, spec, first)
+            if check == "kernels":
+                check_first_step(model, first, params0)
+            else:
+                check_first_step_on_cpu(model, make, first, params0)
             stats["profile"] = profile_steps(model, first, lr)
             out[name] = stats
     return out
@@ -540,6 +782,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dmlc_core_tpu_torch.data import native
     from dmlc_core_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -555,8 +798,13 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    so = _build.build()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s -> {so.name}")
+    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ side by side
+        builds = [pool.submit(_build.build), pool.submit(native.build)]
+        so, native_so = (b.result() for b in builds)
+    print(f"kernel and native builds: {time.perf_counter() - t0:.1f} s -> "
+          f"{so.name}, {native_so.name}")
+    if native.source_hash() != native.source_sha256():
+        fail(f"{native.library_path()} was not built from the checkout's fastparse.cc")
     ptxas = ptxas_summary(_build.build_log)
     print(json.dumps({"ptxas": ptxas, "dynamic_smem_bytes": _build.scatter_smem_bytes(K)}))
     if not ptxas:
@@ -568,6 +816,7 @@ def main() -> None:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = kernel_phase(dev, flush)
     del flush
+    producers = producer_phase()
     slice_stats = slice_phase(dev)
     entry_phase(dev)
     torch.cuda.synchronize()
@@ -578,9 +827,15 @@ def main() -> None:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
     for name, s in slice_stats.items():
-        if s["launches"]["ell_matvec_fwd"] == 0 or s["launches"]["ell_matvec_bwd"] == 0:
-            fail(f"{name} path did not launch K1/K2")
+        # K1/K2 on every ELL path, K3/K4 on the FM ones, none on dense
+        want = (() if name == "csv_lr" else KERNEL_NAMES if "fm" in name
+                else KERNEL_NAMES[:2])
+        if any(s["launches"][k] == 0 for k in want):
+            fail(f"{name} path did not launch {want}: {s['launches']}")
+        if name == "csv_lr" and any(s["launches"].values()):
+            fail(f"the dense path launched ELL kernels: {s['launches']}")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"producers": producers}))
     print(json.dumps({"slice": slice_stats}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

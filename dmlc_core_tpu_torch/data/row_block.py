@@ -6,6 +6,8 @@ Arrays (numpy, contiguous):
   index  : uint32/uint64[nnz]
   value  : float32[nnz] | None  (None = all 1.0, binary features)
   weight : float32[size] | None (None = all 1.0)
+  qid    : int64[size] | None   (libsvm query ids)
+  field  : int64[nnz] | None    (libfm field ids)
 """
 
 from __future__ import annotations
@@ -16,11 +18,14 @@ import numpy as np
 
 from ..utils.logging import check, check_eq
 
-__all__ = ["RowBlock"]
+__all__ = ["INDEX_T", "RowBlock"]
+
+# feature ids of parsed text blocks (the JAX package's INDEX_T)
+INDEX_T = np.uint64
 
 
 class RowBlock:
-    __slots__ = ("offset", "label", "index", "value", "weight")
+    __slots__ = ("offset", "label", "index", "value", "weight", "qid", "field")
 
     def __init__(
         self,
@@ -29,12 +34,16 @@ class RowBlock:
         index: np.ndarray,
         value: Optional[np.ndarray] = None,
         weight: Optional[np.ndarray] = None,
+        qid: Optional[np.ndarray] = None,
+        field: Optional[np.ndarray] = None,
     ) -> None:
         self.offset = np.ascontiguousarray(offset, dtype=np.int64)
         self.label = np.ascontiguousarray(label)
         self.index = np.ascontiguousarray(index)
         self.value = None if value is None else np.ascontiguousarray(value)
         self.weight = None if weight is None else np.ascontiguousarray(weight)
+        self.qid = None if qid is None else np.ascontiguousarray(qid)
+        self.field = None if field is None else np.ascontiguousarray(field)
         check_eq(int(self.offset[0]), 0, "offset must start at 0")
         check_eq(len(self.label), self.size, "label size mismatch")
         check_eq(int(self.offset[-1]), len(self.index), "offset/index mismatch")
@@ -42,6 +51,10 @@ class RowBlock:
             check_eq(len(self.value), self.nnz, "value size mismatch")
         if self.weight is not None:
             check_eq(len(self.weight), self.size, "weight size mismatch")
+        if self.qid is not None:
+            check_eq(len(self.qid), self.size, "qid size mismatch")
+        if self.field is not None:
+            check_eq(len(self.field), self.nnz, "field size mismatch")
 
     @property
     def size(self) -> int:
@@ -64,6 +77,8 @@ class RowBlock:
             index=self.index[lo:hi],
             value=None if self.value is None else self.value[lo:hi],
             weight=None if self.weight is None else self.weight[begin:end],
+            qid=None if self.qid is None else self.qid[begin:end],
+            field=None if self.field is None else self.field[lo:hi],
         )
 
     @staticmethod
@@ -78,12 +93,13 @@ class RowBlock:
             offsets.append(b.offset[1:] + base)
             base += int(b.offset[-1])
 
-        def cat(name: str, per_row: bool):
+        def cat(name: str, fill):
             parts = [getattr(b, name) for b in blocks]
             if all(p is None for p in parts):
                 return None
+            per_row = name in ("weight", "qid")
             return np.concatenate([
-                np.ones(b.size if per_row else b.nnz, np.float32)
+                np.full(b.size if per_row else b.nnz, fill)
                 if p is None else p
                 for b, p in zip(blocks, parts)
             ])
@@ -92,6 +108,8 @@ class RowBlock:
             offset=np.concatenate(offsets),
             label=np.concatenate([b.label for b in blocks]),
             index=np.concatenate([b.index for b in blocks]),
-            value=cat("value", per_row=False),
-            weight=cat("weight", per_row=True),
+            value=cat("value", np.float32(1.0)),
+            weight=cat("weight", np.float32(1.0)),
+            qid=cat("qid", np.int64(0)),
+            field=cat("field", np.int64(0)),
         )

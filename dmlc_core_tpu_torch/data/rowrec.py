@@ -22,6 +22,7 @@ import numpy as np
 from ..io.recordio import RecordIOChunkReader, RecordIOWriter
 from ..io.split import RecordIOSplitter
 from ..utils.logging import check
+from .parser import Parser
 from .row_block import RowBlock
 
 __all__ = [
@@ -111,27 +112,21 @@ def write_rowrec(stream: BinaryIO, blocks: Iterable[RowBlock]) -> int:
     return n
 
 
-class RowRecParser:
+class RowRecParser(Parser):
     """Part ``part_index`` of ``num_parts`` of a local .rec file →
-    one RowBlock per chunk of whole records."""
+    one RowBlock per chunk of whole records, decoded record by record
+    (the plain version the native rowrec producer is held to)."""
 
     def __init__(
         self, path: str, part_index: int = 0, num_parts: int = 1
     ) -> None:
         self._source = RecordIOSplitter(path, part_index, num_parts)
 
-    def parse_next(self) -> Optional[RowBlock]:
+    def parse_next(self) -> Optional[List[RowBlock]]:
         chunk = self._source.next_chunk()
         if chunk is None:
             return None
-        return decode_records(RecordIOChunkReader(chunk))
-
-    def __iter__(self):
-        while True:
-            blk = self.parse_next()
-            if blk is None:
-                return
-            yield blk
+        return [decode_records(RecordIOChunkReader(chunk))]
 
     def close(self) -> None:
         self._source.close()

@@ -1,14 +1,18 @@
-"""Fixed-shape ELL batching of ragged RowBlocks.
+"""Fixed-shape batching of ragged RowBlocks, in two layouts.
 
-A batch is ``indices i32[B,K]``, ``values f32|f16[B,K]`` (zero padded),
-per-row ``nnz i32[B]``, ``labels f32[B]`` and ``weights f32[B]``, all views
-into ONE contiguous uint8 buffer (``Batch.packed``) whose sections start
-on ``PACK_ALIGN`` boundaries — so the staging pipeline moves a batch in a
-single host→device copy. Rows wider than K keep their first K features
-('truncate', counted) or raise ('error'); ids that do not fit the index
-dtype leave their slot zero and are counted the same way. A partial
-final batch is zero padded to B rows with weight 0, so models use
-``weights`` as the validity mask.
+- ``ell``: ``indices i32[B,K]``, ``values f32|f16[B,K]`` (zero padded) and
+  per-row ``nnz i32[B]``. Rows wider than K keep their first K features
+  ('truncate', counted) or raise ('error'); ids that do not fit the index
+  dtype leave their slot zero and are counted the same way.
+- ``dense``: ``x f32|f16[B,D]`` (HIGGS-style tabular rows). Ids >= D
+  (wrapped negatives included) are dropped and counted, or raise;
+  duplicate ids in a row add up.
+
+Both carry ``labels f32[B]`` and ``weights f32[B]``, and every array is a
+view into ONE contiguous uint8 buffer (``Batch.packed``) whose sections
+start on ``PACK_ALIGN`` boundaries, so the staging pipeline moves a batch
+in a single host→device copy. A partial final batch is zero padded to B
+rows with weight 0, so models use ``weights`` as the validity mask.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ __all__ = [
     "Batch",
     "BatchSpec",
     "FixedShapeBatcher",
+    "alloc_dense_slot",
+    "alloc_ell_slot",
     "alloc_packed_slot",
 ]
 
@@ -59,8 +65,8 @@ def alloc_packed_slot(sections):
 @dataclass(frozen=True)
 class Batch:
     """One fixed-shape host batch; ``n_valid`` rows are real, the rest are
-    zero padding with weight 0. ``packed`` is the buffer the other arrays
-    view into."""
+    zero padding with weight 0. 'ell' sets indices/values/nnz, 'dense'
+    sets x. ``packed`` is the buffer the other arrays view into."""
 
     labels: np.ndarray
     weights: np.ndarray
@@ -68,41 +74,46 @@ class Batch:
     indices: Optional[np.ndarray] = None
     values: Optional[np.ndarray] = None
     nnz: Optional[np.ndarray] = None
+    x: Optional[np.ndarray] = None
     packed: Optional[np.ndarray] = None
 
     def as_dict(self) -> Dict[str, np.ndarray]:
         """The arrays that land on the device, by name."""
-        return {
-            "labels": self.labels,
-            "weights": self.weights,
-            "indices": self.indices,
-            "values": self.values,
-            "nnz": self.nnz,
-        }
+        out = {"labels": self.labels, "weights": self.weights}
+        if self.x is not None:
+            out["x"] = self.x
+        else:
+            out.update(indices=self.indices, values=self.values, nnz=self.nnz)
+        return out
 
 
 @dataclass
 class BatchSpec:
-    """Static-shape contract for an ELL batch stream.
+    """Static-shape contract for a batch stream.
 
-    batch_size: rows per batch. max_nnz: K. overflow: 'truncate' |
-    'error'. value_dtype: float32 or float16 staged feature values
-    (labels/weights stay float32). The dense layout is not ported yet."""
+    batch_size: rows per batch. layout: 'ell' or 'dense'. max_nnz: K
+    ('ell'). num_features: D ('dense'). overflow: 'truncate' | 'error'.
+    value_dtype: float32 or float16 staged feature values (labels and
+    weights stay float32)."""
 
     batch_size: int
     layout: str = "ell"
     max_nnz: Optional[int] = None
+    num_features: Optional[int] = None
     overflow: str = "truncate"
     index_dtype: np.dtype = np.dtype(np.int32)
     value_dtype: np.dtype = np.dtype(np.float32)
 
     def __post_init__(self) -> None:
-        check(self.layout == "ell",
-              f"layout {self.layout!r}: only 'ell' is ported")
+        check(self.layout in ("ell", "dense"), f"bad layout {self.layout!r}")
         check(self.overflow in ("truncate", "error"),
               f"bad overflow policy {self.overflow!r}")
-        check(self.max_nnz is not None and self.max_nnz > 0,
-              "ell layout requires max_nnz")
+        if self.layout == "ell":
+            check(self.max_nnz is not None and self.max_nnz > 0,
+                  "ell layout requires max_nnz")
+        else:
+            check(self.num_features is not None and self.num_features > 0,
+                  "dense layout requires num_features")
         self.index_dtype = np.dtype(self.index_dtype)
         self.value_dtype = np.dtype(self.value_dtype)
 
@@ -118,6 +129,55 @@ def alloc_ell_slot(spec: BatchSpec):
         ("labels", (B,), np.float32),
         ("weights", (B,), np.float32),
     ])
+
+
+def alloc_dense_slot(spec: BatchSpec):
+    """(packed buffer, views) in the section order every dense producer
+    uses: x, labels, weights."""
+    B, D = spec.batch_size, int(spec.num_features)
+    return alloc_packed_slot([
+        ("x", (B, D), spec.value_dtype),
+        ("labels", (B,), np.float32),
+        ("weights", (B,), np.float32),
+    ])
+
+
+def fill_dense_rows(views, blk: RowBlock, spec: BatchSpec) -> int:
+    """Write ``blk`` into the first ``blk.size`` rows of a fresh dense
+    slot; returns the count of features dropped (ids >= D, compared as
+    uint64 so wrapped negatives count too). Duplicate ids in a row add."""
+    D = int(spec.num_features)
+    x = views["x"]
+    m = blk.size
+    dropped = 0
+    if blk.nnz:
+        nnz_per_row = np.diff(blk.offset)
+        keep = blk.index.astype(np.uint64, copy=False) < np.uint64(D)
+        idx = blk.index.astype(np.int64)
+        dropped = int((~keep).sum())
+        if dropped and spec.overflow == "error":
+            raise Error(f"feature index {int(idx.max())} >= num_features={D}")
+        vals = (
+            blk.value if blk.value is not None
+            else np.ones(blk.nnz, dtype=np.float32)
+        )
+        # uniform row width with increasing ids (every tabular format):
+        # one fancy assignment instead of the slower np.add.at scatter
+        k0 = int(nnz_per_row[0]) if m else 0
+        uniform = k0 > 0 and not dropped and np.all(nnz_per_row == k0)
+        if uniform:
+            idx2 = idx.reshape(m, k0)
+            uniform = k0 == 1 or bool(np.all(idx2[:, 1:] > idx2[:, :-1]))
+        # f32→f16 rounds to nearest and saturates to ±inf (chosen policy)
+        with np.errstate(over="ignore"):
+            if uniform:
+                x[np.arange(m)[:, None], idx2] = vals.reshape(m, k0)
+            else:
+                row_ids = np.repeat(np.arange(m), nnz_per_row)
+                np.add.at(x, (row_ids[keep], idx[keep]), vals[keep])
+    views["labels"][:m] = blk.label
+    views["weights"][:m] = 1.0 if blk.weight is None else blk.weight
+    return dropped
 
 
 def fill_ell_rows(views, row0: int, blk: RowBlock, spec: BatchSpec) -> int:
@@ -183,7 +243,7 @@ def fill_ell_rows(views, row0: int, blk: RowBlock, spec: BatchSpec) -> int:
     return dropped
 
 
-def pad_ell_tail(views, fill: int) -> None:
+def pad_tail(views, fill: int) -> None:
     """Zero rows ``[fill:]`` of a (possibly recycled) slot: padding rows
     carry weight 0."""
     for v in views.values():
@@ -199,9 +259,9 @@ def ell_batch(packed: np.ndarray, views, n_valid: int) -> Batch:
 
 
 class FixedShapeBatcher:
-    """RowBlock stream → fixed-shape ELL Batch stream. Carries a partial
-    remainder between blocks; the final batch is zero padded. Each batch
-    owns a fresh packed buffer."""
+    """RowBlock stream → fixed-shape Batch stream in ``spec.layout``.
+    Carries a partial remainder between blocks; the final batch is zero
+    padded. Each batch owns a fresh packed buffer."""
 
     def __init__(self, spec: BatchSpec) -> None:
         self.spec = spec
@@ -210,6 +270,11 @@ class FixedShapeBatcher:
         self._pending_rows = 0
 
     def _emit(self, blk: RowBlock) -> Batch:
+        if self.spec.layout == "dense":
+            packed, views = alloc_dense_slot(self.spec)
+            self.truncated_nnz += fill_dense_rows(views, blk, self.spec)
+            return Batch(labels=views["labels"], weights=views["weights"],
+                         n_valid=blk.size, x=views["x"], packed=packed)
         packed, views = alloc_ell_slot(self.spec)
         self.truncated_nnz += fill_ell_rows(views, 0, blk, self.spec)
         return ell_batch(packed, views, blk.size)

@@ -1,37 +1,91 @@
-"""ELL batches of a rowrec shard filled straight into a ring of packed
-slots (the port of ``staging/fused.py``'s rowrec producer, in numpy).
+"""Batch producers: rowrec, libsvm, libfm and csv files → ring slots of
+fixed-shape batches (the port of ``dmlc_core_tpu/staging/fused.py``).
 
-Each chunk of whole records from the record-aligned split is decoded into
-rows and written into the current ring slot; a full slot is yielded as a
-Batch whose arrays view the slot's packed buffer (section order
-indices, values, nnz, labels, weights; the final partial batch zero
-padded). A yielded batch stays valid until ``ring_slots - 1`` further
-batches have been produced.
+The native producers hand each chunk of the file straight to a fused
+kernel of the native parse core (``data/native.py``), which writes the
+rows into the current ring slot: no CSR arrays, no per-row Python.
+
+- ``FusedEllRowRecBatches``: rowrec RecordIO → ELL [B,K], over raw mmap
+  windows (the kernel stops at a trailing partial record; a record wider
+  than the window widens it).
+- ``FusedEllLibSVMBatches`` / ``FusedEllLibFMBatches``: libsvm / libfm
+  text → ELL [B,K]; libfm fields are checked, then dropped.
+- ``FusedDenseLibSVMBatches`` / ``FusedDenseCSVBatches``: libsvm / csv
+  text → dense [B,D].
+
+Every producer maps its part's byte range, ``[begin, end)`` as
+``io.split.part_range`` snaps it to record starts, and hands the kernels
+views of the page cache. Text is read in line-aligned chunks of that
+range; a UTF-8 BOM at the start of a part is skipped.
+The native producers keep the JAX package's fused semantics, which
+differ from the parser path in three places: libsvm/libfm
+``indexing_mode=-1`` is resolved ONCE from the head of the file (the
+parsers detect it per block), libsvm ``qid`` is dropped, and with
+``nthread`` > 1 (``ShardedFusedBatches``) each sub-shard pads its own
+tail batch and batches interleave round-robin.
+
+``ell_batches`` and ``dense_batches`` always return a native producer.
+The plain versions the tests and ``chip_smoke.py`` hold them to are
+``EllRowRecBatches`` (rowrec decoded record by record in numpy) and
+``GenericBatchStream`` (a parser running its Python grammar,
+``parse_block_plain`` → ``FixedShapeBatcher``), both from
+``plain_batches``; neither runs the native parse core.
+
+A yielded batch views a ring slot and stays valid until ``ring_slots - 1``
+further batches have been produced.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+import mmap
+import struct
+from functools import partial
+from typing import Iterator, List, Optional
 
 import numpy as np
 
+from ..data import create_parser, native, parser_options
 from ..data.rowrec import RowRecParser
-from ..utils.logging import check
+from ..data.strtonum import parse_triple
+from ..io import split as io_split
+from ..io.recordio import KMAGIC
+from ..io.uri import URISpec
+from ..utils.logging import Error, check
+from ..utils.prefetch import Prefetcher
 from .batcher import (
     Batch,
     BatchSpec,
+    FixedShapeBatcher,
+    alloc_dense_slot,
     alloc_ell_slot,
     ell_batch,
     fill_ell_rows,
-    pad_ell_tail,
+    pad_tail,
 )
 
-__all__ = ["EllRowRecBatches", "ell_batches"]
+__all__ = [
+    "EllRowRecBatches",
+    "FusedDenseCSVBatches",
+    "FusedDenseLibSVMBatches",
+    "FusedEllLibFMBatches",
+    "FusedEllLibSVMBatches",
+    "FusedEllRowRecBatches",
+    "GenericBatchStream",
+    "ShardedFusedBatches",
+    "dense_batches",
+    "ell_batches",
+    "plain_batches",
+]
+
+_BOM = b"\xef\xbb\xbf"
+_MMAP_CHUNK = 32 << 20
+_PROBE_BYTES = 262144
 
 
 class EllRowRecBatches:
-    """Iterator of ELL Batches over part ``part_index`` of ``num_parts``
-    of a local rowrec file, filling a ring of ``ring`` packed slots."""
+    """The plain rowrec producer: ELL Batches over part ``part_index`` of
+    ``num_parts`` of a local rowrec file, decoded record by record in
+    numpy and written into a ring of ``ring`` packed slots."""
 
     def __init__(
         self,
@@ -41,10 +95,7 @@ class EllRowRecBatches:
         num_parts: int = 1,
         ring: int = 10,
     ) -> None:
-        check(spec.value_dtype in (np.dtype(np.float32), np.dtype(np.float16)),
-              f"ELL staging takes f32/f16 values, not {spec.value_dtype}")
-        check(spec.index_dtype == np.dtype(np.int32),
-              "ELL staging stages int32 indices")
+        _check_ell_spec(spec)
         self.spec = spec
         self._parser = RowRecParser(path, part_index, num_parts)
         self._ring = [alloc_ell_slot(spec) for _ in range(max(2, ring))]
@@ -74,20 +125,610 @@ class EllRowRecBatches:
                     yield self._emit(B)
                     fill = 0
         if fill:
-            pad_ell_tail(self._ring[self._slot][1], fill)
+            pad_tail(self._ring[self._slot][1], fill)
             yield self._emit(fill)
 
     def close(self) -> None:
         self._parser.close()
 
 
+def _check_ell_spec(spec: BatchSpec) -> None:
+    check(spec.layout == "ell", f"ELL producer given layout {spec.layout!r}")
+    check(spec.value_dtype in (np.dtype(np.float32), np.dtype(np.float16)),
+          f"ELL staging takes f32/f16 values, not {spec.value_dtype}")
+    check(spec.index_dtype == np.dtype(np.int32),
+          "ELL staging stages int32 indices")
+
+
+def _file_head(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read(_PROBE_BYTES)
+
+
+def _probe_base(chunk) -> int:
+    """The libsvm auto indexing base from the head of a chunk (reference
+    heuristic, libsvm_parser.h:159-168): 1-based iff no feature id 0
+    appears in the first ~256 KB."""
+    head = bytes(memoryview(chunk)[:_PROBE_BYTES])
+    min_idx: Optional[int] = None
+    for line in head.splitlines()[:2000]:
+        toks = line.split(b"#", 1)[0].split()
+        for tok in toks[1:]:
+            if tok.startswith(b"qid:"):
+                continue
+            try:
+                idx = int(tok.split(b":", 1)[0])
+            except ValueError:
+                continue
+            if idx == 0:
+                return 0
+            if min_idx is None or idx < min_idx:
+                min_idx = idx
+    return 1 if (min_idx is not None and min_idx > 0) else 0
+
+
+def _probe_libfm_base(chunk) -> int:
+    """The libfm auto indexing base from the head of a chunk: 1-based iff
+    every field id AND feature id seen is > 0 (libfm_parser.h:67-144),
+    with tokens taken or skipped by the parsers' own ``parse_triple``."""
+    head = bytes(memoryview(chunk)[:_PROBE_BYTES])
+    seen = False
+    for line in head.splitlines()[:2000]:
+        for tok in line.split()[1:]:
+            triple = parse_triple(tok)
+            if triple is None:
+                continue
+            fid, feat, _v = triple
+            if fid <= 0 or feat <= 0:
+                return 0
+            seen = True
+    return 1 if seen else 0
+
+
+class _MmapFile:
+    """Bytes ``[begin, end)`` of a local file mapped read-only; the native
+    kernels read the page cache directly, with no per-chunk copy."""
+
+    def __init__(self, path: str, begin: int, end: int,
+                 chunk_bytes: int = _MMAP_CHUNK) -> None:
+        self._f = open(path, "rb")
+        self.begin, self.end = begin, end
+        self._mm = (mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ)
+                    if end > begin else None)
+        self._chunk = chunk_bytes
+        self._pos = begin
+
+    def close(self) -> None:
+        if self._mm is not None:
+            try:
+                self._mm.close()
+            except BufferError:
+                pass  # a chunk view is still alive; GC finishes the unmap
+            self._mm = None
+        self._f.close()
+
+
+class _MmapChunks(_MmapFile):
+    """Line-aligned chunks of the mapped range."""
+
+    def next_chunk(self):
+        if self._mm is None or self._pos >= self.end:
+            return None
+        begin = self._pos
+        end = min(begin + self._chunk, self.end)
+        if end < self.end:
+            nl = self._mm.rfind(b"\n", begin, end)
+            if nl < begin:
+                nl = self._mm.find(b"\n", end, self.end)
+                end = self.end if nl < 0 else nl + 1
+            else:
+                end = nl + 1
+        self._pos = end
+        return memoryview(self._mm)[begin:end]
+
+
+class _MmapRawChunks(_MmapFile):
+    """Raw windows of the mapped range, moved by the caller:
+    ``advance(consumed)`` after a kernel call, ``grow()`` when not one
+    whole record fits the window."""
+
+    def __init__(self, path: str, begin: int, end: int,
+                 chunk_bytes: int = _MMAP_CHUNK) -> None:
+        super().__init__(path, begin, end, chunk_bytes)
+        self._width = chunk_bytes
+
+    def window(self):
+        """The current window, or None at the end of the range."""
+        if self._mm is None or self._pos >= self.end:
+            return None
+        end = min(self._pos + self._width, self.end)
+        return memoryview(self._mm)[self._pos:end]
+
+    def advance(self, consumed: int) -> None:
+        self._pos += consumed
+        if consumed:
+            self._width = self._chunk
+
+    def grow(self) -> bool:
+        """Double the window; False when it already reaches the end of
+        the range (the file is truncated)."""
+        if self._pos + self._width >= self.end:
+            return False
+        self._width *= 2
+        return True
+
+
+class _RingBatches:
+    """A ring of ``ring`` packed slots in the producer's layout and the
+    counters every native producer keeps."""
+
+    _layout = "ell"
+
+    def __init__(self, spec: BatchSpec, ring: int) -> None:
+        check(spec.layout == self._layout,
+              f"{type(self).__name__} needs layout={self._layout!r}")
+        check(spec.value_dtype in (np.dtype(np.float32), np.dtype(np.float16)),
+              f"native producers stage f32/f16 values, not {spec.value_dtype}")
+        if spec.layout == "ell":
+            _check_ell_spec(spec)
+        alloc = alloc_ell_slot if spec.layout == "ell" else alloc_dense_slot
+        self.spec = spec
+        self._ring = [alloc(spec) for _ in range(max(2, ring))]
+        self.ring_slots = len(self._ring)
+        self._slot = 0
+        self.rows_in = 0
+        self.rows_out = 0
+        self.truncated_nnz = 0
+
+    @property
+    def _views(self):
+        return self._ring[self._slot][1]
+
+    def _emit(self, n_valid: int) -> Batch:
+        """The current slot as a Batch; the ring moves on."""
+        packed, v = self._ring[self._slot]
+        self._slot = (self._slot + 1) % len(self._ring)
+        self.rows_out += n_valid
+        if self.spec.overflow == "error" and self.truncated_nnz:
+            limit = (f"beyond max_nnz={self.spec.max_nnz}"
+                     if self.spec.layout == "ell"
+                     else f"outside [0, {self.spec.num_features})")
+            raise Error(f"{self.truncated_nnz} features {limit} with "
+                        "overflow='error'")
+        if self.spec.layout == "dense":
+            return Batch(labels=v["labels"], weights=v["weights"],
+                         n_valid=n_valid, x=v["x"], packed=packed)
+        return ell_batch(packed, v, n_valid)
+
+    def _tail(self, fill: int) -> Batch:
+        """The zero-padded last batch (padding rows carry weight 0)."""
+        pad_tail(self._views, fill)
+        return self._emit(fill)
+
+
+def _uri_args(uri: str, fmt: str, part_index: int, num_parts: int):
+    """(local path, parser options) of a producer's URI; raises on what
+    the port lacks."""
+    uspec = URISpec(uri, part_index, num_parts)
+    check(not uspec.cache_file,
+          "#cachefile is not ported; the native producers read the file itself")
+    return io_split.local_path(uspec.uri), parser_options(fmt, uspec.args)
+
+
+class _FusedTextBatches(_RingBatches):
+    """Shared loop of the text producers: line-aligned chunks, one
+    resumable native call after another, into ring slots. Subclasses
+    implement ``_parse``."""
+
+    _format = ""
+
+    def __init__(self, uri: str, spec: BatchSpec, part_index: int,
+                 num_parts: int, ring: int) -> None:
+        self.path, self._options = _uri_args(uri, self._format, part_index,
+                                             num_parts)
+        super().__init__(spec, ring)
+        native.load()
+        self._parts = (part_index, num_parts)
+        self._split = None
+
+    def _parse(self, chunk, off: int, fill: int, cr_hint: int):
+        """One resumable native call → (rows, consumed, cr_hint)."""
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[Batch]:
+        if self._split is None:  # opened here: a refused URI leaks no fd
+            self._split = _MmapChunks(
+                self.path, *io_split.part_range(self.path, *self._parts, "text"))
+        B = self.spec.batch_size
+        fill = 0
+        first = True
+        while True:
+            chunk = self._split.next_chunk()
+            if chunk is None:
+                break
+            off = 0
+            if first:  # a UTF-8 BOM opens the part (text_parser.h:81-95)
+                off = 3 if bytes(chunk[:3]) == _BOM else 0
+                first = False
+            n = len(chunk)
+            cr_hint = -1  # the kernel probes for '\r' once per chunk
+            while off < n:
+                rows, consumed, cr_hint = self._parse(chunk, off, fill, cr_hint)
+                if consumed == 0 and rows == 0:
+                    break
+                off += consumed
+                fill += rows
+                self.rows_in += rows
+                if fill == B:
+                    yield self._emit(B)
+                    fill = 0
+        if fill:
+            yield self._tail(fill)
+
+    def close(self) -> None:
+        if self._split is not None:
+            self._split.close()
+
+
+class _FusedBaseTextBatches(_FusedTextBatches):
+    """A text producer whose ids take an indexing base (libsvm, libfm)."""
+
+    _probe = staticmethod(_probe_base)
+
+    def __init__(self, uri, spec, part_index=0, num_parts=1, indexing_mode=0,
+                 ring=10) -> None:
+        super().__init__(uri, spec, part_index, num_parts, ring)
+        mode = int(self._options.get("indexing_mode", indexing_mode))
+        # auto: every part must agree, so the file's head decides
+        self._base = (1 if mode > 0 else 0) if mode >= 0 else self._probe(
+            _file_head(self.path))
+
+
+class FusedDenseLibSVMBatches(_FusedBaseTextBatches):
+    """libsvm text → dense [B,D] (``dmlc_parse_libsvm_dense``)."""
+
+    _format = "libsvm"
+    _layout = "dense"
+
+    def _parse(self, chunk, off, fill, cr_hint):
+        v = self._views
+        rows, consumed, trunc, cr_hint = native.parse_libsvm_dense(
+            chunk, off, self._base, v["x"], v["labels"], v["weights"], fill,
+            cr_hint)
+        self.truncated_nnz += trunc
+        return rows, consumed, cr_hint
+
+
+class FusedDenseCSVBatches(_FusedTextBatches):
+    """csv text → dense [B,D] (``dmlc_parse_csv_dense``), with the cell
+    rules of ``CSVParser``; ``label_column``, ``weight_column`` and
+    ``delimiter`` (one ASCII byte) ride the URI or the constructor, and a
+    non-empty line without a delimiter raises."""
+
+    _format = "csv"
+    _layout = "dense"
+
+    def __init__(self, uri, spec, part_index=0, num_parts=1, label_column=-1,
+                 weight_column=-1, delimiter=",", ring=10) -> None:
+        super().__init__(uri, spec, part_index, num_parts, ring)
+        opts = self._options
+        check(opts.get("dtype", "float32") == "float32",
+              "the native csv producer parses float32 cells")
+        self._label_col = int(opts.get("label_column", label_column))
+        self._weight_col = int(opts.get("weight_column", weight_column))
+        check(self._label_col != self._weight_col or self._label_col < 0,
+              "Must have distinct columns for labels and instance weights")
+        delim = str(opts.get("delimiter", delimiter))
+        check(len(delim) == 1 and ord(delim) < 128,
+              f"the native csv producer takes a one-byte ASCII delimiter, "
+              f"not {delim!r}")
+        self._delim = ord(delim)
+        self.bad_lines = 0
+
+    def _parse(self, chunk, off, fill, cr_hint):
+        v = self._views
+        rows, consumed, trunc, cr_hint, bad = native.parse_csv_dense(
+            chunk, off, self._delim, self._label_col, self._weight_col,
+            v["x"], v["labels"], v["weights"], fill, cr_hint)
+        self.truncated_nnz += trunc
+        if bad:
+            self.bad_lines += bad
+            raise Error("Delimiter not found in the line. "
+                        "Expected it to separate fields.")
+        return rows, consumed, cr_hint
+
+
+class FusedEllLibSVMBatches(_FusedBaseTextBatches):
+    """libsvm text → ELL [B,K] (``dmlc_parse_libsvm_ell``): '#' comments
+    and a ``qid:N`` second token are consumed."""
+
+    _format = "libsvm"
+
+    def _parse(self, chunk, off, fill, cr_hint):
+        v = self._views
+        rows, consumed, trunc, cr_hint = native.parse_libsvm_ell(
+            chunk, off, self._base, v["indices"], v["values"], v["nnz"],
+            v["labels"], v["weights"], fill, cr_hint)
+        self.truncated_nnz += trunc
+        return rows, consumed, cr_hint
+
+
+class FusedEllLibFMBatches(_FusedBaseTextBatches):
+    """libfm text → ELL [B,K] (``dmlc_parse_libfm_ell``); fields are
+    checked, then dropped (the ELL layout has no field axis)."""
+
+    _format = "libfm"
+    _probe = staticmethod(_probe_libfm_base)
+
+    def _parse(self, chunk, off, fill, cr_hint):
+        v = self._views
+        rows, consumed, trunc, cr_hint = native.parse_libfm_ell(
+            chunk, off, self._base, v["indices"], v["values"], v["nnz"],
+            v["labels"], v["weights"], fill, cr_hint)
+        self.truncated_nnz += trunc
+        return rows, consumed, cr_hint
+
+
+def _compressed_head(buf, off: int) -> bool:
+    """Does ``buf[off:]`` start with a compressed-block RecordIO frame
+    (cflag bit 2), which the native kernel does not walk?"""
+    head = bytes(memoryview(buf)[off:off + 8])
+    if len(head) != 8:
+        return False
+    magic, lrec = struct.unpack("<II", head)
+    return magic == KMAGIC and bool((lrec >> 29) & 4)
+
+
+class FusedEllRowRecBatches(_RingBatches):
+    """rowrec RecordIO → ELL [B,K] (``dmlc_parse_rowrec_ell``): frame
+    scan, rowrec decode and ELL fill in one native pass."""
+
+    def __init__(self, uri: str, spec: BatchSpec, part_index: int = 0,
+                 num_parts: int = 1, ring: int = 10) -> None:
+        self.path, _ = _uri_args(uri, "rowrec", part_index, num_parts)
+        with open(self.path, "rb") as f:
+            if _compressed_head(f.read(8), 0):
+                raise Error(f"{self.path}: compressed-block RecordIO is not "
+                            "ported; the port reads v1 frames")
+        super().__init__(spec, ring)
+        native.load()
+        self._split = _MmapRawChunks(
+            self.path, *io_split.part_range(self.path, part_index, num_parts,
+                                            "recordio"))
+        self.bad_records = 0
+
+    def _feed(self, chunk, off: int, fill: int):
+        """Parse ``chunk[off:]`` into the current slot → (off, fill,
+        progressed)."""
+        v = self._views
+        rows, consumed, trunc, bad, corrupt = native.parse_rowrec_ell(
+            chunk, off, v["indices"], v["values"], v["nnz"], v["labels"],
+            v["weights"], fill)
+        self.rows_in += rows
+        self.truncated_nnz += trunc
+        self.bad_records += bad
+        if corrupt:
+            raise Error("rowrec: corrupt RecordIO frame (bad magic) at byte "
+                        f"{off + consumed} of the current chunk")
+        if not (rows or consumed) and _compressed_head(chunk, off):
+            raise Error("rowrec: compressed RecordIO block mid-file; the "
+                        "port reads v1 frames")
+        return off + consumed, fill + rows, bool(rows or consumed)
+
+    def __iter__(self) -> Iterator[Batch]:
+        B = self.spec.batch_size
+        fill = 0
+        while True:
+            chunk = self._split.window()
+            if chunk is None:
+                break
+            off, n = 0, len(chunk)
+            stalled = False
+            while off < n:
+                off, fill, progressed = self._feed(chunk, off, fill)
+                if fill == B:
+                    yield self._emit(B)
+                    fill = 0
+                elif not progressed:
+                    stalled = True
+                    break
+            self._split.advance(off)
+            if stalled and off == 0 and not self._split.grow():
+                # not one whole record fits a window that reaches the end
+                raise Error("rowrec: truncated RecordIO stream (record "
+                            "extends past the end of the part)")
+        if fill:
+            yield self._tail(fill)
+
+    def close(self) -> None:
+        self._split.close()
+
+
+class ShardedFusedBatches:
+    """A native producer fanned out over threads: the part is cut into
+    ``subparts`` sub-shards, each with its own producer draining on a
+    ``Prefetcher`` thread (the kernels release the GIL), and batches
+    interleave round-robin. Each sub-shard pads its own tail batch.
+
+    A sub-producer runs ahead of this stream by its queue and one blocked
+    put, so the ring this stream can promise is ``prefetch + 1`` slots
+    shorter than the sub-producers' rings."""
+
+    def __init__(self, make_producer, subparts: int, prefetch: int = 2) -> None:
+        self._producers = []
+        self._iters: List[Prefetcher] = []
+        self._prefetch = prefetch
+        try:
+            for t in range(subparts):
+                self._producers.append(make_producer(t, subparts))
+            min_ring = min(p.ring_slots for p in self._producers)
+            self.ring_slots = min_ring - (prefetch + 1)
+            check(self.ring_slots >= 2,
+                  f"sub-producer rings ({min_ring}) must exceed the "
+                  f"per-shard prefetch ({prefetch}) + 1 by at least 2")
+        except BaseException:
+            self.close()
+            raise
+
+    def _sum(self, name: str) -> int:
+        return sum(getattr(p, name, 0) for p in self._producers)
+
+    @property
+    def truncated_nnz(self) -> int:
+        return self._sum("truncated_nnz")
+
+    @property
+    def rows_in(self) -> int:
+        return self._sum("rows_in")
+
+    @property
+    def rows_out(self) -> int:
+        return self._sum("rows_out")
+
+    @property
+    def bad_records(self) -> int:
+        return self._sum("bad_records")
+
+    @property
+    def bad_lines(self) -> int:
+        return self._sum("bad_lines")
+
+    def __iter__(self) -> Iterator[Batch]:
+        # the threads start here: a stream built and never read starts none
+        check(not self._iters, "ShardedFusedBatches is read once")
+        self._iters = [Prefetcher(partial(iter, p), self._prefetch, f"fused-shard-{t}")
+                       for t, p in enumerate(self._producers)]
+        active = list(self._iters)
+        while active:
+            still = []
+            for it in active:
+                batch = it.next()
+                if batch is None:
+                    continue
+                still.append(it)
+                yield batch
+            active = still
+
+    def close(self) -> None:
+        for it in self._iters:
+            it.destroy(timeout=5.0)
+        for p in self._producers:
+            p.close()
+
+
+def _fan_out(make, part_index: int, num_parts: int, nthread: Optional[int]):
+    """``make(part, parts)``, or a ShardedFusedBatches of ``nthread``
+    sub-shards of this part when ``nthread`` > 1."""
+    if nthread is not None and nthread > 1:
+        return ShardedFusedBatches(
+            lambda t, n: make(part_index * n + t, num_parts * n), nthread)
+    return make(part_index, num_parts)
+
+
+def _format(uri: str, fmt: str, default: str) -> str:
+    return str(URISpec(uri).args.get("format", default)) if fmt == "auto" else fmt
+
+
 def ell_batches(
-    path: str,
+    uri: str,
     spec: BatchSpec,
     part_index: int = 0,
     num_parts: int = 1,
     ring: int = 10,
-) -> EllRowRecBatches:
-    """ELL Batch stream of a local rowrec RecordIO file (format rowrec);
-    iterable, with ``ring_slots`` and ``close()``."""
-    return EllRowRecBatches(path, spec, part_index, num_parts, ring)
+    nthread: Optional[int] = None,
+    format: str = "auto",
+    indexing_mode: int = 0,
+):
+    """Native ELL Batch stream of a local rowrec, libsvm or libfm file.
+
+    ``format``: 'rowrec' | 'libsvm' | 'libfm' | 'auto' (``?format=`` from
+    the URI, defaulting to rowrec). ``indexing_mode`` applies to libsvm
+    and libfm (``?indexing_mode=`` on the URI wins). ``nthread`` > 1 fans
+    the parse out over threads (``ShardedFusedBatches``). Iterable, with
+    ``ring_slots``, ``truncated_nnz`` and ``close()``."""
+    fmt = _format(uri, format, "rowrec")
+    check(fmt in ("rowrec", "libsvm", "libfm"),
+          f"ell_batches supports rowrec/libsvm/libfm, not {fmt!r}")
+    _check_ell_spec(spec)
+    if fmt == "rowrec":
+        return _fan_out(lambda p, n: FusedEllRowRecBatches(uri, spec, p, n, ring),
+                        part_index, num_parts, nthread)
+    cls = FusedEllLibSVMBatches if fmt == "libsvm" else FusedEllLibFMBatches
+    return _fan_out(lambda p, n: cls(uri, spec, p, n, indexing_mode=indexing_mode,
+                                     ring=ring),
+                    part_index, num_parts, nthread)
+
+
+def dense_batches(
+    uri: str,
+    spec: BatchSpec,
+    part_index: int = 0,
+    num_parts: int = 1,
+    nthread: Optional[int] = None,
+    indexing_mode: int = 0,
+    ring: int = 10,
+    format: str = "auto",
+):
+    """Native dense Batch stream of a local libsvm or csv file.
+
+    ``format``: 'libsvm' | 'csv' | 'auto' (``?format=`` from the URI,
+    defaulting to libsvm, reference data.cc:68-76); csv options ride the
+    URI. Otherwise as ``ell_batches``."""
+    fmt = _format(uri, format, "libsvm")
+    check(fmt in ("libsvm", "csv"),
+          f"dense_batches supports libsvm/csv, not {fmt!r}")
+    check(spec.layout == "dense", "dense_batches needs layout='dense'")
+    if fmt == "csv":
+        return _fan_out(lambda p, n: FusedDenseCSVBatches(uri, spec, p, n, ring=ring),
+                        part_index, num_parts, nthread)
+    return _fan_out(lambda p, n: FusedDenseLibSVMBatches(uri, spec, p, n,
+                                                         indexing_mode, ring),
+                    part_index, num_parts, nthread)
+
+
+class GenericBatchStream:
+    """The plain text producer: a parser → ``FixedShapeBatcher``, with the
+    iterate/close surface of the native producers. Each batch owns its
+    buffer."""
+
+    def __init__(self, parser, batcher: FixedShapeBatcher) -> None:
+        self._parser = parser
+        self._batcher = batcher
+
+    @property
+    def truncated_nnz(self) -> int:
+        return self._batcher.truncated_nnz
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self._batcher.batches(iter(self._parser))
+
+    def close(self) -> None:
+        self._parser.close()
+
+
+def plain_batches(
+    uri: str,
+    spec: BatchSpec,
+    part_index: int = 0,
+    num_parts: int = 1,
+    format: str = "auto",
+    indexing_mode: int = 0,
+):
+    """The plain version of the native producer for ``uri``: rowrec →
+    ``EllRowRecBatches``, text → ``GenericBatchStream`` over a one-thread
+    ``create_parser`` whose blocks go through the format's Python grammar
+    (``parse_block_plain``) rather than the native parse
+    (``indexing_mode`` joins the URI unless it carries one). ``format``
+    'auto' defaults to rowrec for the ELL layout and to libsvm for the
+    dense one."""
+    fmt = _format(uri, format, "rowrec" if spec.layout == "ell" else "libsvm")
+    if fmt == "rowrec":
+        path, _ = _uri_args(uri, "rowrec", part_index, num_parts)
+        return EllRowRecBatches(path, spec, part_index, num_parts)
+    uspec = URISpec(uri, part_index, num_parts)
+    if fmt in ("libsvm", "libfm") and indexing_mode and "indexing_mode" not in uspec.args:
+        uri += ("&" if "?" in uri else "?") + f"indexing_mode={indexing_mode}"
+    parser = create_parser(uri, part_index, num_parts, type=fmt, nthread=1,
+                           threaded=False)
+    parser.parse_block = parser.parse_block_plain
+    return GenericBatchStream(parser, FixedShapeBatcher(spec))

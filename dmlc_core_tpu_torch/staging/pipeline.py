@@ -20,16 +20,16 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import check
+from ..utils.prefetch import Prefetcher
 from .batcher import Batch
 
 __all__ = [
@@ -123,81 +123,6 @@ def stage_batch(batch: Batch, device: DeviceLike = None) -> Dict[str, torch.Tens
     if layout is None:
         return _per_array(batch, dev)
     return _unpack(torch.from_numpy(np.array(batch.packed, copy=True)).to(dev), layout)
-
-
-class _Failure:
-    __slots__ = ("exc",)
-
-    def __init__(self, exc: Exception) -> None:
-        self.exc = exc
-
-
-_END = object()
-
-
-class _Prefetcher:
-    """A daemon thread draining ``make_iter()`` into a bounded queue. A
-    producer exception is re-raised by ``next()``; ``destroy()`` stops the
-    thread with a bounded join."""
-
-    def __init__(self, make_iter: Callable[[], Iterator], capacity: int,
-                 name: str) -> None:
-        self._q: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, capacity))
-        self._stop = threading.Event()
-        self._done = False
-        self._thread = threading.Thread(
-            target=self._run, args=(make_iter,), name=name, daemon=True
-        )
-        self._thread.start()
-
-    def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def _run(self, make_iter) -> None:
-        try:
-            for item in make_iter():
-                if not self._put(item):
-                    return
-        except Exception as e:  # relayed to the consumer by next()
-            self._put(_Failure(e))
-            return
-        self._put(_END)
-
-    def next(self):
-        """The next item, or None at the end or after ``destroy()``."""
-        while not self._done:
-            if self._stop.is_set():
-                self._done = True
-                break
-            try:
-                item = self._q.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            if item is _END:
-                self._done = True
-            elif isinstance(item, _Failure):
-                self._done = True
-                raise item.exc
-            else:
-                return item
-        return None
-
-    def destroy(self, timeout: float) -> bool:
-        """Stop the thread; True when it exited within ``timeout``."""
-        self._stop.set()
-        while True:  # unblock a producer waiting on a full queue
-            try:
-                self._q.get_nowait()
-            except queue.Empty:
-                break
-        self._thread.join(timeout)
-        return not self._thread.is_alive()
 
 
 class _PinnedSlot:
@@ -296,10 +221,10 @@ class StagingPipeline:
             self._copy_stream = torch.cuda.Stream(self._device)
             self._slots = [_PinnedSlot() for _ in range(self._depth + 2)]
             self._slot_i = 0
-        self._host_iter = _Prefetcher(
+        self._host_iter = Prefetcher(
             lambda: iter(host_batches), prefetch, "staging"
         )
-        self._xfer_iter = _Prefetcher(self._staged, self._depth, "staging-xfer")
+        self._xfer_iter = Prefetcher(self._staged, self._depth, "staging-xfer")
 
     def _observe(self, key: str, dt: float, dispatch: bool = False) -> None:
         self.stage_seconds[key] += dt

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of dmlc_core_tpu_torch
-and chip_smoke loads neither jax nor any dmlc_core_tpu module; entry
-points default to the card and raise when there is none; chip_smoke
-fails without a card, and in a directory without the repo."""
+and chip_smoke loads neither jax nor any dmlc_core_tpu module; its native
+parse core is the library built from its own fastparse.cc; entry points
+default to the card and raise when there is none; chip_smoke fails
+without a card, and in a directory without the repo."""
 
 import os
 import shutil
@@ -70,6 +71,32 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     for call in calls:
         with pytest.raises(Error, match="torch.cuda.is_available"):
             call()
+
+
+_MAPS_PROBE = """
+import sys
+sys.path.insert(0, {repo!r})
+from dmlc_core_tpu_torch.data import native
+native.parse_libsvm(b"1 0:1\\n", 0)
+with open("/proc/self/maps") as f:
+    for line in f:
+        if ".so" in line and ("fastparse" in line or "dmlc_tpu" in line):
+            print(line.split()[-1])
+"""
+
+
+def test_port_loads_only_its_own_native_library():
+    """The port's parse core is the library built from its own
+    fastparse.cc under .build/native/, never the JAX package's."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _MAPS_PROBE.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO), env=_clean_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    mapped = set(proc.stdout.split())
+    assert mapped, "no native library mapped"
+    assert not any("libdmlc_tpu_native" in m for m in mapped)
+    assert all(Path(m).parent == REPO / ".build" / "native" for m in mapped), mapped
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K4 against their plain PyTorch versions on the
-card (marked ``gpu``: skips where torch.cuda.is_available() is False).
+card, and the native producers' paths through staging onto it (marked
+``gpu``: skips where torch.cuda.is_available() is False).
 
     python -m pytest tests/test_torch_kernels_gpu.py -q
 
@@ -18,8 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.data.row_block import RowBlock
+from dmlc_core_tpu_torch.data.rowrec import write_rowrec
+from dmlc_core_tpu_torch.models import FactorizationMachine, LogisticRegression
 from dmlc_core_tpu_torch.ops import _build, fm as tfm, sparse as tops
+from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+from dmlc_core_tpu_torch.staging.fused import dense_batches, ell_batches
+from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
 
 pytestmark = pytest.mark.gpu
 
@@ -187,3 +193,81 @@ def test_gradient_scatters_on_unaligned_gradients(cuda, vdtype):
     grad_close(gw, tops.ell_matvec_bwd_plain(idx, val, g, D))
     grad_close(gv, tfm.fm_pair_bwd_plain(idx, val, v, s, g))
     torch.cuda.synchronize()
+
+
+def _criteo_libsvm(path, n, d, seed=5):
+    rng = np.random.default_rng(seed)
+    dense = rng.uniform(0, 1, (n, 13))
+    cats = rng.integers(13, d, (n, 26))
+    labels = rng.integers(0, 2, n)
+    path.write_text("".join(
+        f"{labels[i]} " + " ".join(f"{j}:{dense[i, j]:.6f}" for j in range(13)) + " "
+        + " ".join(str(c) for c in cats[i]) + "\n" for i in range(n)))
+    return f"{path}?format=libsvm"
+
+
+@pytest.mark.parametrize("nthread", [None, 3])
+@pytest.mark.parametrize("fmt", ["rowrec", "libsvm"])
+def test_native_producers_stage_their_host_bytes(cuda, tmp_path, fmt, nthread):
+    """Native ELL producers → StagingPipeline on the card: the staged
+    batches equal the host batches' bytes (as a multiset: sub-shards'
+    batches interleave in the order their threads deliver them)."""
+    n, d = 1000, 4096
+    if fmt == "rowrec":
+        rng = np.random.default_rng(6)
+        uri = str(tmp_path / "c.rec")
+        with open(uri, "wb") as f:
+            write_rowrec(f, [RowBlock(offset=np.arange(n + 1) * 39,
+                                      label=rng.integers(0, 2, n).astype(np.float32),
+                                      index=rng.integers(0, d, n * 39).astype(np.uint32),
+                                      value=rng.normal(size=n * 39).astype(np.float32))])
+    else:
+        uri = _criteo_libsvm(tmp_path / "c.svm", n, d)
+    spec = BatchSpec(batch_size=128, max_nnz=39, value_dtype=np.float16)
+    keys = ("indices", "values", "nnz", "labels", "weights")
+    host = sorted(b"".join(b.as_dict()[k].tobytes() for k in keys)
+                  for b in ell_batches(uri, spec, nthread=nthread))
+    src = ell_batches(uri, spec, nthread=nthread)
+    pipe = StagingPipeline(src, device=cuda)
+    staged = [b"".join(batch[k].cpu().numpy().tobytes() for k in keys) for batch in pipe]
+    assert drain_close(pipe, src)
+    assert sorted(staged) == host
+
+
+def test_libsvm_fm_path_launches_the_kernels(cuda, tmp_path):
+    d = 4096
+    uri = _criteo_libsvm(tmp_path / "c.svm", 600, d)
+    src = ell_batches(uri, BatchSpec(batch_size=128, max_nnz=39))
+    model = FactorizationMachine(d, 8, device=cuda)
+    pipe = StagingPipeline(src, device=cuda)
+    _build.reset_launches()
+    losses = [float(model.sgd_step(b, lr=0.5)) for b in pipe]
+    assert drain_close(pipe, src)
+    assert len(losses) == 5 and all(np.isfinite(losses))
+    assert all(_build.launches[k] == 5 for k in _build.launches)
+
+
+def test_csv_dense_lr_step_on_card_matches_cpu(cuda, tmp_path):
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4096, 28))
+    y = (x @ rng.normal(size=28) > 0).astype(int)
+    path = tmp_path / "h.csv"
+    path.write_text("".join(f"{y[i]}," + ",".join(f"{v:.6f}" for v in x[i]) + "\n"
+                            for i in range(len(y))))
+    spec = BatchSpec(batch_size=2048, layout="dense", num_features=28)
+    uri = f"{path}?format=csv&label_column=0"
+    src = dense_batches(uri, spec)
+    pipe = StagingPipeline(src, device=cuda)
+    first = {k: t.clone() for k, t in next(iter(pipe)).items()}
+    assert drain_close(pipe, src)
+    host = next(iter(dense_batches(uri, spec)))
+    for k, v in host.as_dict().items():
+        np.testing.assert_array_equal(first[k].cpu().numpy(), v)
+    gpu = LogisticRegression(28, device=cuda)
+    cpu = LogisticRegression(28, device="cpu")
+    cpu.load_state_dict({k: p.cpu() for k, p in gpu.state_dict().items()})
+    loss_g, grads_g = gpu.loss_and_grads(first)
+    loss_c, grads_c = cpu.loss_and_grads({k: t.cpu() for k, t in first.items()})
+    assert float(loss_g) == pytest.approx(float(loss_c), rel=1e-5)
+    for k in grads_c:
+        grad_close(grads_g[k].cpu(), grads_c[k])
