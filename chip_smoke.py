@@ -42,19 +42,37 @@ Phases (any failure exits non-zero and prints no result line):
    against the plain versions on the card. Then HIGGS csv →
    ``dense_batches`` → LogisticRegression on ``x`` at B = 32768, whose
    first step is held against the same step on the CPU;
-6. the ``entry()`` forward on the card against the CPU.
+6. the indexed, shuffled path at the Criteo width: 2^18 rows written as
+   rowrec with its index (``FileStream``, ``write_rowrec(index_stream=)``);
+   ``ell_batches`` over the plain file and over ``?index=…&shuffle=``
+   record, batch and window, each bit for bit against its plain version
+   (one seek per record, the numpy decode and ``FixedShapeBatcher``) with
+   one thread and with ``picked_threads`` sub-shards, then timed in
+   rows/s on the host beside its ``io_stats`` (``gather_fallback_batches``
+   must be 0); then FM SGD on the card over ``shuffle=batch``: a timed
+   pass, an uninterrupted pass, and a pass that ``save_async``s params
+   and position every 4 steps and stops at step 64, restored by a fresh
+   ``Checkpointer`` into a new pipeline with ``skip_records``, whose
+   batches must equal steps 65-128 of the uninterrupted pass, with the
+   restored params equal to the saved ones, the loss falling and K1-K4
+   launched per step as on the sequential FM path;
+7. the two example ports (``dmlc_core_tpu_torch.examples``) on the card
+   for two epochs each at their own sizes;
+8. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
 must equal the sha256 of the file. It fails if any kernel instance spills
 registers. It prints a ``{"ptxas": [...]}`` (with the scatters' dynamic
-shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}`` and
-a ``{"slice": {...}}`` line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
+``{"slice": {...}}``, a ``{"shuffle": {...}}`` and an ``{"examples":
+{...}}`` line, the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -552,33 +570,41 @@ def plain_loss(params, batch):
 
 
 class RowLog:
-    """A producer that notes each batch's valid rows as the staging thread
-    pulls it (on the host: the timed loop gains no device work)."""
+    """A producer that notes each batch's valid rows (and, with
+    ``digests``, a hash of its packed bytes) as the staging thread pulls
+    it (on the host: the timed loop gains no device work)."""
 
-    def __init__(self, source) -> None:
+    def __init__(self, source, digests: bool = False) -> None:
         self.source, self.rows = source, []
+        self.digests = [] if digests else None
         self.ring_slots = source.ring_slots
 
     def __iter__(self):
         for batch in self.source:
             self.rows.append(batch.n_valid)
+            if self.digests is not None:
+                self.digests.append(hashlib.blake2b(batch.packed).hexdigest())
             yield batch
 
 
-def drive(name, model, source, dev, lr, min_steps: int = 20):
-    """One pass of a path: producer → StagingPipeline → SGD steps.
-    Returns (stats, first batch, params before the first step)."""
+def drive(name, model, source, dev, lr, min_steps: int = 20, stop_after=None,
+          on_step=None, digests: bool = False, must_fall: bool = True):
+    """One pass of a path: producer → StagingPipeline → SGD steps, ended
+    early after ``stop_after`` steps; ``on_step(step, batch)`` runs after
+    each step. Returns (stats, first batch, params before the first
+    step); with ``digests`` the stats hold the hashes of the batches the
+    steps took."""
     from dmlc_core_tpu_torch.ops import _build
     from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
 
-    log = RowLog(source)
+    log = RowLog(source, digests)
     pipe = StagingPipeline(log, device=dev)
     losses, step_s, wait_s, first_wait = [], [], 0.0, None
     first = params0 = None
     _build.reset_launches()
     t_start = time.perf_counter()
     it = iter(pipe)
-    while True:
+    while stop_after is None or len(losses) < stop_after:
         t0 = time.perf_counter()
         batch = next(it, None)
         t1 = time.perf_counter()
@@ -591,6 +617,8 @@ def drive(name, model, source, dev, lr, min_steps: int = 20):
             params0 = {k: p.detach().clone() for k, p in model.params().items()}
         losses.append(float(model.sgd_step(batch, lr=lr)))  # syncs the step
         step_s.append(time.perf_counter() - t1)
+        if on_step is not None:
+            on_step(len(losses), batch)
     wall = time.perf_counter() - t_start
     launches = dict(_build.launches)
     thr = pipe.throughput()
@@ -602,12 +630,13 @@ def drive(name, model, source, dev, lr, min_steps: int = 20):
     if not all(np.isfinite(losses)):
         fail(f"{name}: non-finite loss: {losses}")
     # row-weighted: a sub-shard's short tail batch counts by its rows
-    rows = log.rows
+    rows = log.rows[:n]
     head = np.average(losses[:4], weights=rows[:4])
     tail = np.average(losses[-4:], weights=rows[-4:])
-    if not tail < head:
+    if must_fall and not tail < head:
         fail(f"{name}: loss did not fall: first steps {head}, last steps {tail}: {losses}")
-    return {
+    extra = {} if log.digests is None else {"digests": log.digests[:n]}
+    return {**extra,
         "steps": n, "step_ms": statistics.median(step_s) * 1e3,
         "step_ms_first": step_s[0] * 1e3, "steps_s_total": sum(step_s),
         "staged_rows_per_sec": thr["rows_per_sec"],
@@ -752,6 +781,199 @@ def slice_phase(dev, num_features: int = D, embed_dim: int = E,
     return out
 
 
+SHUFFLE_MODES = ("record", "batch", "window")
+
+
+def write_indexed(path: str, idx, val, labels) -> str:
+    """Criteo rows as rowrec with its ``.idx`` index, through the port's
+    ``FileStream`` and ``write_rowrec(index_stream=)``; returns the path."""
+    from dmlc_core_tpu_torch.data.row_block import RowBlock
+    from dmlc_core_tpu_torch.data.rowrec import write_rowrec
+    from dmlc_core_tpu_torch.io.stream import FileStream
+
+    n = len(labels)
+    blk = RowBlock(offset=np.arange(n + 1, dtype=np.int64) * K, label=labels,
+                   index=idx.reshape(-1).astype(np.uint32), value=val.reshape(-1))
+    with FileStream(path, "w") as f, FileStream(path + ".idx", "w") as fi:
+        write_rowrec(f, [blk], index_stream=fi)
+    return path
+
+
+class Interleaved:
+    """The plain versions of ``n`` sub-parts, batches taken round-robin as
+    ``ShardedFusedBatches`` takes them from its sub-producers."""
+
+    def __init__(self, uri: str, spec, n: int) -> None:
+        from dmlc_core_tpu_torch.staging.fused import plain_batches
+
+        self.parts = [plain_batches(uri, spec, t, n) for t in range(n)]
+
+    def __iter__(self):
+        iters = [iter(p) for p in self.parts]
+        while iters:
+            still = []
+            for it in iters:
+                batch = next(it, None)
+                if batch is not None:
+                    still.append(it)
+                    yield batch
+            iters = still
+
+    def close(self) -> None:
+        for p in self.parts:
+            p.close()
+
+
+def drain_stats(source):
+    """Drain a producer alone: (rows/s, its io_stats) after the drain."""
+    t0 = time.perf_counter()
+    rows = sum(b.n_valid for b in source)
+    dt = time.perf_counter() - t0
+    stats = source.io_stats()
+    source.close()
+    return rows / dt, stats
+
+
+def shuffle_producers(rec: str, spec):
+    """Each shuffle mode's producer beside the sequential one: bit for bit
+    against the plain version (one thread, and ``picked_threads``
+    sub-shards against the plain sub-parts interleaved), then rows/s and
+    the split's counters; ``gather_fallback_batches`` must stay 0."""
+    from dmlc_core_tpu_torch.staging.fused import ell_batches, plain_batches
+
+    threads = picked_threads(PRODUCER_ROWS, spec.batch_size)
+    out = {"rows": PRODUCER_ROWS, "nthread": threads, "modes": {}}
+    for mode in ("sequential",) + SHUFFLE_MODES:
+        uri = rec if mode == "sequential" else f"{rec}?index={rec}.idx&shuffle={mode}&seed=3"
+        row = {"batches_compared": same_batches(
+            ell_batches(uri, spec), plain_batches(uri, spec), f"shuffle {mode}")}
+        row["batches_compared_threads"] = same_batches(
+            ell_batches(uri, spec, nthread=threads), Interleaved(uri, spec, threads),
+            f"shuffle {mode} x{threads}")
+        row["rows_per_sec_1thread"], row["io_stats_1thread"] = drain_stats(
+            ell_batches(uri, spec))
+        row["rows_per_sec"], row["io_stats"] = drain_stats(
+            ell_batches(uri, spec, nthread=threads))
+        for key in ("io_stats_1thread", "io_stats"):
+            st = row[key]
+            if mode != "sequential" and not (
+                    st.get("gather_batches", 0) > 0
+                    and st.get("gather_fallback_batches") == 0):
+                fail(f"shuffle {mode}: not every batch took the gather path: {st}")
+        out["modes"][mode] = row
+    return out
+
+
+def resumable_fm(rec: str, spec, dev, make, lr: float, tmp: str):
+    """FM SGD on the card over ``shuffle=batch`` (the example's URI):
+    a timed pass; an uninterrupted pass noting each batch; a pass that
+    saves params and position every 4 steps with ``save_async`` and
+    stops at step 64; then a fresh ``Checkpointer`` restores, and a new
+    pipeline with ``skip_records`` takes the remaining steps, whose
+    batches must equal the uninterrupted pass's."""
+    from dmlc_core_tpu_torch.checkpoint import Checkpointer
+    from dmlc_core_tpu_torch.convert import params_from_jax
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    uri = f"{rec}?index={rec}.idx&shuffle=batch&batch_size={B}&seed=1&epoch=0"
+    timed, first, _ = drive("shuffle_fm", make(dev), ell_batches(uri, spec), dev, lr)
+    check_staged(uri, spec, first)
+    full, _, _ = drive("shuffle_fm full", make(dev), ell_batches(uri, spec), dev, lr,
+                       digests=True)
+    ck_dir = os.path.join(tmp, "ckpt")
+    ck = Checkpointer(ck_dir, keep=2)
+    model = make(dev)
+    stop = full["steps"] // 2
+
+    def save(step, batch):
+        if step % 4 == 0:
+            ck.save_async(step, model.params(),
+                          meta={"epoch": 0, "records": step * B})
+
+    head, _, _ = drive("shuffle_fm head", model, ell_batches(uri, spec), dev, lr,
+                       stop_after=stop, on_step=save, digests=True)
+    ck.wait()
+    saved = {k: p.detach().cpu().numpy() for k, p in model.params().items()}
+    fresh = Checkpointer(ck_dir, keep=2)
+    step, tree = fresh.restore()
+    meta = fresh.restore_meta()
+    if step != stop or meta != {"epoch": 0, "records": stop * B}:
+        fail(f"restored step {step} meta {meta}, saved step {stop}")
+    for k, v in saved.items():
+        if not np.array_equal(tree[k], v):
+            fail(f"restored param {k} differs from the saved one")
+    resumed = make(dev)
+    resumed.load_state_dict(params_from_jax(tree, dev))
+    tail, _, _ = drive("shuffle_fm tail", resumed,
+                       ell_batches(f"{uri}&skip_records={meta['records']}", spec),
+                       dev, lr, min_steps=1, digests=True, must_fall=False)
+    if head["digests"] != full["digests"][:stop]:
+        fail("the interrupted pass read other batches than the uninterrupted one")
+    if tail["digests"] != full["digests"][stop:]:
+        fail(f"the {tail['steps']} batches after the resume differ from steps "
+             f"{stop + 1}-{full['steps']} of the uninterrupted pass")
+    for s in (head, tail, full):
+        del s["digests"]
+    return {"uri": uri, "timed": timed, "uninterrupted": full, "head": head,
+            "resumed": tail, "checkpoint": {"step": step, "meta": meta,
+                                            "steps_kept": fresh.steps()}}
+
+
+def shuffle_phase(dev, sequential_fm):
+    """The indexed, shuffled path at the Criteo width: its producers on the
+    host, and resumable FM SGD on the card; K1-K4 launch per step as on
+    the sequential FM path (``sequential_fm``, the slice phase's)."""
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    def fm(d):
+        return FactorizationMachine(D, E, device=d,
+                                    generator=torch.Generator(device=d).manual_seed(0))
+
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(3)
+        t0 = time.perf_counter()
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"), *criteo_data(rng, PRODUCER_ROWS, D))
+        out = {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(rec)}
+        out["producers"] = shuffle_producers(rec, spec)
+        out["fm"] = resumable_fm(rec, spec, dev, fm, 0.5, tmp)
+    per_step = lambda s: {k: n / s["steps"] for k, n in s["launches"].items()}  # noqa: E731
+    want = per_step(sequential_fm)
+    for name in ("timed", "uninterrupted", "head", "resumed"):
+        got = per_step(out["fm"][name])
+        if got != want:
+            fail(f"shuffled FM {name}: launches per step {got}, sequential {want}")
+    return out
+
+
+def examples_phase(dev):
+    """Both example ports on the card at their own sizes for two epochs,
+    in a scratch directory: wall time, final loss, latest checkpoint."""
+    from dmlc_core_tpu_torch.examples import train_criteo_rec, train_higgs
+
+    out = {}
+    old = os.environ.get("DMLC_SGD_EPOCHS")
+    os.environ["DMLC_SGD_EPOCHS"] = "2"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, mod, fname in (("train_higgs", train_higgs, "higgs.libsvm"),
+                                     ("train_criteo_rec", train_criteo_rec, "criteo.rec")):
+                t0 = time.perf_counter()
+                res = mod.main([os.path.join(tmp, fname)], device=dev)
+                wall = time.perf_counter() - t0
+                losses = [x for x in res["losses"] if x is not None]
+                if not losses or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                    fail(f"{name}: losses {res['losses']}")
+                out[name] = {"wall_s": wall, "loss_first": losses[0],
+                             "loss_last": losses[-1], "latest_step": res["latest_step"]}
+    finally:
+        if old is None:
+            os.environ.pop("DMLC_SGD_EPOCHS")
+        else:
+            os.environ["DMLC_SGD_EPOCHS"] = old
+    return out
+
 def ptxas_summary(log: str):
     """Registers, spill bytes and shared memory of each compiled kernel
     instance, from nvcc's ``-Xptxas -v`` output."""
@@ -818,11 +1040,14 @@ def main() -> None:
     del flush
     producers = producer_phase()
     slice_stats = slice_phase(dev)
+    shuffle = shuffle_phase(dev, slice_stats["fm"])
+    examples = examples_phase(dev)
     entry_phase(dev)
     torch.cuda.synchronize()
 
+    main_runs = [*slice_stats.values(), shuffle["fm"]["timed"]]
     for row in kernels:
-        n = sum(s["launches"][row["name"]] for s in slice_stats.values())
+        n = sum(s["launches"][row["name"]] for s in main_runs)
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -837,6 +1062,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"producers": producers}))
     print(json.dumps({"slice": slice_stats}))
+    print(json.dumps({"shuffle": shuffle}))
+    print(json.dumps({"examples": examples}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

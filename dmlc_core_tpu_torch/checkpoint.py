@@ -1,0 +1,349 @@
+"""Checkpoints of parameter trees, in one process (the port of the
+single-process half of ``dmlc_core_tpu/checkpoint.py``).
+
+- ``save_pytree``/``load_pytree``: a nested dict/list/tuple of tensors,
+  arrays and scalars as ``DMLCTPU1`` + the port's serializer, the same
+  bytes as the JAX package writes for the same numpy tree. Tensors are
+  saved as numpy arrays; loads return numpy trees (put them on the
+  device with ``convert.params_from_jax``).
+- ``Checkpointer``: step-numbered ``ckpt-<step>.bin`` files under a
+  local base directory, written through a temp file and ``os.replace``,
+  with an optional ``meta`` dict (the data position of a mid-epoch
+  save) in a ``.meta.bin`` sidecar, ``keep`` retention and a background
+  ``save_async``.
+
+Sharded checkpoints (``ckpt-<step>.d``, one shard file per process) wait
+for ``parallel/`` (``ROADMAP.md`` §1 item 5): the port lists them, so a
+same-step save replaces one and retention removes old ones, but it
+neither writes nor restores them.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .io import serializer
+from .io.filesystem import FileSystem
+from .io.stream import Stream
+from .utils.logging import check
+
+__all__ = ["AsyncSave", "Checkpointer", "load_pytree", "save_pytree"]
+
+logger = logging.getLogger("dmlc_core_tpu_torch.checkpoint")
+
+_MAGIC = b"DMLCTPU1"
+_MANIFEST = "MANIFEST.bin"
+_SHARDED = ("a sharded checkpoint (ckpt-<step>.d) is not ported: it waits "
+            "for parallel/ (ROADMAP.md §1 item 5)")
+
+
+def _to_host(tree: Any, copy: bool = False) -> Any:
+    """Tensors → numpy (``.detach().cpu()``); numpy and scalars pass.
+    ``copy`` makes every array an owned copy: a CPU tensor's numpy view
+    shares its storage, so a step that updates the parameters in place
+    would otherwise change a tree that ``save_async`` is still writing."""
+
+    def conv(x):
+        if isinstance(x, torch.Tensor):
+            arr = x.detach().cpu().numpy()
+            return arr.copy() if copy else arr
+        if isinstance(x, np.ndarray):
+            return np.array(x, copy=True) if copy else x
+        return x
+
+    return _tree_map(conv, tree)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def save_pytree(uri_or_stream, tree: Any) -> None:
+    """Serialize a nested dict/list/tuple of tensors, arrays and scalars
+    to a local URI or an open Stream."""
+    if isinstance(uri_or_stream, Stream):
+        stream, own = uri_or_stream, False
+    else:
+        stream, own = Stream.create(uri_or_stream, "w"), True
+    try:
+        stream.write(_MAGIC)
+        serializer.save(stream, _to_host(tree))
+    finally:
+        if own:
+            stream.close()
+
+
+def load_pytree(uri_or_stream) -> Any:
+    """The tree ``save_pytree`` wrote, with numpy leaves."""
+    if isinstance(uri_or_stream, Stream):
+        stream, own = uri_or_stream, False
+    else:
+        stream, own = Stream.create(uri_or_stream, "r"), True
+    try:
+        magic = stream.read_exact(len(_MAGIC))
+        check(magic == _MAGIC, f"bad checkpoint magic {magic!r}")
+        return serializer.load(stream)
+    finally:
+        if own:
+            stream.close()
+
+
+def _local(uri: str) -> str:
+    """The path of a local URI; other schemes raise."""
+    FileSystem.get_instance(uri)
+    return uri[len("file://"):] if uri.startswith("file://") else uri
+
+
+def _remove(path: str, tree_ok: bool = False) -> None:
+    """Best-effort removal (retention and debris: nothing depends on it)."""
+    try:
+        if tree_ok and os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+    except OSError:
+        pass
+
+
+def _write_atomic(path: str, tree: Any) -> None:
+    """``save_pytree`` to ``path + '.tmp'``, then ``os.replace``: the
+    final path is absent or whole, never torn."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    save_pytree(tmp, tree)
+    os.replace(tmp, path)
+
+
+class AsyncSave:
+    """Handle of a checkpoint being written in the background."""
+
+    def __init__(self) -> None:
+        self._done = threading.Event()
+        self._exc: Optional[BaseException] = None
+        self.uri: Optional[str] = None
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> Optional[str]:
+        """Wait for the write; returns the checkpoint's path and
+        re-raises a failed write."""
+        check(self._done.wait(timeout),
+              f"checkpoint write still in flight after {timeout}s")
+        if self._exc is not None:
+            raise self._exc
+        return self.uri
+
+
+class Checkpointer:
+    """Step-numbered checkpoints ``{base}/ckpt-{step:010d}.bin`` in one
+    local directory, the newest ``keep`` of them kept (``keep`` <= 0
+    keeps all).
+
+    A save with ``meta`` writes it to ``ckpt-{step:010d}.meta.bin``.
+    The order of ``_write_single`` is: remove the step's old sidecar,
+    land the tree, then write the new sidecar. So a visible sidecar
+    always belongs to the visible tree, and a crash between the two
+    leaves a tree without a sidecar: ``restore_meta`` then returns None,
+    which a caller reads as "position unknown" (replay, never skip).
+    """
+
+    _PAT = re.compile(r"ckpt-(\d{10})(\.bin|\.d)$")
+
+    def __init__(self, base_uri: str, keep: int = 3) -> None:
+        self.base = base_uri.rstrip("/")
+        self._dir = _local(self.base)
+        self.keep = keep
+        self._inflight: Optional[AsyncSave] = None
+
+    def _path(self, step: int, sharded: bool = False) -> str:
+        return os.path.join(self._dir, f"ckpt-{step:010d}{'.d' if sharded else '.bin'}")
+
+    def _meta_path(self, step: int) -> str:
+        # the name does not match _PAT: sidecars are not steps
+        return os.path.join(self._dir, f"ckpt-{step:010d}.meta.bin")
+
+    @staticmethod
+    def _manifest_ok(dir_path: str) -> bool:
+        """A sharded checkpoint is complete once its manifest landed."""
+        return os.path.isfile(os.path.join(dir_path, _MANIFEST))
+
+    def _scan_ex(self) -> Dict[int, Dict[str, Any]]:
+        """{step: {sharded, bytes}} from one listing of the base; a
+        sharded directory without its manifest is not a step."""
+        try:
+            names = os.listdir(self._dir)
+        except OSError:
+            return {}
+        out: Dict[int, Dict[str, Any]] = {}
+        for name in sorted(names):
+            m = self._PAT.search(name)
+            if not m:
+                continue
+            step, full = int(m.group(1)), os.path.join(self._dir, name)
+            if m.group(2) == ".bin":
+                out.setdefault(step, {"sharded": False,
+                                      "bytes": os.path.getsize(full)})
+            elif self._manifest_ok(full):
+                out[step] = {"sharded": True, "bytes": sum(
+                    os.path.getsize(os.path.join(full, f)) for f in os.listdir(full))}
+        return out
+
+    def steps(self) -> List[int]:
+        return sorted(self._scan_ex())
+
+    def steps_info(self) -> List[Dict[str, Any]]:
+        """[{step, layout, uri, bytes}] by step."""
+        return [{"step": step, "layout": "sharded" if v["sharded"] else "single",
+                 "uri": self._path(step, v["sharded"]), "bytes": v["bytes"]}
+                for step, v in sorted(self._scan_ex().items())]
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def prune(self, keep: Optional[int] = None) -> List[int]:
+        """A retention pass (``keep`` overrides the configured count for
+        this call); returns the steps removed."""
+        old = self.keep
+        if keep is not None:
+            self.keep = keep
+        try:
+            before = self.steps()
+            self._prune()
+            after = set(self.steps())
+        finally:
+            self.keep = old
+        return [s for s in before if s not in after]
+
+    def wait(self, timeout: Optional[float] = None) -> None:
+        """Wait for an in-flight ``save_async``, re-raising its failure.
+        On a timeout the handle stays, so no later call races it."""
+        handle = self._inflight
+        if handle is None:
+            return
+        try:
+            handle.result(timeout)
+        finally:
+            if handle.done():
+                self._inflight = None
+
+    def save_async(self, step: int, tree: Any,
+                   meta: Optional[Dict[str, Any]] = None) -> AsyncSave:
+        """``save`` with the file I/O on a background thread. The tree is
+        copied to owned host arrays HERE, before the call returns, so the
+        caller may update its parameters in place at once. Saves are
+        serial: a second call first waits for the first."""
+        self.wait()
+        handle = AsyncSave()
+        host_tree = _to_host(tree, copy=True)
+
+        def run():
+            try:
+                handle.uri = self._write_single(step, host_tree, "async ", meta)
+            except BaseException as e:  # surfaced by result()
+                handle._exc = e
+            finally:
+                handle._done.set()
+
+        threading.Thread(target=run, daemon=True, name=f"ckpt-async-{step}").start()
+        self._inflight = handle
+        return handle
+
+    def save(self, step: int, tree: Any,
+             meta: Optional[Dict[str, Any]] = None) -> str:
+        """Write step ``step``; returns its path. ``meta`` is a small dict
+        stored beside it and read back by ``restore_meta``, such as the
+        data position ``{"epoch": e, "records": n}`` a resume skips to."""
+        self.wait()
+        return self._write_single(step, tree, "", meta)
+
+    def _write_single(self, step: int, tree: Any, tag: str,
+                      meta: Optional[Dict[str, Any]]) -> str:
+        """Write the tree, then the sidecar, then prune. A same-step
+        sharded directory would shadow the new file: its manifest goes
+        first (a failure raises), the rest after the new file landed."""
+        sharded_path = self._path(step, sharded=True)
+        had_shadow = self._manifest_ok(sharded_path)
+        if had_shadow:
+            os.remove(os.path.join(sharded_path, _MANIFEST))
+        path = self._path(step)
+        _remove(self._meta_path(step))
+        _write_atomic(path, tree)
+        if meta is not None:
+            _write_atomic(self._meta_path(step), meta)
+        if had_shadow:
+            _remove(sharded_path, tree_ok=True)
+        self._prune()
+        logger.info("%scheckpoint step %d -> %s", tag, step, path)
+        return path
+
+    def _resolve(self, step: Optional[int]) -> Tuple[int, bool]:
+        """(step, sharded) of the given or newest step, after any
+        in-flight write."""
+        self.wait()
+        scan = self._scan_ex()
+        if step is None:
+            check(bool(scan), f"no checkpoints under {self.base}")
+            step = max(scan)
+        step = int(step)
+        return step, scan.get(step, {"sharded": False})["sharded"]
+
+    def restore(self, step: Optional[int] = None) -> Tuple[int, Any]:
+        """(step, tree) of the given or newest step, with numpy leaves."""
+        step, sharded = self._resolve(step)
+        check(not sharded, _SHARDED)
+        return step, load_pytree(self._path(step))
+
+    def restore_meta(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """The ``meta`` saved with the given or newest step, or None when
+        it carried none (position unknown: replay, never skip)."""
+        step, sharded = self._resolve(step)
+        check(not sharded, _SHARDED)
+        meta = self._meta_path(step)
+        return load_pytree(meta) if os.path.isfile(meta) else None
+
+    def _prune(self) -> None:
+        steps = self.steps()
+        if steps:
+            self._prune_torn(newest_complete=steps[-1])
+        if self.keep <= 0 or len(steps) <= self.keep:
+            return
+        for s in steps[: -self.keep]:
+            _remove(self._path(s))
+            _remove(self._meta_path(s))
+            _remove(self._path(s, sharded=True), tree_ok=True)
+
+    def _prune_torn(self, newest_complete: int) -> None:
+        """Remove debris older than the newest complete step: ``.tmp``
+        files and sharded directories without a manifest. Newer debris
+        may be another writer's save in flight and stays."""
+        try:
+            names = os.listdir(self._dir)
+        except OSError:
+            return
+        for name in names:
+            full = os.path.join(self._dir, name)
+            if name.endswith(".tmp"):
+                m = self._PAT.search(name[: -len(".tmp")])
+                if m and int(m.group(1)) < newest_complete:
+                    _remove(full)
+                continue
+            m = self._PAT.search(name)
+            if (m and m.group(2) == ".d" and int(m.group(1)) < newest_complete
+                    and not self._manifest_ok(full)):
+                _remove(full, tree_ok=True)

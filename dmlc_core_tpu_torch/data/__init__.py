@@ -7,7 +7,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional
 
 from ..io import split as io_split
-from ..io.uri import URISpec, uri_int
+from ..io.uri import URISpec, rejoin_query, uri_int
 from ..utils.logging import Error, check
 from .csv_parser import CSVParser
 from .libfm_parser import LibFMParser
@@ -28,13 +28,16 @@ __all__ = [
     "parser_options",
 ]
 
-# URI options each format takes; any other option raises
+# URI options each format takes; any other option raises. rowrec's are
+# the split's (the indexed, shuffled reads), kept as strings for
+# ``io.split.create``.
 _OPTIONS = {
     "libsvm": ("indexing_mode",),
     "libfm": ("indexing_mode",),
     "csv": ("label_column", "weight_column", "delimiter", "dtype"),
-    "rowrec": (),
+    "rowrec": io_split.SPLIT_OPTIONS,
 }
+_STRINGS = ("delimiter", "dtype", *io_split.SPLIT_OPTIONS)
 
 
 def parser_options(fmt: str, args: Mapping[str, str]) -> Dict[str, object]:
@@ -51,8 +54,7 @@ def parser_options(fmt: str, args: Mapping[str, str]) -> Dict[str, object]:
     out: Dict[str, object] = {}
     for key in _OPTIONS[fmt]:
         if key in args:
-            out[key] = (args[key] if key in ("delimiter", "dtype")
-                        else uri_int(args, key, 0))
+            out[key] = args[key] if key in _STRINGS else uri_int(args, key, 0)
     return out
 
 
@@ -74,8 +76,9 @@ def create_parser(
     fmt = spec.args.get("format", "libsvm") if type == "auto" else type
     kwargs = parser_options(fmt, spec.args)
     if fmt == "rowrec":
-        base: Parser = RowRecParser(io_split.local_path(spec.uri),
-                                    part_index, num_parts)
+        base: Parser = RowRecParser(io_split.create(
+            spec.uri + rejoin_query(kwargs), part_index, num_parts,
+            type="recordio"))
     else:
         cls = {"libsvm": LibSVMParser, "libfm": LibFMParser, "csv": CSVParser}[fmt]
         base = cls(io_split.create(spec.uri, part_index, num_parts, type="text"),

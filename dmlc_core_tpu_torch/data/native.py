@@ -40,8 +40,11 @@ __all__ = [
     "parse_libsvm_dense",
     "parse_libsvm_ell",
     "parse_rowrec_ell",
+    "parse_rowrec_gather_ell",
+    "shuffle_mt19937",
     "source_hash",
     "source_sha256",
+    "walk_record_spans",
 ]
 
 _SRC = Path(__file__).resolve().parents[1] / "native" / "fastparse.cc"
@@ -124,8 +127,15 @@ _SIGNATURES = {
                                     ctypes.POINTER(_CsvDenseResult)]),
     "dmlc_parse_rowrec_ell": (None, [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P,
                                      _I64, _I64, ctypes.POINTER(_EllResult)]),
+    "dmlc_parse_rowrec_gather_ell": (None, [_P, _P, _P, _I64, _I64, _I32, _P, _P,
+                                            _P, _P, _P, _I64, _I64,
+                                            ctypes.POINTER(_EllResult)]),
+    "dmlc_walk_record_spans": (None, [_P, _P, _P, _I64, _P, _P,
+                                      ctypes.POINTER(_I64),
+                                      ctypes.POINTER(_I64)]),
     "dmlc_parse_libfm_ell": (None, _TEXT_ELL),
     "dmlc_parse_libsvm_ell": (None, _TEXT_ELL),
+    "dmlc_shuffle_mt19937": (None, [_P, _I32, _I64, _P]),
     "dmlc_source_hash": (ctypes.c_char_p, []),
 }
 
@@ -373,6 +383,83 @@ def parse_rowrec_ell(chunk, offset: int, indices, values, nnz, labels, weights,
         ctypes.byref(res))
     return (res.rows_written, res.bytes_consumed, res.truncated,
             res.bad_records, res.corrupt)
+
+
+def _check_spans(starts, sizes) -> None:
+    check(starts.flags.c_contiguous and starts.dtype == np.int64
+          and sizes.flags.c_contiguous and sizes.dtype == np.int64,
+          "starts/sizes must be C-contiguous int64")
+
+
+def parse_rowrec_gather_ell(buf, starts, sizes, lo: int, n_recs: int, indices,
+                            values, nnz, labels, weights,
+                            row_start: int) -> Tuple[int, int, int, int, int]:
+    """The shuffled-read gather: the framed rowrec records at the byte
+    slices ``(starts[lo + i], sizes[lo + i])`` of ``buf`` (uint8), in that
+    order → ELL rows ``row_start..`` (buffers of ``parse_rowrec_ell``).
+    One call per batch; resumed calls pass a new ``lo``. Stops at
+    buffer-full. Returns (rows_written, recs_consumed, truncated,
+    bad_records, corrupt); ``corrupt`` is set when a slice holds no
+    complete record (the index and the data disagree)."""
+    lib = load()
+    check(buf.flags.c_contiguous and buf.dtype == np.uint8,
+          "gather buf must be C-contiguous uint8")
+    _check_spans(starts, sizes)
+    check(0 <= lo and n_recs >= 0 and lo + n_recs <= len(starts)
+          and len(sizes) >= len(starts), "gather range outside starts/sizes")
+    capacity, k = _check_ell_buffers(indices, values, nnz, labels, weights)
+    res = _EllResult()
+    lib.dmlc_parse_rowrec_gather_ell(
+        _ptr(buf), ctypes.c_void_p(starts.ctypes.data + lo * 8),
+        ctypes.c_void_p(sizes.ctypes.data + lo * 8), n_recs, k,
+        int(values.dtype == np.float16), _ptr(indices), _ptr(values),
+        _ptr(nnz), _ptr(labels), _ptr(weights), row_start, capacity,
+        ctypes.byref(res))
+    return (res.rows_written, res.bytes_consumed, res.truncated,
+            res.bad_records, res.corrupt)
+
+
+def walk_record_spans(buf, starts, sizes) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """The batched point-read frame walk: each ``(starts[i], sizes[i])``
+    slice of ``buf`` must begin at a RecordIO frame head. Returns
+    ``(payload_offs, payload_lens, n_multipart, n_corrupt)``:
+    ``payload_offs[i]`` is the payload's offset into ``buf`` for a
+    single-frame record, -2 for a multi-part chain (the caller joins its
+    parts) and -1 for a slice with no valid head."""
+    lib = load()
+    check(buf.flags.c_contiguous and buf.dtype == np.uint8,
+          "walk buf must be C-contiguous uint8")
+    _check_spans(starts, sizes)
+    check(len(sizes) == len(starts), "starts/sizes lengths differ")
+    n = len(starts)
+    out_off = np.empty(n, dtype=np.int64)
+    out_len = np.empty(n, dtype=np.int64)
+    nm, nc = ctypes.c_int64(), ctypes.c_int64()
+    lib.dmlc_walk_record_spans(_ptr(buf), _ptr(starts), _ptr(sizes), n,
+                               _ptr(out_off), _ptr(out_len), ctypes.byref(nm),
+                               ctypes.byref(nc))
+    return out_off, out_len, int(nm.value), int(nc.value)
+
+
+def shuffle_mt19937(rnd, perm: np.ndarray) -> bool:
+    """Fisher-Yates ``perm`` (C-contiguous int64) in place, bit-identical
+    to ``rnd.shuffle(perm)`` for a CPython ``random.Random``: the same
+    Mersenne-Twister draws, rejection sampling and swaps. ``rnd`` is left
+    untouched. Returns False, leaving ``perm`` as it was, when
+    ``len(perm) >= 2**31``: ``getrandbits`` there draws several words per
+    call, which the kernel does not mirror, and the caller runs
+    ``rnd.shuffle`` itself, with the same swaps."""
+    if len(perm) >= (1 << 31):
+        return False
+    lib = load()
+    check(perm.flags.c_contiguous and perm.dtype == np.int64,
+          "shuffle perm must be C-contiguous int64")
+    state = rnd.getstate()
+    check(state[0] == 3 and len(state[1]) == 625,
+          "unsupported random.Random state version")
+    key = np.asarray(state[1][:624], dtype=np.uint32)
+    lib.dmlc_shuffle_mt19937(_ptr(key), state[1][624], len(perm), _ptr(perm))
+    return True
 
 
 def _text_ell(fn, chunk, offset, base, indices, values, nnz, labels, weights,

@@ -19,7 +19,7 @@ from typing import BinaryIO, Iterable, List, Optional
 
 import numpy as np
 
-from ..io.recordio import RecordIOChunkReader, RecordIOWriter
+from ..io.recordio import IndexedRecordIOWriter, RecordIOChunkReader, RecordIOWriter
 from ..io.split import RecordIOSplitter
 from ..utils.logging import check
 from .parser import Parser
@@ -100,10 +100,14 @@ def decode_records(records: Iterable) -> RowBlock:
     )
 
 
-def write_rowrec(stream: BinaryIO, blocks: Iterable[RowBlock]) -> int:
+def write_rowrec(stream: BinaryIO, blocks: Iterable[RowBlock],
+                 index_stream: Optional[BinaryIO] = None) -> int:
     """Write RowBlocks as rowrec RecordIO frames; returns rows written.
-    The bytes equal dmlc_core_tpu's ``write_rowrec`` without a codec."""
-    writer = RecordIOWriter(stream)
+    With ``index_stream``, also write the ``key offset`` index that
+    ``?index=`` reads (``IndexedRecordIOWriter``). The bytes of both
+    equal dmlc_core_tpu's ``write_rowrec`` without a codec."""
+    writer = (RecordIOWriter(stream) if index_stream is None
+              else IndexedRecordIOWriter(stream, index_stream))
     n = 0
     for blk in blocks:
         for payload in encode_rows(blk):
@@ -113,14 +117,16 @@ def write_rowrec(stream: BinaryIO, blocks: Iterable[RowBlock]) -> int:
 
 
 class RowRecParser(Parser):
-    """Part ``part_index`` of ``num_parts`` of a local .rec file →
-    one RowBlock per chunk of whole records, decoded record by record
-    (the plain version the native rowrec producer is held to)."""
+    """Part ``part_index`` of ``num_parts`` of a local .rec file, or the
+    chunks of a split of one (``io.split.create``) → one RowBlock per
+    chunk of whole records, decoded record by record (the plain version
+    the native rowrec producer is held to)."""
 
     def __init__(
-        self, path: str, part_index: int = 0, num_parts: int = 1
+        self, source, part_index: int = 0, num_parts: int = 1
     ) -> None:
-        self._source = RecordIOSplitter(path, part_index, num_parts)
+        self._source = (RecordIOSplitter(source, part_index, num_parts)
+                        if isinstance(source, str) else source)
 
     def parse_next(self) -> Optional[List[RowBlock]]:
         chunk = self._source.next_chunk()

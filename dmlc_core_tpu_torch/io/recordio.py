@@ -10,8 +10,8 @@ A payload holding the magic word at a 4-byte-aligned offset is split
 there into a multipart chain (cflag 1 start, 2 middle, 3 end; 0 is a
 whole record) and the reader re-inserts the elided magic.
 
-This port keeps the raw v1 frames only: the writer has no block codecs,
-and the chunk reader rejects compressed-block frames (cflag bit 2) with a
+This port keeps the raw v1 frames only: the writers have no block codecs
+(compressed-block RecordIO is ``ROADMAP.md`` §1 item 2), and the chunk reader rejects compressed-block frames (cflag bit 2) with a
 checked error instead of returning their bytes as records.
 """
 
@@ -26,6 +26,7 @@ from ..utils.logging import Error, check
 
 __all__ = [
     "KMAGIC",
+    "IndexedRecordIOWriter",
     "RecordIOChunkReader",
     "RecordIOWriter",
     "decode_flag",
@@ -100,6 +101,37 @@ class RecordIOWriter:
         self.stream.write(framed)
         self.bytes_written += len(framed)
         self.records_written += 1
+
+
+class IndexedRecordIOWriter(RecordIOWriter):
+    """A RecordIOWriter that also writes the index an indexed split
+    shards by: one ``key<TAB>offset`` line per record (reference
+    ReadIndexFile, src/io/indexed_recordio_split.cc:43-62), the key
+    defaulting to the record's ordinal. Offsets count the writer's own
+    bytes, so the data stream must start at byte 0 of its file."""
+
+    def __init__(self, stream: BinaryIO, index_stream: BinaryIO,
+                 codec=None) -> None:
+        if codec is not None:
+            raise Error(f"codec={codec!r}: compressed-block RecordIO is not "
+                        "ported (ROADMAP.md §1 item 2); the port writes v1 "
+                        "frames")
+        super().__init__(stream)
+        try:
+            pos = stream.tell()
+        except (OSError, AttributeError, Error):
+            pos = 0  # a pipe: no position to hold it to
+        check(pos == 0, "IndexedRecordIOWriter must start at byte 0 of the "
+              f"destination (stream is at {pos}); offsets would be wrong")
+        self.index_stream = index_stream
+        self._count = 0
+
+    def write_record(self, data: bytes, key: Optional[int] = None) -> None:
+        offset = self.bytes_written
+        super().write_record(data)
+        k = self._count if key is None else key
+        self.index_stream.write(f"{k}\t{offset}\n".encode())
+        self._count += 1
 
 
 def _head_hits(words: np.ndarray) -> np.ndarray:

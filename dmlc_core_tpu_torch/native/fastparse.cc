@@ -2,9 +2,7 @@
 // CSR arrays or fixed-shape batch rows.
 //
 // The port's own copy of native/fastparse.cc (the JAX package's parse
-// core), trimmed to the entry points the port binds; the shuffled-read
-// gather, the point-read span walk and the MT19937 shuffle wait for the
-// indexed splits. Built at first use by dmlc_core_tpu_torch/data/native.py
+// core). Built at first use by dmlc_core_tpu_torch/data/native.py
 // with g++ and loaded through ctypes, which releases the GIL for the
 // duration of each call, so sub-shard producers parse in parallel.
 //
@@ -1211,6 +1209,105 @@ DMLC_API void dmlc_parse_rowrec_ell(
   out->corrupt = corrupt ? 1 : 0;
 }
 
+// -- shuffled-read gather: (buf, starts, sizes) -> ELL batch ------------------
+//
+// The shuffled read path: IndexedRecordIOSplitter (io/split.py) hands
+// `next_gather_batch` views — one span buffer plus per-record byte
+// offsets/lengths IN PERMUTATION ORDER — and this kernel parses every
+// record straight out of that buffer into the caller's ring-slot ELL
+// batch. One native call per batch, with no per-record Python and no
+// re-framing copy, so the shuffled epoch rides the same single-copy
+// staging path as sequential reads.
+//
+// Each (starts[i], sizes[i]) slice must contain one whole logical record
+// (a frame or a multi-part chain — the index points at chain starts). A
+// slice that doesn't (bad magic OR a record extending past the slice)
+// means the index and the data disagree: reported as `corrupt`, and the
+// caller fails fast. Malformed rowrec payloads are skipped and counted in
+// `bad_records`, exactly like the sequential kernel. Stops at
+// buffer-full; `bytes_consumed` carries the number of RECORDS consumed
+// (slices, not bytes — the caller resumes at starts[consumed]).
+
+DMLC_API void dmlc_parse_rowrec_gather_ell(
+    const char* buf, const int64_t* starts, const int64_t* sizes,
+    int64_t n_recs, int64_t max_nnz, int32_t out_f16, int32_t* indices,
+    void* values, int32_t* nnz, float* labels, float* weights,
+    int64_t row_start, int64_t row_capacity, EllResult* out) {
+  EllState st{indices, values, nnz, labels, weights, max_nnz, out_f16 != 0, 0};
+  int64_t row = row_start;
+  int64_t bad = 0;
+  int64_t i = 0;
+  bool corrupt = false;
+  std::vector<char> chain;
+  for (; i < n_recs && row < row_capacity; ++i) {
+    const char* p = buf + starts[i];
+    const char* end = p + sizes[i];
+    const char* payload = nullptr;
+    int64_t payload_len = 0;
+    if (walk_one_record(&p, end, chain, &payload, &payload_len) <= 0) {
+      corrupt = true;  // slice holds no complete record: index mismatch
+      break;
+    }
+    if (rowrec_to_ell(payload, payload_len, st, row)) {
+      ++row;
+    } else {
+      ++bad;
+    }
+  }
+  out->rows_written = row - row_start;
+  out->bytes_consumed = i;  // gather contract: records consumed, not bytes
+  out->truncated = st.truncated;
+  out->bad_records = bad;
+  out->corrupt = corrupt ? 1 : 0;
+}
+
+// -- batched point-read frame walk: payload spans -----------------------------
+//
+// The point-read walk: given per-record byte slices of a span buffer — each (starts[i], sizes[i]) must
+// begin at a frame head — emit the PAYLOAD span of every single-frame
+// record in one native call, no per-record Python. Multi-part chains
+// (payloads containing the aligned magic word — rare by construction)
+// cannot be expressed as a slice of the input buffer, so they are
+// marked out_off = -2 and the caller reassembles those few in Python;
+// a slice that does not start at a valid head (index/data mismatch) is
+// marked out_off = -1 and counted corrupt — callers fail fast.
+DMLC_API void dmlc_walk_record_spans(
+    const char* buf, const int64_t* starts, const int64_t* sizes,
+    int64_t n, int64_t* out_off, int64_t* out_len,
+    int64_t* n_multipart, int64_t* n_corrupt) {
+  int64_t nm = 0, nc = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const char* p = buf + starts[i];
+    const int64_t avail = sizes[i];
+    out_len[i] = 0;
+    if (avail < 8 || load_u32(p) != kRecMagic) {
+      out_off[i] = -1;
+      ++nc;
+      continue;
+    }
+    const uint32_t lrec = load_u32(p + 4);
+    const uint32_t cflag = (lrec >> 29) & 7u;
+    const int64_t pl = static_cast<int64_t>(lrec & ((1u << 29) - 1u));
+    if (cflag == 0) {  // complete single-frame record: payload in place
+      if (avail < 8 + ((pl + 3) & ~int64_t{3})) {
+        out_off[i] = -1;  // frame runs past the slice: index mismatch
+        ++nc;
+        continue;
+      }
+      out_off[i] = starts[i] + 8;
+      out_len[i] = pl;
+    } else if (cflag == 1) {  // chain start: Python reassembles
+      out_off[i] = -2;
+      ++nm;
+    } else {  // mid-chain / compressed head at a record start: corrupt
+      out_off[i] = -1;
+      ++nc;
+    }
+  }
+  *n_multipart = nm;
+  *n_corrupt = nc;
+}
+
 // -- fused libfm -> fixed-shape ELL batch -------------------------------------
 //
 // Same resumable text-chunk contract as dmlc_parse_libsvm_dense (line walk,
@@ -1423,6 +1520,72 @@ DMLC_API void dmlc_parse_libsvm_ell(
       });
   out->truncated = st.truncated;
   out->has_cr = has_cr ? 1 : 0;
+}
+
+// -- CPython-compatible shuffle ----------------------------------------------
+//
+// Fisher-Yates over an int64 array, reproducing random.Random.shuffle
+// BIT-IDENTICALLY from a CPython Mersenne-Twister state snapshot
+// (random.Random.getstate()): same genrand_uint32 stream, same tempering,
+// same getrandbits(k)=top-k-bits rule, same rejection loop, same swap
+// order. The shuffled-read permutation contract pins epoch order to
+// random.Random(seed', epoch'); this native twin keeps the ORDER while
+// removing the Python loop from the epoch's critical path (parity with
+// random.shuffle enforced by tests/test_torch_native.py).
+
+namespace {
+
+struct Mt19937 {
+  uint32_t mt[624];
+  int mti;
+
+  inline uint32_t next() {
+    if (mti >= 624) {
+      // one-pass in-place regeneration; the modular indices resolve to
+      // the reference implementation's three loops (already-updated
+      // words are read exactly where CPython reads them)
+      for (int kk = 0; kk < 624; ++kk) {
+        const uint32_t y =
+            (mt[kk] & 0x80000000u) | (mt[(kk + 1) % 624] & 0x7fffffffu);
+        mt[kk] =
+            mt[(kk + 397) % 624] ^ (y >> 1) ^ ((y & 1u) ? 0x9908b0dfu : 0u);
+      }
+      mti = 0;
+    }
+    uint32_t y = mt[mti++];
+    y ^= y >> 11;
+    y ^= (y << 7) & 0x9d2c5680u;
+    y ^= (y << 15) & 0xefc60000u;
+    y ^= y >> 18;
+    return y;
+  }
+};
+
+}  // namespace
+
+// `state` is the 624-word key and `mti` the position from
+// random.Random.getstate() (state[1][:624], state[1][624]). `n` must be
+// < 2^31: beyond that getrandbits(k>32) consumes multiple words per call,
+// which this kernel does not mirror, and the Python wrapper declines so
+// the caller runs random.Random.shuffle itself.
+DMLC_API void dmlc_shuffle_mt19937(const uint32_t* state, int32_t mti,
+                                   int64_t n, int64_t* x) {
+  Mt19937 rng;
+  std::memcpy(rng.mt, state, sizeof(rng.mt));
+  rng.mti = mti;
+  for (int64_t i = n - 1; i >= 1; --i) {
+    const uint32_t bound = static_cast<uint32_t>(i + 1);
+    int k = 0;
+    while ((bound >> k) != 0u) ++k;  // k = bit_length(i + 1) <= 31
+    uint32_t r;
+    do {
+      r = rng.next() >> (32 - k);  // getrandbits(k): top k bits
+    } while (r >= bound);
+    const int64_t j = static_cast<int64_t>(r);
+    const int64_t tmp = x[i];
+    x[i] = x[j];
+    x[j] = tmp;
+  }
 }
 
 // Build stamp: data/native.py passes -DDMLC_SRC_HASH="sha256 of fastparse.cc"

@@ -7,13 +7,15 @@ rows into the current ring slot: no CSR arrays, no per-row Python.
 
 - ``FusedEllRowRecBatches``: rowrec RecordIO → ELL [B,K], over raw mmap
   windows (the kernel stops at a trailing partial record; a record wider
-  than the window widens it).
+  than the window widens it), or with ``?index=`` through an indexed,
+  optionally shuffled split whose batches of records the gather kernel
+  parses in permutation order.
 - ``FusedEllLibSVMBatches`` / ``FusedEllLibFMBatches``: libsvm / libfm
   text → ELL [B,K]; libfm fields are checked, then dropped.
 - ``FusedDenseLibSVMBatches`` / ``FusedDenseCSVBatches``: libsvm / csv
   text → dense [B,D].
 
-Every producer maps its part's byte range, ``[begin, end)`` as
+Every producer of a plain URI maps its part's byte range, ``[begin, end)`` as
 ``io.split.part_range`` snaps it to record starts, and hands the kernels
 views of the page cache. Text is read in line-aligned chunks of that
 range; a UTF-8 BOM at the start of a part is skipped.
@@ -26,10 +28,12 @@ tail batch and batches interleave round-robin.
 
 ``ell_batches`` and ``dense_batches`` always return a native producer.
 The plain versions the tests and ``chip_smoke.py`` hold them to are
-``EllRowRecBatches`` (rowrec decoded record by record in numpy) and
+``EllRowRecBatches`` (rowrec decoded record by record in numpy),
 ``GenericBatchStream`` (a parser running its Python grammar,
-``parse_block_plain`` → ``FixedShapeBatcher``), both from
-``plain_batches``; neither runs the native parse core.
+``parse_block_plain`` → ``FixedShapeBatcher``) and, for indexed URIs,
+``LegacyIndexedSplit`` (one seek per record) → numpy decode →
+``FixedShapeBatcher``, all from ``plain_batches``; none runs the native
+parse core.
 
 A yielded batch views a ring slot and stays valid until ``ring_slots - 1``
 further batches have been produced.
@@ -38,6 +42,8 @@ further batches have been produced.
 from __future__ import annotations
 
 import mmap
+import os
+import random
 import struct
 from functools import partial
 from typing import Iterator, List, Optional
@@ -49,7 +55,7 @@ from ..data.rowrec import RowRecParser
 from ..data.strtonum import parse_triple
 from ..io import split as io_split
 from ..io.recordio import KMAGIC
-from ..io.uri import URISpec
+from ..io.uri import URISpec, rejoin_query, uri_int
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from .batcher import (
@@ -130,6 +136,87 @@ class EllRowRecBatches:
 
     def close(self) -> None:
         self._parser.close()
+
+
+class LegacyIndexedSplit:
+    """The plain version of an indexed split (``?index=``): the
+    (seed, epoch) permutation rule of ``IndexedRecordIOSplitter`` run by
+    ``random.Random.shuffle`` on a Python list, then one seek and one
+    read per record, ``batch_size`` records a chunk. No window, no span
+    planning, no native code. Each ``reset_partition`` starts the next
+    epoch, as the indexed split's does."""
+
+    def __init__(self, path: str, index_path: str, part_index: int,
+                 num_parts: int, shuffle, batch_size: int, seed: int,
+                 epoch: int, skip_records: int) -> None:
+        with open(index_path) as f:
+            self._offs = sorted(int(t) for t in f.read().split()[1::2])
+        self._end = os.path.getsize(path)
+        self._fp = open(path, "rb")
+        self._mode = io_split.normalize_shuffle(shuffle)
+        self._bs, self._seed = batch_size, seed
+        self._epoch, self._skip = epoch - 1, skip_records
+        self._order: List[int] = []
+        self._pos = 0
+        self.reset_partition(part_index, num_parts)
+
+    def reset_partition(self, part_index: int, num_parts: int) -> None:
+        n = len(self._offs)
+        step = -(-n // num_parts)
+        self._lo, self._hi = min(part_index * step, n), min((part_index + 1) * step, n)
+        self._order, self._pos = [], 0
+        self.before_first()
+
+    def before_first(self) -> None:
+        lo, hi, bs = self._lo, self._hi, self._bs
+        if hi <= lo:
+            return
+        self._epoch += 1
+        rnd = random.Random(111 + self._seed + 1_000_003 * self._epoch)
+        order = list(range(lo, hi))
+        if self._mode == "batch":
+            full = lo + (hi - lo) // bs * bs
+            spans = list(range(lo, full, bs))
+            rnd.shuffle(spans)
+            spans += [full] if full < hi else []
+            order = [i for s in spans for i in range(s, min(s + bs, hi))]
+        elif self._mode:
+            rnd.shuffle(order)
+        self._order, self._pos = order[self._skip:], 0
+        self._skip = 0
+
+    def next_chunk(self) -> Optional[bytes]:
+        take = self._order[self._pos:self._pos + self._bs]
+        if not take:
+            return None
+        self._pos += len(take)
+        parts = []
+        for i in take:
+            end = self._offs[i + 1] if i + 1 < len(self._offs) else self._end
+            self._fp.seek(self._offs[i])
+            parts.append(self._fp.read(end - self._offs[i]))
+        return b"".join(parts)
+
+    def close(self) -> None:
+        self._fp.close()
+
+
+def _legacy_split(path: str, args, part_index: int, num_parts: int):
+    """The plain split of a routed rowrec URI's options: a
+    ``LegacyIndexedSplit`` (or a RecordIOSplitter without an index),
+    under ``InputSplitShuffle`` when ``shuffle_parts`` asks for it."""
+    seed = uri_int(args, "seed", 0)
+    if "index" in args:
+        base = LegacyIndexedSplit(
+            path, io_split.local_path(args["index"]), part_index, num_parts,
+            args.get("shuffle", "0"), uri_int(args, "batch_size", 256), seed,
+            uri_int(args, "epoch", 0), uri_int(args, "skip_records", 0))
+    else:
+        base = io_split.RecordIOSplitter(path, part_index, num_parts)
+    nsp = uri_int(args, "shuffle_parts", 0)
+    if nsp:
+        return io_split.InputSplitShuffle(base, part_index, num_parts, nsp, seed)
+    return base
 
 
 def _check_ell_spec(spec: BatchSpec) -> None:
@@ -481,21 +568,57 @@ def _compressed_head(buf, off: int) -> bool:
 
 class FusedEllRowRecBatches(_RingBatches):
     """rowrec RecordIO → ELL [B,K] (``dmlc_parse_rowrec_ell``): frame
-    scan, rowrec decode and ELL fill in one native pass."""
+    scan, rowrec decode and ELL fill in one native pass.
+
+    A plain URI is read as raw mmap windows of the part's byte range. A
+    URI with ``?index=`` or ``?shuffle_parts=`` goes through
+    ``io.split.create``: a windowed shuffle (``shuffle=record|batch|
+    window``) hands ``(buf, starts, sizes)`` views of each batch's
+    records in permutation order to ``dmlc_parse_rowrec_gather_ell``,
+    one native call per batch; other splits (file order, the legacy
+    per-record loop, the macro-shuffle) hand whole-record chunks to the
+    chunk kernel. There is no fallback: a gather that makes no progress
+    or a record the index cuts short raises. ``io_stats()`` gives the
+    split's counters."""
 
     def __init__(self, uri: str, spec: BatchSpec, part_index: int = 0,
                  num_parts: int = 1, ring: int = 10) -> None:
+        uspec = URISpec(uri, part_index, num_parts)
         self.path, _ = _uri_args(uri, "rowrec", part_index, num_parts)
         with open(self.path, "rb") as f:
             if _compressed_head(f.read(8), 0):
                 raise Error(f"{self.path}: compressed-block RecordIO is not "
-                            "ported; the port reads v1 frames")
+                            "ported (ROADMAP.md §1 item 2); the port reads "
+                            "v1 frames")
+        split_args = {k: v for k, v in uspec.args.items()
+                      if k in io_split.SPLIT_OPTIONS}
+        # the split refuses options of an indexed read without an index;
+        # a seed alone changes nothing of a plain read
+        routed = bool(set(split_args) - {"seed"})
         super().__init__(spec, ring)
         native.load()
-        self._split = _MmapRawChunks(
-            self.path, *io_split.part_range(self.path, part_index, num_parts,
-                                            "recordio"))
+        if routed:
+            self._split = io_split.create(
+                self.path + rejoin_query(split_args), part_index, num_parts,
+                type="recordio")
+        else:
+            self._split = _MmapRawChunks(
+                self.path, *io_split.part_range(self.path, part_index,
+                                                num_parts, "recordio"))
+        self._mmap = not routed
+        self._gather = bool(getattr(self._split, "supports_gather", bool)())
         self.bad_records = 0
+
+    def io_stats(self) -> dict:
+        """The split's I/O counters (``IndexedRecordIOSplitter.io_stats``),
+        or an empty dict on the plain mmap path."""
+        fn = getattr(self._split, "io_stats", None)
+        return fn() if fn is not None else {}
+
+    def _count(self, rows: int, trunc: int, bad: int) -> None:
+        self.rows_in += rows
+        self.truncated_nnz += trunc
+        self.bad_records += bad
 
     def _feed(self, chunk, off: int, fill: int):
         """Parse ``chunk[off:]`` into the current slot → (off, fill,
@@ -504,9 +627,7 @@ class FusedEllRowRecBatches(_RingBatches):
         rows, consumed, trunc, bad, corrupt = native.parse_rowrec_ell(
             chunk, off, v["indices"], v["values"], v["nnz"], v["labels"],
             v["weights"], fill)
-        self.rows_in += rows
-        self.truncated_nnz += trunc
-        self.bad_records += bad
+        self._count(rows, trunc, bad)
         if corrupt:
             raise Error("rowrec: corrupt RecordIO frame (bad magic) at byte "
                         f"{off + consumed} of the current chunk")
@@ -516,6 +637,14 @@ class FusedEllRowRecBatches(_RingBatches):
         return off + consumed, fill + rows, bool(rows or consumed)
 
     def __iter__(self) -> Iterator[Batch]:
+        if self._gather:
+            yield from self._iter_gather()
+        elif self._mmap:
+            yield from self._iter_mmap()
+        else:
+            yield from self._iter_chunks()
+
+    def _iter_mmap(self) -> Iterator[Batch]:
         B = self.spec.batch_size
         fill = 0
         while True:
@@ -537,6 +666,65 @@ class FusedEllRowRecBatches(_RingBatches):
                 # not one whole record fits a window that reaches the end
                 raise Error("rowrec: truncated RecordIO stream (record "
                             "extends past the end of the part)")
+        if fill:
+            yield self._tail(fill)
+
+    def _iter_chunks(self) -> Iterator[Batch]:
+        """Whole-record chunks of a split (file order, the legacy loop,
+        the macro-shuffle); a record cut by a chunk's end carries over."""
+        B = self.spec.batch_size
+        fill = 0
+        carry = b""
+        while True:
+            chunk = self._split.next_chunk()
+            if chunk is None:
+                break
+            if carry:
+                chunk = carry + bytes(chunk)
+                carry = b""
+            off, n = 0, len(chunk)
+            while off < n:
+                off, fill, progressed = self._feed(chunk, off, fill)
+                if fill == B:
+                    yield self._emit(B)
+                    fill = 0
+                elif not progressed:
+                    carry = bytes(memoryview(chunk)[off:])
+                    break
+        if carry:
+            raise Error("rowrec: truncated RecordIO stream "
+                        f"({len(carry)} undecodable trailing bytes)")
+        if fill:
+            yield self._tail(fill)
+
+    def _iter_gather(self) -> Iterator[Batch]:
+        """The windowed shuffle: each ``next_gather_batch`` view goes to
+        the native gather kernel, which parses the records in permutation
+        order straight out of the window buffer into the ring slot."""
+        B = self.spec.batch_size
+        fill = 0
+        while True:
+            g = self._split.next_gather_batch(B - fill)
+            if g is None:
+                break
+            buf, starts, sizes = g
+            off, n = 0, len(starts)
+            while off < n:
+                v = self._views
+                rows, consumed, trunc, bad, corrupt = native.parse_rowrec_gather_ell(
+                    buf, starts, sizes, off, n - off, v["indices"], v["values"],
+                    v["nnz"], v["labels"], v["weights"], fill)
+                self._count(rows, trunc, bad)
+                if corrupt:
+                    raise Error("rowrec: corrupt RecordIO frame in shuffled "
+                                f"gather slice {off + consumed} (the index "
+                                "and the data disagree)")
+                check(consumed > 0 or rows > 0, "gather made no progress")
+                off += consumed
+                fill += rows
+                if fill == B:
+                    yield self._emit(B)
+                    fill = 0
         if fill:
             yield self._tail(fill)
 
@@ -592,6 +780,18 @@ class ShardedFusedBatches:
     @property
     def bad_lines(self) -> int:
         return self._sum("bad_lines")
+
+    def io_stats(self) -> dict:
+        """The sub-producers' split counters, numbers summed (the mode
+        carries over); empty when no sub-producer keeps any."""
+        out: dict = {}
+        for p in self._producers:
+            for k, v in getattr(p, "io_stats", dict)().items():
+                if isinstance(v, (int, float)):
+                    out[k] = out.get(k, 0) + v
+                else:
+                    out.setdefault(k, v)
+        return out
 
     def __iter__(self) -> Iterator[Batch]:
         # the threads start here: a stream built and never read starts none
@@ -715,7 +915,9 @@ def plain_batches(
     indexing_mode: int = 0,
 ):
     """The plain version of the native producer for ``uri``: rowrec →
-    ``EllRowRecBatches``, text → ``GenericBatchStream`` over a one-thread
+    ``EllRowRecBatches``, or with ``?index=``/``?shuffle_parts=`` the
+    records of ``LegacyIndexedSplit`` decoded by ``RowRecParser`` and
+    packed by ``FixedShapeBatcher``; text → ``GenericBatchStream`` over a one-thread
     ``create_parser`` whose blocks go through the format's Python grammar
     (``parse_block_plain``) rather than the native parse
     (``indexing_mode`` joins the URI unless it carries one). ``format``
@@ -723,7 +925,11 @@ def plain_batches(
     dense one."""
     fmt = _format(uri, format, "rowrec" if spec.layout == "ell" else "libsvm")
     if fmt == "rowrec":
-        path, _ = _uri_args(uri, "rowrec", part_index, num_parts)
+        path, args = _uri_args(uri, "rowrec", part_index, num_parts)
+        if set(args) - {"seed"}:
+            return GenericBatchStream(
+                RowRecParser(_legacy_split(path, args, part_index, num_parts)),
+                FixedShapeBatcher(spec))
         return EllRowRecBatches(path, spec, part_index, num_parts)
     uspec = URISpec(uri, part_index, num_parts)
     if fmt in ("libsvm", "libfm") and indexing_mode and "indexing_mode" not in uspec.args:

@@ -147,11 +147,12 @@ def available_cpus() -> int:
 
 
 def parse_threads(requested: Optional[int] = None) -> int:
-    """Effective parse fan-out: ``DMLC_PARSE_THREADS`` wins, then
-    ``requested`` capped at ``available_cpus()``, then every available
-    CPU (host cores idle while the device runs the step, so the parser
-    gets all of them)."""
-    env = os.environ.get("DMLC_PARSE_THREADS")
+    """Effective parse fan-out: ``DMLC_PARSE_THREADS`` wins, then its
+    legacy alias ``DMLC_TPU_PARSER_THREADS``, then ``requested`` capped
+    at ``available_cpus()``, then every available CPU (host cores idle
+    while the device runs the step, so the parser gets all of them)."""
+    env = (os.environ.get("DMLC_PARSE_THREADS")
+           or os.environ.get("DMLC_TPU_PARSER_THREADS"))
     if env:
         return max(1, int(env))
     avail = available_cpus()

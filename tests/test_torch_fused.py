@@ -1,7 +1,8 @@
 """The port's native producers against the JAX package's fused producers,
-on the CPU: every batch of ``ell_batches`` (rowrec, libsvm, libfm) and
-``dense_batches`` (libsvm, csv), f16 and f32, one part and three, one
-thread and three, equal byte for byte with ``truncated_nnz``, ``rows_out``
+on the CPU: every batch of ``ell_batches`` (rowrec, libsvm, libfm; rowrec
+also over indexed URIs in every shuffle mode) and ``dense_batches``
+(libsvm, csv), f16 and f32, one part and three, one thread and three,
+equal byte for byte with ``truncated_nnz``, ``rows_out``
 and the padded tails; the plain versions where the JAX tests compare the
 generic path; chunk edges, corrupt input and refusals; and two whole
 paths through ``StagingPipeline(device="cpu")`` against the JAX models:
@@ -43,9 +44,10 @@ B, K, D = 64, 7, 24
 MAGIC_F32 = np.frombuffer(np.uint32(0xCED7230A).tobytes(), np.float32)[0]
 
 
-def write_rec(path, n, seed, k=K):
+def write_rec(path, n, seed, k=K, with_index=False):
     """Rowrec rows of 0..k+3 features (some wider than K), values with
-    the RecordIO magic's bits (multipart chains) and ids past int32."""
+    the RecordIO magic's bits (multipart chains) and ids past int32;
+    with ``with_index``, also its ``.idx`` index."""
     rng = np.random.default_rng(seed)
     nnz = rng.integers(0, k + 4, n)
     offset = np.r_[0, np.cumsum(nnz)].astype(np.int64)
@@ -57,7 +59,11 @@ def write_rec(path, n, seed, k=K):
                       index=index, value=value,
                       weight=rng.uniform(0.5, 2, n).astype(np.float32))
     with FileStream(str(path), "w") as f:
-        jax_write_rowrec(f, [blk])
+        if with_index:
+            with FileStream(f"{path}.idx", "w") as fi:
+                jax_write_rowrec(f, [blk], index_stream=fi)
+        else:
+            jax_write_rowrec(f, [blk])
     return str(path)
 
 
@@ -327,7 +333,8 @@ def test_overflow_error_policy_raises(tmp_path, layout):
 @pytest.mark.parametrize("call,match", [
     (lambda p, s, d: ell_batches(p + "#cache", s), "cachefile"),
     (lambda p, s, d: ell_batches(p + "?format=libsvm&shuffle_parts=2", s), "not supported"),
-    (lambda p, s, d: ell_batches(p + "?index=x.idx", s), "not supported"),
+    (lambda p, s, d: ell_batches(p + "?index=x.idx&dynamic_shards=1", s), "not supported"),
+    (lambda p, s, d: ell_batches(p + "?shuffle=batch", s), "indexed recordio source"),
     (lambda p, s, d: ell_batches(p + ";" + p, s), "multi-file"),
     (lambda p, s, d: ell_batches("dsserve://h:1/x", s), "remote"),
     (lambda p, s, d: ell_batches(p, s, format="csv"), "rowrec/libsvm/libfm"),
@@ -343,6 +350,94 @@ def test_factories_refuse_what_the_port_lacks(tmp_path, call, match):
     dspec = BatchSpec(batch_size=4, layout="dense", num_features=3)
     with pytest.raises(Error, match=match):
         call(str(p), spec, dspec)
+
+
+SHUFFLES = {
+    "index": "", "record": "&shuffle=record", "batch": "&shuffle=batch&batch_size=48",
+    "window": "&shuffle=window&window=100&merge_gap=256",
+    "legacy": "&shuffle=record&legacy_shuffle=1",
+    "skip": "&shuffle=batch&batch_size=32&epoch=3&skip_records=96",
+    "parts": "&shuffle=window&window=50&shuffle_parts=3",
+}
+
+
+@pytest.mark.parametrize("nthread", [None, 3])
+@pytest.mark.parametrize("num_parts", [1, 3])
+@pytest.mark.parametrize("vdtype", [np.float32, np.float16])
+@pytest.mark.parametrize("mode", list(SHUFFLES))
+def test_indexed_producers_match_jax(tmp_path, mode, vdtype, num_parts, nthread):
+    """Every batch of ``ell_batches`` over an indexed URI equals the JAX
+    package's byte for byte, and, with one thread, the plain version's
+    (one seek per record, no native code); no batch is copied out of the
+    gather path."""
+    rec = write_rec(tmp_path / "d.rec", 700, seed=3, with_index=True)
+    uri = f"{rec}?index={rec}.idx&seed=5{SHUFFLES[mode]}"
+    spec, jspec = specs("ell", vdtype)
+    if mode == "skip" and nthread:
+        return  # 96 records lie past a sub-shard: both raise alike (below)
+    for part in range(num_parts):
+        got = ell_batches(uri, spec, part, num_parts, nthread=nthread, ring=12)
+        want = jax_ell_batches(uri, jspec, part, num_parts, nthread=nthread, ring=12)
+        assert got.ring_slots == want.ring_slots
+        port = snapshot(got)
+        assert_same_stream(port, snapshot(want))
+        stats = got.io_stats()
+        assert stats.get("gather_fallback_batches", 0) == 0
+        windowed = mode not in ("index", "legacy")
+        assert (stats.get("gather_batches", 0) > 0) == windowed
+        if nthread is None:  # the plain stream counts no rows_out
+            plain, counters = snapshot(plain_batches(uri, spec, part, num_parts))
+            assert_same_stream((port[0], port[1][:1]), (plain, counters[:1]))
+
+
+def test_indexed_skip_outside_a_part_raises_like_jax(tmp_path):
+    rec = write_rec(tmp_path / "d.rec", 700, seed=3, with_index=True)
+    uri = f"{rec}?index={rec}.idx{SHUFFLES['skip']}"
+    spec, jspec = specs("ell", np.float32)
+    with pytest.raises(Error, match="outside this shard") as e:
+        ell_batches(uri, spec, 2, 3, nthread=3)
+    with pytest.raises(Exception) as je:
+        jax_ell_batches(uri, jspec, 2, 3, nthread=3)
+    assert str(e.value) == str(je.value)
+
+
+@pytest.mark.parametrize("damage", ["shifted", "short"])
+def test_gather_raises_when_the_index_and_data_disagree(tmp_path, damage):
+    rec = write_rec(tmp_path / "d.rec", 200, seed=4, with_index=True)
+    lines = open(f"{rec}.idx").read().split("\n")
+    # a shifted offset points past a frame head; moving the next offset
+    # back cuts a record short
+    at = 50 if damage == "shifted" else 51
+    key, off = lines[at].split("\t")
+    lines[at] = f"{key}\t{int(off) + (4 if damage == 'shifted' else -4)}"
+    open(f"{rec}.idx", "w").write("\n".join(lines))
+    uri = f"{rec}?index={rec}.idx&shuffle=record"
+    spec, jspec = specs("ell", np.float32)
+    for make, err in ((lambda: ell_batches(uri, spec), Error),
+                      (lambda: jax_ell_batches(uri, jspec), Exception)):
+        src = make()
+        try:
+            with pytest.raises(err, match="index and the data disagree"):
+                list(src)
+        finally:
+            src.close()
+
+
+def test_plain_indexed_stream_runs_no_native_code(tmp_path, monkeypatch):
+    rec = write_rec(tmp_path / "d.rec", 300, seed=6, with_index=True)
+    uri = f"{rec}?index={rec}.idx&shuffle=window&window=40&seed=2"
+    spec, _ = specs("ell", np.float32)
+    want = snapshot(ell_batches(uri, spec))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version called the native core")
+
+    for name in ("parse_rowrec_ell", "parse_rowrec_gather_ell", "shuffle_mt19937"):
+        monkeypatch.setattr(native, name, refuse)
+    plain = plain_batches(uri, spec)
+    assert isinstance(plain, GenericBatchStream)
+    batches, counters = snapshot(plain)
+    assert_same_stream((batches, counters[:1]), (want[0], want[1][:1]))
 
 
 def test_factories_raise_when_the_library_cannot_be_built(tmp_path, monkeypatch):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from dmlc_core_tpu_torch import convert, entry as entry_mod
+from dmlc_core_tpu_torch.examples import train_criteo_rec, train_higgs
 from dmlc_core_tpu_torch.models import FactorizationMachine, LogisticRegression
 from dmlc_core_tpu_torch.staging import pipeline
 from dmlc_core_tpu_torch.staging.batcher import BatchSpec, FixedShapeBatcher
@@ -35,7 +36,23 @@ bad = sorted(n for n in sys.modules
              or n == "dmlc_core_tpu" or n.startswith("dmlc_core_tpu."))
 print("LOADED", len([n for n in sys.modules if n.startswith("dmlc_core_tpu_torch.")]))
 print("BAD", bad)
+print("NAMES", " ".join(sorted(n for n in sys.modules if n.startswith("dmlc_core_tpu_torch."))))
 """
+
+# the modules of the indexed, shuffled path, the checkpoints and the
+# example ports: each must be among those imported
+NEW_MODULES = {
+    "dmlc_core_tpu_torch.checkpoint",
+    "dmlc_core_tpu_torch.io.stream",
+    "dmlc_core_tpu_torch.io.filesystem",
+    "dmlc_core_tpu_torch.io.serializer",
+    "dmlc_core_tpu_torch.io.split",
+    "dmlc_core_tpu_torch.io.recordio",
+    "dmlc_core_tpu_torch.examples",
+    "dmlc_core_tpu_torch.examples._common",
+    "dmlc_core_tpu_torch.examples.train_higgs",
+    "dmlc_core_tpu_torch.examples.train_criteo_rec",
+}
 
 
 def _clean_env():
@@ -51,7 +68,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 20  # every module was imported
+    assert int(lines["LOADED"]) >= 30  # every module was imported
+    assert NEW_MODULES <= set(lines["NAMES"].split())
     assert lines["BAD"] == "[]"
 
 
@@ -67,6 +85,8 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         lambda: FactorizationMachine(8, 2),
         lambda: LogisticRegression(8),
         lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
+        lambda: train_higgs.main(["unused.libsvm"]),
+        lambda: train_criteo_rec.main(["unused.rec"]),
     ]
     for call in calls:
         with pytest.raises(Error, match="torch.cuda.is_available"):

@@ -4,11 +4,13 @@ Every ctypes binding of ``dmlc_core_tpu_torch/data/native.py`` (built
 from the port's own copy of fastparse.cc under .build/native/) is run on
 the same bytes as the JAX package's binding (native/libdmlc_tpu_native.so,
 which tests/conftest.py builds): returns and every output byte must be
-identical. Also: the build stamp, f16 rounding at halfway points against
+identical; the MT19937 shuffle also equals ``random.Random.shuffle``.
+Also: the build stamp, f16 rounding at halfway points against
 numpy, the GIL released during a call, and a failed build raising."""
 
 import ctypes
 import hashlib
+import random
 import threading
 import time
 from pathlib import Path
@@ -19,6 +21,7 @@ import pytest
 from dmlc_core_tpu.data import native as jax_native
 from dmlc_core_tpu.data.row_block import RowBlock as JaxRowBlock
 from dmlc_core_tpu.data.rowrec import write_rowrec as jax_write_rowrec
+from dmlc_core_tpu.io.recordio import IndexedRecordIOWriter, RecordIOReader
 from dmlc_core_tpu.io.stream import MemoryStream
 from dmlc_core_tpu_torch.data import native
 from dmlc_core_tpu_torch.utils.logging import Error
@@ -353,3 +356,104 @@ def test_calls_release_the_gil():
 def test_loaded_with_cdll_not_pydll():
     lib = native.load()
     assert type(lib) is ctypes.CDLL
+
+
+# -- the shuffled-read entry points -------------------------------------------
+def indexed_rowrec(rng, n):
+    """A rowrec chunk (magic-word values, so multipart chains occur) and
+    each record's (start, size) from the JAX package's index writer."""
+    chunk = rowrec_chunk(rng, n)
+    ms, idx = MemoryStream(), MemoryStream()
+    writer = IndexedRecordIOWriter(ms, idx)
+    for rec in RecordIOReader(MemoryStream(chunk)):
+        writer.write_record(rec)
+    assert ms.getvalue() == chunk
+    starts = np.array(idx.getvalue().split()[1::2], dtype=np.int64)
+    sizes = np.diff(np.r_[starts, len(chunk)]).astype(np.int64)
+    return np.frombuffer(chunk, np.uint8), starts, sizes
+
+
+def gather_trace(fn, buf, starts, sizes, vdtype):
+    """Resumable gather calls into small reused buffers: every return
+    and every buffer byte after each call."""
+    bufs = ell_buffers(7, 5, vdtype)
+    trace, lo, fill = [], 0, 0
+    while lo < len(starts):
+        ret = tuple(fn(buf, starts, sizes, lo, len(starts) - lo, *bufs, fill))
+        trace.append((ret, [b.tobytes() for b in bufs]))
+        rows, consumed, corrupt = ret[0], ret[1], ret[4]
+        if corrupt or not (rows or consumed):
+            break
+        lo += consumed
+        fill = (fill + rows) % 7
+    return trace
+
+
+@pytest.mark.parametrize("vdtype", [np.float32, np.float16])
+@pytest.mark.parametrize("damage", ["none", "short", "shifted"])
+def test_gather_ell_matches_jax(vdtype, damage):
+    rng = np.random.default_rng(5)
+    buf, starts, sizes = indexed_rowrec(rng, 200)
+    perm = rng.permutation(len(starts))
+    starts, sizes = starts[perm].copy(), sizes[perm].copy()
+    if damage == "short":  # a record the index cuts short
+        sizes[150] -= 4
+    elif damage == "shifted":  # a slice that starts past a frame head
+        starts[150] += 4
+        sizes[150] -= 4
+    got = gather_trace(native.parse_rowrec_gather_ell, buf, starts, sizes, vdtype)
+    want = gather_trace(jax_native.parse_rowrec_gather_ell, buf, starts, sizes, vdtype)
+    assert len(got) > 10
+    assert got == want
+    assert (got[-1][0][4] == 1) == (damage != "none")
+
+
+def test_walk_record_spans_matches_jax():
+    rng = np.random.default_rng(6)
+    buf, starts, sizes = indexed_rowrec(rng, 300)
+    starts[7] += 4  # no head there
+    sizes[9] = 3    # shorter than a header
+    got = native.walk_record_spans(buf, starts, sizes)
+    want = jax_native.walk_record_spans(buf, starts, sizes)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g, w)
+    assert got[2:] == want[2:]
+    assert got[2] > 0 and got[3] == 2  # multipart chains and the two corrupt
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 17, 1000, 65537])
+@pytest.mark.parametrize("seed", [0, 111, 1_000_114])
+def test_shuffle_mt19937_matches_random_shuffle(n, seed):
+    perm = np.arange(n, dtype=np.int64)
+    rnd = random.Random(seed)
+    state = rnd.getstate()
+    assert native.shuffle_mt19937(rnd, perm)
+    assert rnd.getstate() == state  # the generator is left untouched
+    ref = list(range(n))
+    random.Random(seed).shuffle(ref)
+    assert perm.tolist() == ref
+    jax_perm = np.arange(n, dtype=np.int64)
+    assert jax_native.shuffle_mt19937(random.Random(seed), jax_perm)
+    np.testing.assert_array_equal(perm, jax_perm)
+
+
+def test_shuffle_mt19937_declines_past_single_word_draws():
+    class Huge:
+        def __len__(self):
+            return 1 << 31
+
+    assert native.shuffle_mt19937(random.Random(0), Huge()) is False
+    with pytest.raises(Error, match="int64"):
+        native.shuffle_mt19937(random.Random(0), np.arange(4, dtype=np.int32))
+
+
+def test_gather_bindings_check_their_arguments():
+    buf, starts, sizes = indexed_rowrec(np.random.default_rng(7), 10)
+    bufs = ell_buffers(4, 3, np.float32)
+    with pytest.raises(Error, match="outside"):
+        native.parse_rowrec_gather_ell(buf, starts, sizes, 5, 6, *bufs, 0)
+    with pytest.raises(Error, match="int64"):
+        native.parse_rowrec_gather_ell(buf, starts.astype(np.int32), sizes, 0, 1,
+                                       *bufs, 0)
+    with pytest.raises(Error, match="uint8"):
+        native.walk_record_spans(buf.view(np.int8), starts, sizes)

@@ -289,6 +289,25 @@ def test_parse_threads_match_jax(monkeypatch, env, requested):
     assert cpus.available_cpus() == jax_cpus.available_cpus()
 
 
+@pytest.mark.parametrize("primary,alias,requested", [
+    (None, "3", None), (None, "2", 99), ("5", "2", None), (None, None, 1),
+])
+def test_parse_threads_honour_the_legacy_alias_like_jax(monkeypatch, primary,
+                                                        alias, requested):
+    """``DMLC_TPU_PARSER_THREADS`` counts when ``DMLC_PARSE_THREADS`` is
+    unset, in both packages."""
+    for name, value in (("DMLC_PARSE_THREADS", primary),
+                        ("DMLC_TPU_PARSER_THREADS", alias)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    got = cpus.parse_threads(requested)
+    assert got == jax_cpus.parse_threads(requested)
+    if primary or alias:
+        assert got == int(primary or alias)
+
+
 @pytest.mark.parametrize("tok", [
     b"1", b"1:2", b"-1.5e3:0.25", b"1_0", b"a:1", b"1:", b":1", b"inf:nan",
     b"1:2:3", b"1:2:x", b"99999999999999999999:1:1", b"0:-4", b"1e999",
