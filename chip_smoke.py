@@ -56,18 +56,37 @@ Phases (any failure exits non-zero and prints no result line):
    batches must equal steps 65-128 of the uninterrupted pass, with the
    restored params equal to the saved ones, the loss falling and K1-K4
    launched per step as on the sequential FM path;
-7. the two example ports (``dmlc_core_tpu_torch.examples``) on the card
+7. the compressed and multi-file inputs at the Criteo width: the shuffle
+   phase's 2^18 rows written again through the port's
+   ``IndexedRecordIOWriter`` as zlib blocks of 1 MiB (bench.py's
+   ``rec_zlib``) and as gzip blocks of the writer's default 256 KiB; for
+   each, ``ell_batches`` sequential and over ``shuffle=record|batch|
+   window`` with one thread and ``picked_threads`` sub-shards, bit for
+   bit against the uncompressed file's batches (sequential sub-shards
+   against the plain version on the same compressed file: each block
+   decoded with ``decode_block``, frames walked in Python,
+   ``FixedShapeBatcher``), the indexed modes also at 3 parts; rows/s on
+   the host beside the uncompressed file, the compression ratio and the
+   seconds to decode every block; a second pass of ``shuffle=window``
+   served from the decoded-block cache; FM SGD on the card over the zlib
+   file with ``shuffle=batch`` (K1-K4 once a step, the loss falling, the
+   first step held against the plain versions) beside the uncompressed
+   pass; and the same rows as libsvm in one file, in 4 files read as a
+   directory and as a regex, and through a ``#cachefile`` for two
+   epochs (the second replayed from the cache), each into FM SGD, with
+   batches equal to the one file's;
+8. the two example ports (``dmlc_core_tpu_torch.examples``) on the card
    for two epochs each at their own sizes;
-8. the ``entry()`` forward on the card against the CPU.
+9. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
 must equal the sha256 of the file. It fails if any kernel instance spills
 registers. It prints a ``{"ptxas": [...]}`` (with the scatters' dynamic
 shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
-``{"slice": {...}}``, a ``{"shuffle": {...}}`` and an ``{"examples":
-{...}}`` line, the nvidia-smi line, and last ``{"ok": true, "device":
-{...}}``.
+``{"slice": {...}}``, a ``{"shuffle": {...}}``, a ``{"codec": {...}}``
+and an ``{"examples": {...}}`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -947,6 +966,232 @@ def shuffle_phase(dev, sequential_fm):
     return out
 
 
+CODEC_BLOCK = 1 << 20  # bench.py's rec_zlib packing (bench.py:342-349)
+MULTI_FILES = 4
+
+
+def write_compressed(rec: str, dst: str, codec_name: str, block_bytes=None) -> str:
+    """``rec``'s v1 frames, cut at its index's offsets, written again in
+    compressed blocks by the port's ``IndexedRecordIOWriter`` (with its
+    ``block:in`` index), as bench.py builds ``rec_zlib``."""
+    from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_core_tpu_torch.io.stream import FileStream
+
+    with open(rec + ".idx") as f:
+        offs = np.asarray(f.read().split()[1::2], dtype=np.int64)
+    with open(rec, "rb") as f:
+        data = f.read()
+    kw = {} if block_bytes is None else {"block_bytes": block_bytes}
+    with FileStream(dst, "w") as f, FileStream(dst + ".idx", "w") as fi:
+        w = IndexedRecordIOWriter(f, fi, codec=codec_name, **kw)
+        w.write_framed_block(data, np.sort(offs))
+        w.flush()
+    return dst
+
+
+def decode_seconds(path: str):
+    """Seconds to decode every block of a compressed file after reading
+    it: walking its frames and decoding block by block on this thread,
+    and on the decode pool; and the block count."""
+    from dmlc_core_tpu_torch.io import codec
+    from dmlc_core_tpu_torch.io.recordio import scan_compressed_blob
+
+    with open(path, "rb") as f:
+        view = memoryview(f.read())
+    blobs, pos = [], 0
+    while pos < len(view):
+        blob, pos = scan_compressed_blob(view, pos)
+        blobs.append(blob)
+    t0 = time.perf_counter()
+    raw = sum(len(codec.decode_block(b)[0]) for b in blobs)
+    one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pooled = sum(len(r) for r, _n in codec.decode_blocks(blobs))
+    pool = time.perf_counter() - t0
+    if pooled != raw:
+        fail(f"{path}: the pool decoded {pooled} bytes, one thread {raw}")
+    return {"blocks": len(blobs), "raw_bytes": raw, "decode_s_1thread": one,
+            "decode_s_pool": pool, "pool_threads": codec.decode_threads()}
+
+
+def codec_producers(files, spec, threads: int):
+    """Each compressed file's batches bit for bit against the
+    uncompressed file's, sequential and in each shuffle mode, one thread
+    and ``threads`` sub-shards (sequential sub-shards against the plain
+    version on the same compressed file), the indexed modes also at 3
+    parts; then rows/s of all three files alone on the host, the
+    decoded-block cache emptied before each pass."""
+    from dmlc_core_tpu_torch.io import codec
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    def uri(path, mode):
+        return path if mode == "sequential" else f"{path}?index={path}.idx&shuffle={mode}&seed=3"
+
+    out = {}
+    for name in ("zlib", "gzip"):
+        rows = {}
+        for mode in ("sequential",) + SHUFFLE_MODES:
+            got, want = uri(files[name], mode), uri(files["v1"], mode)
+            row = {"batches_compared": same_batches(ell_batches(got, spec),
+                                                    ell_batches(want, spec), f"{name} {mode}")}
+            ref = (Interleaved(got, spec, threads) if mode == "sequential"
+                   else ell_batches(want, spec, nthread=threads))
+            row["batches_compared_threads"] = same_batches(
+                ell_batches(got, spec, nthread=threads), ref, f"{name} {mode} x{threads}")
+            if mode != "sequential":
+                row["batches_compared_3parts"] = sum(
+                    same_batches(ell_batches(got, spec, part, 3),
+                                 ell_batches(want, spec, part, 3), f"{name} {mode} part {part}/3")
+                    for part in range(3))
+            rows[mode] = row
+        out[name] = rows
+    for mode in ("sequential",) + SHUFFLE_MODES:
+        for name in ("v1", "zlib", "gzip"):
+            row = out.setdefault(name, {}).setdefault(mode, {})
+            # each pass decodes its blocks: none comes from an earlier one
+            codec.default_decode_cache().clear()
+            row["rows_per_sec_1thread"], row["io_stats_1thread"] = drain_stats(
+                ell_batches(uri(files[name], mode), spec))
+            row["rows_per_sec"], row["io_stats"] = drain_stats(
+                ell_batches(uri(files[name], mode), spec, nthread=threads))
+            for key in ("io_stats_1thread", "io_stats"):
+                st = row[key]
+                if mode != "sequential" and not (st.get("gather_batches", 0) > 0
+                                                 and st.get("gather_fallback_batches") == 0):
+                    fail(f"{name} {mode}: not every batch took the gather path: {st}")
+    return out
+
+
+def second_pass_from_cache(path: str, spec):
+    """Two passes of ``shuffle=window`` over the zlib file with the same
+    seed and epoch, the decoded-block cache cleared before the first:
+    the second's batches equal the first's and its blocks come from the
+    cache."""
+    from dmlc_core_tpu_torch.io import codec
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    codec.default_decode_cache().clear()
+    uri = f"{path}?index={path}.idx&shuffle=window&seed=5&epoch=0"
+    passes = []
+    for _ in range(2):
+        src = ell_batches(uri, spec)
+        t0 = time.perf_counter()
+        digests = [hashlib.blake2b(b.packed).hexdigest() for b in src]
+        dt = time.perf_counter() - t0
+        st = src.io_stats()
+        src.close()
+        passes.append({"rows_per_sec": len(digests) * spec.batch_size / dt, "batches": len(digests),
+                       "decode_cache_hits": st["decode_cache_hits"],
+                       "decode_cache_misses": st["decode_cache_misses"], "digests": digests})
+    first, second = passes
+    if second.pop("digests") != first.pop("digests"):
+        fail("the second pass over the zlib file read other batches than the first")
+    if not second["decode_cache_hits"] > 10 * max(second["decode_cache_misses"], 1):
+        fail(f"the second pass was not served from the decoded-block cache: {second}")
+    return {"uri": uri, "first": first, "second": second,
+            "cache_mb": codec.default_decode_cache().max_bytes >> 20}
+
+
+class Epochs:
+    """A producer iterated ``n`` times in a row, as one stream of batches."""
+
+    def __init__(self, source, n: int) -> None:
+        self.source, self.n = source, n
+        self.ring_slots = source.ring_slots
+
+    def __iter__(self):
+        for _ in range(self.n):
+            yield from self.source
+
+    def close(self) -> None:
+        self.source.close()
+
+
+def codec_phase(dev, sequential_fm):
+    """Compressed, multi-file and cached inputs at the Criteo width: the
+    producers on the host, then FM SGD on the card from each."""
+    from dmlc_core_tpu_torch.io import codec
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    def fm(d):
+        return FactorizationMachine(D, E, device=d,
+                                    generator=torch.Generator(device=d).manual_seed(0))
+
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    threads = picked_threads(PRODUCER_ROWS, B)
+    out = {"available_codecs": codec.available_codecs(), "rows": PRODUCER_ROWS, "nthread": threads}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(3)
+        idx, val, labels = criteo_data(rng, PRODUCER_ROWS, D)
+        files = {"v1": write_indexed(os.path.join(tmp, "criteo.rec"), idx, val, labels)}
+        for name, block in (("zlib", CODEC_BLOCK), ("gzip", None)):
+            t0 = time.perf_counter()
+            files[name] = write_compressed(files["v1"], os.path.join(tmp, f"criteo.{name}.rec"),
+                                           name, block)
+            out[name] = {"write_s": time.perf_counter() - t0,
+                         "block_bytes": block or "default",
+                         "bytes": os.path.getsize(files[name]),
+                         "ratio": os.path.getsize(files["v1"]) / os.path.getsize(files[name]),
+                         **decode_seconds(files[name])}
+        out["v1_bytes"] = os.path.getsize(files["v1"])
+        out["producers"] = codec_producers(files, spec, threads)
+        out["second_pass"] = second_pass_from_cache(files["zlib"], spec)
+        fm_runs = {}
+        for name in ("v1", "zlib"):
+            uri = f"{files[name]}?index={files[name]}.idx&shuffle=batch&batch_size={B}&seed=1&epoch=0"
+            codec.default_decode_cache().clear()  # the pass decodes its blocks
+            model = fm(dev)
+            fm_runs[name], first, params0 = drive(f"codec_fm {name}", model,
+                                                  ell_batches(uri, spec), dev, 0.5, digests=True)
+            if name == "zlib":
+                check_first_step(model, first, params0)
+                check_staged(uri, spec, first)
+        if fm_runs["zlib"]["digests"] != fm_runs["v1"]["digests"]:
+            fail("FM over the zlib file took other batches than over the uncompressed file")
+        # the same rows as libsvm: one file, 4 files (a directory, a regex)
+        # and a #cachefile read for two epochs, each into FM
+        text = criteo_text(idx, val, labels, "libsvm")
+        svm = write_file(os.path.join(tmp, "criteo.libsvm"), text)
+        parts = os.path.join(tmp, "parts")
+        os.mkdir(parts)
+        lines = text.splitlines(keepends=True)
+        cut = np.linspace(0, len(lines), MULTI_FILES + 1).astype(int)
+        for i in range(MULTI_FILES):
+            write_file(os.path.join(parts, f"part-{i}"), b"".join(lines[cut[i]:cut[i + 1]]))
+        text_runs = {}
+        for name, u in (("one_file", svm), ("directory", parts),
+                        ("regex", os.path.join(parts, "part-.*"))):
+            text_runs[name], _, _ = drive(f"codec_fm {name}", fm(dev),
+                                          ell_batches(u + "?format=libsvm", spec), dev, 0.5,
+                                          digests=True)
+            if text_runs[name]["digests"] != text_runs["one_file"]["digests"]:
+                fail(f"FM over the libsvm {name} took other batches than over one file")
+        cached = ell_batches(f"{svm}?format=libsvm#{os.path.join(tmp, 'svm.cache')}", spec)
+        text_runs["cachefile_2_epochs"], _, _ = drive(
+            "codec_fm cachefile", fm(dev), Epochs(cached, 2), dev, 0.5, digests=True)
+        replays = cached.io_stats()["cache_epochs_replayed"]
+        run = text_runs["cachefile_2_epochs"]
+        half = run["steps"] // 2
+        if replays != 1 or run["digests"] != text_runs["one_file"]["digests"] * 2:
+            fail(f"the #cachefile's epochs ({replays} replayed) did not repeat the one file's "
+                 "batches")
+        run["cache_epochs_replayed"] = replays
+        run["steps_per_epoch"] = half
+    for s in (*fm_runs.values(), *text_runs.values()):
+        del s["digests"]
+    out["fm"] = fm_runs
+    out["text_fm"] = text_runs
+    per_step = lambda s: {k: n / s["steps"] for k, n in s["launches"].items()}  # noqa: E731
+    want = per_step(sequential_fm)
+    for name, s in (*fm_runs.items(), *text_runs.items()):
+        got = per_step(s)
+        if got != want or any(got[k] != 1 for k in KERNEL_NAMES):
+            fail(f"codec FM {name}: launches per step {got}, sequential {want}")
+    return out
+
+
 def examples_phase(dev):
     """Both example ports on the card at their own sizes for two epochs,
     in a scratch directory: wall time, final loss, latest checkpoint."""
@@ -1041,11 +1286,12 @@ def main() -> None:
     producers = producer_phase()
     slice_stats = slice_phase(dev)
     shuffle = shuffle_phase(dev, slice_stats["fm"])
+    codec = codec_phase(dev, slice_stats["fm"])
     examples = examples_phase(dev)
     entry_phase(dev)
     torch.cuda.synchronize()
 
-    main_runs = [*slice_stats.values(), shuffle["fm"]["timed"]]
+    main_runs = [*slice_stats.values(), shuffle["fm"]["timed"], codec["fm"]["zlib"]]
     for row in kernels:
         n = sum(s["launches"][row["name"]] for s in main_runs)
         if n == 0:
@@ -1063,6 +1309,7 @@ def main() -> None:
     print(json.dumps({"producers": producers}))
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"shuffle": shuffle}))
+    print(json.dumps({"codec": codec}))
     print(json.dumps({"examples": examples}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -67,20 +67,23 @@ def create_parser(
     index_dtype=INDEX_T,
     threaded: bool = True,
 ) -> Parser:
-    """Parser factory (reference CreateParser_, src/data.cc:62-85) over one
-    local file. 'auto' takes ``?format=`` from the URI, defaulting to
-    libsvm; parser options ride the URI. The parser runs on a parse-ahead
+    """Parser factory (reference CreateParser_, src/data.cc:62-85) over
+    the local files of ``uri`` (one file, a ``;`` list, a directory or a
+    regex). 'auto' takes ``?format=`` from the URI, defaulting to
+    libsvm; parser options ride the URI, and ``#cachefile`` gives the
+    split a ``CachedInputSplit``. The parser runs on a parse-ahead
     thread unless ``threaded=False``."""
     spec = URISpec(uri, part_index, num_parts)
-    check(not spec.cache_file, "#cachefile is not ported")
     fmt = spec.args.get("format", "libsvm") if type == "auto" else type
     kwargs = parser_options(fmt, spec.args)
+    fragment = uri.partition("#")[2]
+    cache = "#" + fragment if fragment else ""
     if fmt == "rowrec":
         base: Parser = RowRecParser(io_split.create(
-            spec.uri + rejoin_query(kwargs), part_index, num_parts,
+            spec.uri + rejoin_query(kwargs) + cache, part_index, num_parts,
             type="recordio"))
     else:
         cls = {"libsvm": LibSVMParser, "libfm": LibFMParser, "csv": CSVParser}[fmt]
-        base = cls(io_split.create(spec.uri, part_index, num_parts, type="text"),
+        base = cls(io_split.create(spec.uri + cache, part_index, num_parts, type="text"),
                    nthread, index_dtype, **kwargs)
     return ThreadedParser(base) if threaded else base

@@ -101,18 +101,22 @@ def decode_records(records: Iterable) -> RowBlock:
 
 
 def write_rowrec(stream: BinaryIO, blocks: Iterable[RowBlock],
-                 index_stream: Optional[BinaryIO] = None) -> int:
+                 index_stream: Optional[BinaryIO] = None, codec=None,
+                 level: Optional[int] = None) -> int:
     """Write RowBlocks as rowrec RecordIO frames; returns rows written.
-    With ``index_stream``, also write the ``key offset`` index that
-    ``?index=`` reads (``IndexedRecordIOWriter``). The bytes of both
-    equal dmlc_core_tpu's ``write_rowrec`` without a codec."""
-    writer = (RecordIOWriter(stream) if index_stream is None
-              else IndexedRecordIOWriter(stream, index_stream))
+    With ``index_stream``, also write the index that ``?index=`` reads
+    (``IndexedRecordIOWriter``); with ``codec`` (an ``io/codec.py``
+    name), the rows go into compressed blocks and the index holds
+    ``block:in`` pairs. The bytes of both equal dmlc_core_tpu's
+    ``write_rowrec`` for the same arguments."""
+    writer = (RecordIOWriter(stream, codec=codec, level=level) if index_stream is None
+              else IndexedRecordIOWriter(stream, index_stream, codec=codec, level=level))
     n = 0
     for blk in blocks:
         for payload in encode_rows(blk):
             writer.write_record(payload)
             n += 1
+    writer.flush_block()
     return n
 
 

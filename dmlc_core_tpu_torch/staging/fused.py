@@ -15,10 +15,14 @@ rows into the current ring slot: no CSR arrays, no per-row Python.
 - ``FusedDenseLibSVMBatches`` / ``FusedDenseCSVBatches``: libsvm / csv
   text → dense [B,D].
 
-Every producer of a plain URI maps its part's byte range, ``[begin, end)`` as
-``io.split.part_range`` snaps it to record starts, and hands the kernels
-views of the page cache. Text is read in line-aligned chunks of that
-range; a UTF-8 BOM at the start of a part is skipped.
+A producer of one local file maps its part's byte range, ``[begin,
+end)`` as ``io.split.part_range`` snaps it to record starts, and hands
+the kernels views of the page cache; text is read in line-aligned
+chunks of that range. What cannot be mapped takes the chunks of
+``io.split.create`` instead, chosen from the input's kind: a file set
+(a ``;`` list, a directory or a regex), a text ``#cachefile``, and a
+rowrec file whose first 4 MiB hold a compressed block (its chunks come
+back decoded). A UTF-8 BOM at the start of a part is skipped.
 The native producers keep the JAX package's fused semantics, which
 differ from the parser path in three places: libsvm/libfm
 ``indexing_mode=-1`` is resolved ONCE from the head of the file (the
@@ -54,7 +58,15 @@ from ..data import create_parser, native, parser_options
 from ..data.rowrec import RowRecParser
 from ..data.strtonum import parse_triple
 from ..io import split as io_split
-from ..io.recordio import KMAGIC
+from ..io import codec
+from ..io.recordio import (
+    CFLAG_COMPRESSED,
+    KMAGIC,
+    chunk_has_compressed,
+    decode_flag,
+    decode_length,
+    scan_compressed_blob,
+)
 from ..io.uri import URISpec, rejoin_query, uri_int
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
@@ -86,6 +98,9 @@ __all__ = [
 _BOM = b"\xef\xbb\xbf"
 _MMAP_CHUNK = 32 << 20
 _PROBE_BYTES = 262144
+# the head of a rowrec file that decides its route (writers write uniform
+# files; a compressed block past it raises where the mmap route meets it)
+_REC_SNIFF_BYTES = 4 << 20
 
 
 class EllRowRecBatches:
@@ -142,16 +157,26 @@ class LegacyIndexedSplit:
     """The plain version of an indexed split (``?index=``): the
     (seed, epoch) permutation rule of ``IndexedRecordIOSplitter`` run by
     ``random.Random.shuffle`` on a Python list, then one seek and one
-    read per record, ``batch_size`` records a chunk. No window, no span
-    planning, no native code. Each ``reset_partition`` starts the next
-    epoch, as the indexed split's does."""
+    read per record, ``batch_size`` records a chunk; over a
+    compressed-block index, each record sliced out of its block, which is
+    read and decoded with ``decode_block`` (the last block kept). No
+    window, no span planning, no native code. Each ``reset_partition``
+    starts the next epoch, as the indexed split's does."""
 
     def __init__(self, path: str, index_path: str, part_index: int,
                  num_parts: int, shuffle, batch_size: int, seed: int,
                  epoch: int, skip_records: int) -> None:
         with open(index_path) as f:
-            self._offs = sorted(int(t) for t in f.read().split()[1::2])
+            vals = f.read().split()[1::2]
         self._end = os.path.getsize(path)
+        if vals and ":" in vals[0]:
+            # (block offset, offset in the decoded block), file order
+            self._recs = sorted(tuple(int(x) for x in v.split(":")) for v in vals)
+            self._blocks = sorted({b for b, _o in self._recs}) + [self._end]
+            self._offs = None
+        else:
+            self._offs = sorted(int(t) for t in vals)
+        self._block = (None, b"")
         self._fp = open(path, "rb")
         self._mode = io_split.normalize_shuffle(shuffle)
         self._bs, self._seed = batch_size, seed
@@ -161,7 +186,7 @@ class LegacyIndexedSplit:
         self.reset_partition(part_index, num_parts)
 
     def reset_partition(self, part_index: int, num_parts: int) -> None:
-        n = len(self._offs)
+        n = len(self._offs if self._offs is not None else self._recs)
         step = -(-n // num_parts)
         self._lo, self._hi = min(part_index * step, n), min((part_index + 1) * step, n)
         self._order, self._pos = [], 0
@@ -185,20 +210,63 @@ class LegacyIndexedSplit:
         self._order, self._pos = order[self._skip:], 0
         self._skip = 0
 
+    def _read(self, begin: int, end: int) -> bytes:
+        self._fp.seek(begin)
+        return self._fp.read(end - begin)
+
+    def _record(self, i: int) -> bytes:
+        if self._offs is not None:
+            end = self._offs[i + 1] if i + 1 < len(self._offs) else self._end
+            return self._read(self._offs[i], end)
+        b, o = self._recs[i]
+        if self._block[0] != b:
+            frame = self._read(b, self._blocks[self._blocks.index(b) + 1])
+            self._block = (b, codec.decode_block(scan_compressed_blob(memoryview(frame), 0)[0])[0])
+        raw = self._block[1]
+        nxt = self._recs[i + 1] if i + 1 < len(self._recs) else None
+        return raw[o:nxt[1]] if nxt is not None and nxt[0] == b else raw[o:]
+
     def next_chunk(self) -> Optional[bytes]:
         take = self._order[self._pos:self._pos + self._bs]
         if not take:
             return None
         self._pos += len(take)
-        parts = []
-        for i in take:
-            end = self._offs[i + 1] if i + 1 < len(self._offs) else self._end
-            self._fp.seek(self._offs[i])
-            parts.append(self._fp.read(end - self._offs[i]))
-        return b"".join(parts)
+        return b"".join(self._record(i) for i in take)
 
     def close(self) -> None:
         self._fp.close()
+
+
+class PlainBlockSplit:
+    """The plain version of a part of one RecordIO file that may hold
+    compressed blocks: the part's bytes (``io.split.part_range``) walked
+    frame by frame in Python, one chunk per compressed block, decoded
+    here with ``decode_block``, or per run of v1 frames."""
+
+    def __init__(self, path: str, part_index: int, num_parts: int) -> None:
+        begin, end = io_split.part_range(path, part_index, num_parts, "recordio")
+        with open(path, "rb") as f:
+            f.seek(begin)
+            self._data = memoryview(f.read(end - begin))
+        self._pos = 0
+
+    def next_chunk(self) -> Optional[bytes]:
+        view, pos = self._data, self._pos
+        start, n = pos, len(view)
+        while pos < n:
+            magic, lrec = struct.unpack_from("<II", view, pos)
+            check(magic == KMAGIC, "RecordIO: bad magic")
+            if decode_flag(lrec) & CFLAG_COMPRESSED:
+                if pos > start:
+                    break  # the v1 run before the block goes first
+                blob, self._pos = scan_compressed_blob(view, pos)
+                return codec.decode_block(blob)[0]
+            pos += 8 + ((decode_length(lrec) + 3) & ~3)
+        self._pos = pos
+        return bytes(view[start:pos]) if pos > start else None
+
+    def close(self) -> None:
+        self._data = memoryview(b"")
 
 
 def _legacy_split(path: str, args, part_index: int, num_parts: int):
@@ -227,9 +295,30 @@ def _check_ell_spec(spec: BatchSpec) -> None:
           "ELL staging stages int32 indices")
 
 
-def _file_head(path: str) -> bytes:
-    with open(path, "rb") as f:
+def _one_local_file(uri: str) -> Optional[str]:
+    """The path when ``uri`` (options and fragment taken off) names one
+    existing local file; None for a file set (a ``;`` list, a directory,
+    a regex) or a remote URI, which ``io.split.create`` reads or
+    refuses."""
+    path = uri[len("file://"):] if uri.startswith("file://") else uri
+    if ";" in path or "://" in path:
+        return None
+    return path if os.path.isfile(path) else None
+
+
+def _uri_head(uri: str) -> bytes:
+    """The head of the first file of ``uri``: every part of a file set
+    resolves an auto setting from the same bytes."""
+    with open(io_split.expand_files(uri)[0].path, "rb") as f:
         return f.read(_PROBE_BYTES)
+
+
+def _rec_file_compressed(path: str) -> bool:
+    """Does the head of a rowrec file hold a compressed-block frame? The
+    native kernels walk v1 frames only, so such a file takes the split
+    route, whose chunks come back decoded."""
+    with open(path, "rb") as f:
+        return chunk_has_compressed(f.read(_REC_SNIFF_BYTES))
 
 
 def _probe_base(chunk) -> int:
@@ -284,6 +373,9 @@ class _MmapFile:
                     if end > begin else None)
         self._chunk = chunk_bytes
         self._pos = begin
+
+    def before_first(self) -> None:
+        self._pos = self.begin
 
     def close(self) -> None:
         if self._mm is not None:
@@ -393,39 +485,49 @@ class _RingBatches:
         return self._emit(fill)
 
 
-def _uri_args(uri: str, fmt: str, part_index: int, num_parts: int):
-    """(local path, parser options) of a producer's URI; raises on what
-    the port lacks."""
-    uspec = URISpec(uri, part_index, num_parts)
-    check(not uspec.cache_file,
-          "#cachefile is not ported; the native producers read the file itself")
-    return io_split.local_path(uspec.uri), parser_options(fmt, uspec.args)
-
-
 class _FusedTextBatches(_RingBatches):
     """Shared loop of the text producers: line-aligned chunks, one
-    resumable native call after another, into ring slots. Subclasses
-    implement ``_parse``."""
+    resumable native call after another, into ring slots. One local file
+    is mapped; a file set or a ``#cachefile`` is read through
+    ``io.split.create`` (a ``CachedInputSplit`` replays the cache file
+    from the second epoch). Iterating again starts the next epoch.
+    Subclasses implement ``_parse``."""
 
     _format = ""
 
     def __init__(self, uri: str, spec: BatchSpec, part_index: int,
                  num_parts: int, ring: int) -> None:
-        self.path, self._options = _uri_args(uri, self._format, part_index,
-                                             num_parts)
+        uspec = URISpec(uri, part_index, num_parts)
+        self._options = parser_options(self._format, uspec.args)
+        self.path = None if uspec.cache_file else _one_local_file(uspec.uri)
+        # the split's URI: the files and the fragment, not the options
+        fragment = uri.partition("#")[2]
+        self._split_uri = uspec.uri + ("#" + fragment if fragment else "")
+        if self.path is None:
+            io_split.expand_files(uspec.uri)  # raises on what cannot be read
+        self._head_uri = uspec.uri
         super().__init__(spec, ring)
         native.load()
         self._parts = (part_index, num_parts)
         self._split = None
+
+    def io_stats(self) -> dict:
+        """The split's counters (a ``#cachefile``'s
+        ``cache_epochs_replayed``), or an empty dict on the mmap path."""
+        return getattr(self._split, "io_stats", dict)()
 
     def _parse(self, chunk, off: int, fill: int, cr_hint: int):
         """One resumable native call → (rows, consumed, cr_hint)."""
         raise NotImplementedError
 
     def __iter__(self) -> Iterator[Batch]:
-        if self._split is None:  # opened here: a refused URI leaks no fd
+        if self._split is not None:
+            self._split.before_first()
+        elif self.path is not None:  # opened here: a refused URI leaks no fd
             self._split = _MmapChunks(
                 self.path, *io_split.part_range(self.path, *self._parts, "text"))
+        else:
+            self._split = io_split.create(self._split_uri, *self._parts, type="text")
         B = self.spec.batch_size
         fill = 0
         first = True
@@ -468,7 +570,7 @@ class _FusedBaseTextBatches(_FusedTextBatches):
         mode = int(self._options.get("indexing_mode", indexing_mode))
         # auto: every part must agree, so the file's head decides
         self._base = (1 if mode > 0 else 0) if mode >= 0 else self._probe(
-            _file_head(self.path))
+            _uri_head(self._head_uri))
 
 
 class FusedDenseLibSVMBatches(_FusedBaseTextBatches):
@@ -570,42 +672,42 @@ class FusedEllRowRecBatches(_RingBatches):
     """rowrec RecordIO → ELL [B,K] (``dmlc_parse_rowrec_ell``): frame
     scan, rowrec decode and ELL fill in one native pass.
 
-    A plain URI is read as raw mmap windows of the part's byte range. A
-    URI with ``?index=`` or ``?shuffle_parts=`` goes through
+    One local v1 file is read as raw mmap windows of the part's byte
+    range. A URI with ``?index=`` or ``?shuffle_parts=``, a file set and
+    a file whose head holds compressed blocks go through
     ``io.split.create``: a windowed shuffle (``shuffle=record|batch|
     window``) hands ``(buf, starts, sizes)`` views of each batch's
     records in permutation order to ``dmlc_parse_rowrec_gather_ell``,
     one native call per batch; other splits (file order, the legacy
-    per-record loop, the macro-shuffle) hand whole-record chunks to the
-    chunk kernel. There is no fallback: a gather that makes no progress
-    or a record the index cuts short raises. ``io_stats()`` gives the
-    split's counters."""
+    per-record loop, the macro-shuffle) hand whole-record chunks,
+    decoded from their blocks, to the chunk kernel. There is no
+    fallback: a gather that makes no progress, a record the index cuts
+    short, a corrupt block and a compressed block met on the mmap route
+    raise. A ``#cachefile`` raises, as in the JAX package.
+    ``io_stats()`` gives the split's counters."""
 
     def __init__(self, uri: str, spec: BatchSpec, part_index: int = 0,
                  num_parts: int = 1, ring: int = 10) -> None:
         uspec = URISpec(uri, part_index, num_parts)
-        self.path, _ = _uri_args(uri, "rowrec", part_index, num_parts)
-        with open(self.path, "rb") as f:
-            if _compressed_head(f.read(8), 0):
-                raise Error(f"{self.path}: compressed-block RecordIO is not "
-                            "ported (ROADMAP.md §1 item 2); the port reads "
-                            "v1 frames")
-        split_args = {k: v for k, v in uspec.args.items()
-                      if k in io_split.SPLIT_OPTIONS}
+        check(not uspec.cache_file,
+              "fused rowrec staging does not take a #cachefile (it already "
+              "reads the binary shard at full speed); drop the fragment")
+        split_args = parser_options("rowrec", uspec.args)
         # the split refuses options of an indexed read without an index;
         # a seed alone changes nothing of a plain read
         routed = bool(set(split_args) - {"seed"})
+        self.path = _one_local_file(uspec.uri)
+        self._mmap = not (routed or self.path is None or _rec_file_compressed(self.path))
         super().__init__(spec, ring)
         native.load()
-        if routed:
-            self._split = io_split.create(
-                self.path + rejoin_query(split_args), part_index, num_parts,
-                type="recordio")
-        else:
+        if self._mmap:
             self._split = _MmapRawChunks(
                 self.path, *io_split.part_range(self.path, part_index,
                                                 num_parts, "recordio"))
-        self._mmap = not routed
+        else:
+            self._split = io_split.create(
+                uspec.uri + rejoin_query(split_args), part_index, num_parts,
+                type="recordio")
         self._gather = bool(getattr(self._split, "supports_gather", bool)())
         self.bad_records = 0
 
@@ -632,8 +734,9 @@ class FusedEllRowRecBatches(_RingBatches):
             raise Error("rowrec: corrupt RecordIO frame (bad magic) at byte "
                         f"{off + consumed} of the current chunk")
         if not (rows or consumed) and _compressed_head(chunk, off):
-            raise Error("rowrec: compressed RecordIO block mid-file; the "
-                        "port reads v1 frames")
+            raise Error("rowrec: compressed RecordIO block mid-file; the mmap "
+                        "fast path reads v1 frames only — read via a sharded/"
+                        "indexed URI (the splitter path decodes blocks)")
         return off + consumed, fill + rows, bool(rows or consumed)
 
     def __iter__(self) -> Iterator[Batch]:
@@ -839,7 +942,9 @@ def ell_batches(
     format: str = "auto",
     indexing_mode: int = 0,
 ):
-    """Native ELL Batch stream of a local rowrec, libsvm or libfm file.
+    """Native ELL Batch stream of local rowrec, libsvm or libfm files (one
+    file, a ``;`` list, a directory or a regex; rowrec may hold
+    compressed blocks, text may name a ``#cachefile``).
 
     ``format``: 'rowrec' | 'libsvm' | 'libfm' | 'auto' (``?format=`` from
     the URI, defaulting to rowrec). ``indexing_mode`` applies to libsvm
@@ -869,7 +974,8 @@ def dense_batches(
     ring: int = 10,
     format: str = "auto",
 ):
-    """Native dense Batch stream of a local libsvm or csv file.
+    """Native dense Batch stream of local libsvm or csv files (as
+    ``ell_batches`` takes them).
 
     ``format``: 'libsvm' | 'csv' | 'auto' (``?format=`` from the URI,
     defaulting to libsvm, reference data.cc:68-76); csv options ride the
@@ -925,12 +1031,21 @@ def plain_batches(
     dense one."""
     fmt = _format(uri, format, "rowrec" if spec.layout == "ell" else "libsvm")
     if fmt == "rowrec":
-        path, args = _uri_args(uri, "rowrec", part_index, num_parts)
+        uspec = URISpec(uri, part_index, num_parts)
+        check(not uspec.cache_file, "plain rowrec batches read no #cachefile")
+        args = parser_options("rowrec", uspec.args)
+        path = _one_local_file(uspec.uri)
         if set(args) - {"seed"}:
-            return GenericBatchStream(
-                RowRecParser(_legacy_split(path, args, part_index, num_parts)),
-                FixedShapeBatcher(spec))
-        return EllRowRecBatches(path, spec, part_index, num_parts)
+            split = _legacy_split(io_split.local_path(uspec.uri), args, part_index,
+                                  num_parts)
+        elif path is None:
+            split = io_split.create(uspec.uri, part_index, num_parts, "recordio",
+                                    threaded=False)
+        elif _rec_file_compressed(path):
+            split = PlainBlockSplit(path, part_index, num_parts)
+        else:
+            return EllRowRecBatches(path, spec, part_index, num_parts)
+        return GenericBatchStream(RowRecParser(split), FixedShapeBatcher(spec))
     uspec = URISpec(uri, part_index, num_parts)
     if fmt in ("libsvm", "libfm") and indexing_mode and "indexing_mode" not in uspec.args:
         uri += ("&" if "?" in uri else "?") + f"indexing_mode={indexing_mode}"

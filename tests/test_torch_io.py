@@ -166,8 +166,18 @@ def test_indexed_writer_matches_jax_and_refuses_what_it_cannot_index():
             w.write_record(r, key=None if i % 3 else 1000 + i)
         out.append((data.getvalue(), idx.getvalue()))
     assert out[0] == out[1]
-    with pytest.raises(Error, match="ROADMAP.md §1 item 2"):
-        IndexedRecordIOWriter(MemoryStream(), MemoryStream(), codec="zlib")
+    with pytest.raises(Error, match="unknown codec"):
+        IndexedRecordIOWriter(MemoryStream(), MemoryStream(), codec="snappy")
+    zipped = []
+    for Writer, Mem in ((IndexedRecordIOWriter, MemoryStream),
+                        (JaxIndexedWriter, JaxMemoryStream)):
+        data, idx = Mem(), Mem()
+        w = Writer(data, idx, codec="zlib", block_bytes=64)
+        for r in recs:
+            w.write_record(r)
+        w.flush()
+        zipped.append((data.getvalue(), idx.getvalue()))
+    assert zipped[0] == zipped[1] and b":" in zipped[0][1]
     started = MemoryStream(b"xx")
     started.seek(2)
     with pytest.raises(Error, match="byte 0"):

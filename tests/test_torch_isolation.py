@@ -39,8 +39,8 @@ print("BAD", bad)
 print("NAMES", " ".join(sorted(n for n in sys.modules if n.startswith("dmlc_core_tpu_torch."))))
 """
 
-# the modules of the indexed, shuffled path, the checkpoints and the
-# example ports: each must be among those imported
+# the modules of the indexed, shuffled path, the checkpoints, the example
+# ports and the codec layer: each must be among those imported
 NEW_MODULES = {
     "dmlc_core_tpu_torch.checkpoint",
     "dmlc_core_tpu_torch.io.stream",
@@ -52,6 +52,8 @@ NEW_MODULES = {
     "dmlc_core_tpu_torch.examples._common",
     "dmlc_core_tpu_torch.examples.train_higgs",
     "dmlc_core_tpu_torch.examples.train_criteo_rec",
+    "dmlc_core_tpu_torch.io.codec",
+    "dmlc_core_tpu_torch.utils.env",
 }
 
 
@@ -133,3 +135,22 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_only_the_codec_layer_imports_compression():
+    """io/codec.py is the port's one compression site: no other module of
+    the port, nor chip_smoke.py, imports zlib, gzip, zstandard or lz4."""
+    import ast
+
+    banned = {"zlib", "gzip", "zstandard", "lz4"}
+    sources = [*sorted((REPO / "dmlc_core_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    found = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] in banned for n in names):
+                found.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    # zlib, and the guarded zstandard and lz4, all in io/codec.py
+    assert {f.split(":")[0] for f in found} == {"dmlc_core_tpu_torch/io/codec.py"}
+    assert len(found) == 3

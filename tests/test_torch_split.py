@@ -199,7 +199,13 @@ def test_input_split_shuffle_matches_jax(tmp_path, indexed, source, parts):
         uri, kind = f"{p}?shuffle_parts=3&seed=2{q}", "recordio"
     for part in range(parts):
         s = split.create(uri, part, parts, type=kind)
-        assert isinstance(s, split.InputSplitShuffle)
+        # the macro-shuffle reads ahead on a thread, as the JAX package's
+        # does; over a windowed split, whose windows load on their own
+        # read-ahead thread, it stays bare and keeps the gather views
+        inner = s if source == "window" else s._base
+        assert isinstance(s, split.InputSplitShuffle if source == "window"
+                          else split.ThreadedInputSplit)
+        assert isinstance(inner, split.InputSplitShuffle)
         j = jax_split.create(uri, part, parts, type=kind, threaded=False)
         assert drain(s, epochs=2) == drain(j, epochs=2)
 
@@ -321,15 +327,40 @@ def test_index_parse_is_shared_and_rereads_a_rewritten_file(tmp_path):
     ("{p};{p}?index={i}", "multi-file"),
     ("s3://b/k?index={i}", "remote"),
 ])
-def test_create_refuses_what_the_port_lacks(indexed, uri, match):
+def test_create_refuses_what_the_port_lacks(indexed, tmp_path, uri, match):
+    """What the port lacks raises. A ``#cachefile`` and a file set, once
+    refused, read since slice 7: the records equal the JAX package's, and
+    so do the cache files the two write."""
     p, idx, _ = indexed
+    uri = uri.format(p=p, i=idx)
+    if match in ("cachefile", "multi-file"):
+        port_uri = uri.replace("#cache", f"#{tmp_path / 'port.cache'}")
+        jax_uri = uri.replace("#cache", f"#{tmp_path / 'jax.cache'}")
+        got = drain(split.create(port_uri, type="recordio"), epochs=2)
+        want = drain(jax_split.create(jax_uri, type="recordio", threaded=False), epochs=2)
+        assert got == want and got
+        if match == "cachefile":
+            assert ((tmp_path / "port.cache").read_bytes()
+                    == (tmp_path / "jax.cache").read_bytes())
+        return
     with pytest.raises(Error, match=match):
-        split.create(uri.format(p=p, i=idx), type="recordio")
+        split.create(uri, type="recordio")
 
 
 def test_compressed_index_raises(indexed, tmp_path):
+    """A block index over v1 frames raises when its block is read (the
+    frame there is no compressed block), and an index that mixes v1 and
+    block offsets raises when it is opened: both with the JAX package's
+    reasons."""
     p, _, _ = indexed
     idx = tmp_path / "z.idx"
     idx.write_text("0 0:0\n1 0:40\n")
-    with pytest.raises(Error, match="compressed-block"):
-        split.create(f"{p}?index={idx}", type="recordio")
+    for mod, err in ((split, Error), (jax_split, JaxError)):
+        s = mod.create(f"{p}?index={idx}", type="recordio", threaded=False)
+        with pytest.raises(err, match="corrupt compressed chain"):
+            s.next_record()
+        s.close()
+    idx.write_text("0 0:0\n1 40\n")
+    for mod, err in ((split, Error), (jax_split, JaxError)):
+        with pytest.raises(err, match="mixes v1 and compressed-block offsets"):
+            mod.create(f"{p}?index={idx}", type="recordio")

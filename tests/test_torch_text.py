@@ -180,10 +180,24 @@ def test_create_parser_takes_the_format_from_the_uri(tmp_path):
     ("{p}?indexing_mode=one", "not an integer"),
 ])
 def test_create_parser_refuses_what_the_port_lacks(tmp_path, uri, match):
+    """What the port lacks raises. A ``#cachefile`` and a file set, once
+    refused, read since slice 7: the blocks equal the JAX package's (its
+    parser drops the fragment; the port's caches the chunks in it)."""
     p = tmp_path / "a.libsvm"
     p.write_bytes(b"1 0:1\n")
+    uri = uri.format(p=p).replace("#cache", f"#{tmp_path / 'cache'}")
+    if match in ("cachefile", "multi-file"):
+        port, jax = create_parser(uri, type="libsvm"), jax_create_parser(uri, type="libsvm")
+        got, want = list(port), list(jax)
+        port.close()
+        jax.close()
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert_blocks_equal(g, w)
+        assert (tmp_path / "cache").exists() == (match == "cachefile")
+        return
     with pytest.raises(Error, match=match):
-        create_parser(uri.format(p=p), type="libsvm")
+        create_parser(uri, type="libsvm")
 
 
 @pytest.mark.parametrize("num_parts", [1, 2, 3, 7])
@@ -193,7 +207,7 @@ def test_line_splitter_chunks_match_jax(tmp_path, num_parts):
     path.write_bytes(text)
     cover = b""
     for part in range(num_parts):
-        port = split.create(str(path), part, num_parts, type="text")
+        port = split.create(str(path), part, num_parts, type="text", threaded=False)
         jax = jax_split.LineSplitter(str(path), part, num_parts)
         port.buffer_size = jax.buffer_size = 256
         got = list(iter(port.next_chunk, None))
