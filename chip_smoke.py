@@ -93,7 +93,25 @@ Phases (any failure exits non-zero and prints no result line):
    bit-identical in every run, kill against clean within ``PARAM_REL``
    beside the clean-against-clean gap) and the HIGGS example with 2
    workers;
-10. the ``entry()`` forward on the card against the CPU.
+10. telemetry at the Criteo width (the FM path of phase 5 with its
+   native producer, pinned staging and K1-K4): (a) 32 steps under
+   ``utils.profiler.trace`` (CPU and CUDA activity), whose Chrome trace
+   must hold each kernel's device events and the ``dmlc:*`` spans (each
+   kernel's in-step µs from the trace beside phase 3's time); (b) the
+   128-step pass with the flight recorder off, on, and on with span
+   histograms, three times in turns: the registry's ``staging.rows``
+   equal to the rows staged, the stage histograms one sample a batch, no
+   event recorded while off, the traced pass's ``stall_report``, the
+   transfer thread's two stages timed alone beside their in-pipeline
+   times; (c) 2 workers at full width over the ring for 8 steps under
+   ``submit --trace-dir`` with ``DMLC_METRICS_PORT`` and
+   ``DMLC_METRICS_REPORT``, a heartbeat every 2 steps, rank 0 reading
+   ``/metrics.json?window=5`` and ``tools top --once --json`` mid-run:
+   the report's per-rank collective counters equal to each rank's
+   ``io_stats()``, ``tools trace merge`` holding spans of the tracker and
+   both workers with flow arrows between the ranks, ``tools info``
+   naming the card;
+11. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -101,8 +119,8 @@ must equal the sha256 of the file. It fails if any kernel instance spills
 registers. It prints a ``{"ptxas": [...]}`` (with the scatters' dynamic
 shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
 ``{"slice": {...}}``, a ``{"shuffle": {...}}``, a ``{"codec": {...}}``,
-an ``{"examples": {...}}`` and a ``{"collective": {...}}`` line, the
-nvidia-smi line, and last
+an ``{"examples": {...}}``, a ``{"collective": {...}}`` and a
+``{"telemetry": {...}}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -676,6 +694,7 @@ def drive(name, model, source, dev, lr, min_steps: int = 20, stop_after=None,
         "steps": n, "step_ms": statistics.median(step_s) * 1e3,
         "step_ms_first": step_s[0] * 1e3, "steps_s_total": sum(step_s),
         "staged_rows_per_sec": thr["rows_per_sec"],
+        "rows_staged": int(thr["rows"]), "batches_staged": int(thr["batches"]),
         "wait_share": wait_s / wall, "wall_s": wall, "first_batch_wait_s": first_wait,
         "stage_seconds": {k[5:]: v for k, v in thr.items() if k.startswith("secs_")},
         "loss_first": losses[0], "loss_last": losses[-1],
@@ -1270,8 +1289,11 @@ from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
 from dmlc_core_tpu_torch.tracker.client import RabitWorker
 from dmlc_core_tpu_torch.tracker.collective import Collective
 
-rec, out, path, steps, lr, dev, d, e, b, k = sys.argv[1:]
+rec, out, path, steps, lr, dev, d, e, b, k = sys.argv[1:11]
 steps, lr, d, e, b, k = int(steps), float(lr), int(d), int(e), int(b), int(k)
+# the telemetry phase: a heartbeat every ``beat`` steps (0: none), and
+# rank 0 reads the tracker's endpoint on ``metrics_port`` mid-run
+beat, metrics_port = (int(a) for a in (sys.argv[11:13] or ("0", "0")))
 dev = torch.device(dev)
 sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 w = RabitWorker()
@@ -1304,6 +1326,21 @@ for _ in range(steps):
     for key, dt in (("grad", t1 - t0), ("d2h", t2 - t1), ("allreduce", t3 - t2),
                     ("h2d_update", t4 - t3), ("step", t4 - t0)):
         split[key].append(dt)
+    n = len(losses)
+    if beat and n % beat == 0:
+        w.heartbeat()
+    if rank == 0 and metrics_port and n == steps // 2:
+        import subprocess
+        from dmlc_core_tpu_torch.io import retry
+        with retry.request(f"http://127.0.0.1:{{metrics_port}}/metrics.json?window=5",
+                           timeout=30.0) as resp:
+            mid = json.loads(resp.read().decode())
+        top = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.tools", "top",
+                              str(metrics_port), "--once", "--json", "--window", "5"],
+                             capture_output=True, text=True, timeout=60)
+        with open(f"{{out}}.mid.json", "w") as f:
+            json.dump({{"metrics": mid, "top_rc": top.returncode, "top": top.stdout,
+                       "top_err": top.stderr[-2000:]}}, f)
 launches = dict(_build.launches)
 drain_close(pipe, src)
 np.savez(f"{{out}}.rank{{rank}}.npz",
@@ -1312,6 +1349,8 @@ coll.close()
 with open(f"{{out}}.rank{{rank}}.json", "w") as f:
     json.dump({{"rank": rank, "launches": launches, "split_s": split, "losses": losses,
                "vector_bytes": int(host.nbytes), "io_stats": coll.io_stats()}}, f)
+if beat:
+    w.heartbeat()  # the last one carries every round's counters
 w.shutdown()
 '''
 
@@ -1513,6 +1552,322 @@ def collective_phase(dev):
     return out, launches
 
 
+# the telemetry phase: the Criteo FM pass with tracing off, on, and on
+# with span histograms, alternated this many times; the full-width
+# collective job under --trace-dir takes TELEMETRY_STEPS steps a rank
+# over the ring, heartbeating every TELEMETRY_BEAT steps
+TELEMETRY_REPEATS, TELEMETRY_STEPS, TELEMETRY_BEAT = 3, 8, 2
+TRACE_MODES = (("off", False, False), ("on", True, False), ("on_hist", True, True))
+# the staging stages whose histogram counts one sample a staged batch
+BATCH_STAGES = ("dispatch_pack", "dispatch_put", "transfer_wait")
+
+
+def registry_delta(before, after, kind, key, field=None):
+    now, was = after[kind].get(key), before[kind].get(key)
+    if field is not None:
+        now, was = (now or {}).get(field, 0), (was or {}).get(field, 0)
+    return (now or 0) - (was or 0)
+
+
+def trace_kernels(events):
+    """Device µs of K1-K4 in a torch Chrome trace: kernel events matched
+    by substring of their mangled names."""
+    out = {}
+    for name in KERNEL_NAMES:
+        durs = [e["dur"] for e in events if e.get("cat") == "kernel"
+                and f"{name}_kernel" in e.get("name", "")]
+        out[name] = {"events": len(durs), "us_mean": float(np.mean(durs)) if durs else None,
+                     "us_median": float(np.median(durs)) if durs else None}
+    return out
+
+
+def traced_fm_pass(rec, spec, make, dev, tmp, threads):
+    """(a) The FM pass under ``profiler.trace``: the capture must hold
+    K1-K4's device events and the ``dmlc:*`` spans."""
+    from dmlc_core_tpu_torch.telemetry import tracing
+    from dmlc_core_tpu_torch.utils import profiler
+
+    tracing.set_enabled(True)
+    tracing.reset()
+    t0 = time.perf_counter()
+    with profiler.trace(os.path.join(tmp, "profile"), device=dev) as cap:
+        # CUPTI may miss kernels launched just after it starts: settle it
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        stats, _, _ = drive("telemetry_trace", make(), native_source(rec, spec, threads),
+                            dev, 0.5, stop_after=32)
+        torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    with open(cap.path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = trace_kernels(events)
+    for name, k in kern.items():
+        k["launches"] = stats["launches"][name]
+        if not 0 < k["events"] <= k["launches"]:
+            fail(f"the torch trace holds {k['events']} {name} device events, "
+                 f"{k['launches']} were launched")
+    spans = {}
+    for e in events:
+        if str(e.get("name", "")).startswith("dmlc:"):
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    if "dmlc:transfer_wait" not in spans:
+        fail(f"the torch trace holds no dmlc:transfer_wait span: {sorted(spans)}")
+    return {"steps": stats["steps"], "launches": stats["launches"],
+            "capture_s": capture_s, "trace_mb": os.path.getsize(cap.path) / 1e6,
+            "kernel_us": kern, "dmlc_spans": spans,
+            "staging_thread_spans_in_capture": sorted(
+                n for n in spans if n != "dmlc:transfer_wait")}
+
+
+def tracing_cost(rec, spec, make, dev, threads):
+    """(b) The same pass with tracing off, on, and on with span
+    histograms, in turns: the registry against the pipeline's own
+    counters, no event while off, and the traced pass's stall report."""
+    from dmlc_core_tpu_torch.telemetry import default_registry, tracing
+    from dmlc_core_tpu_torch.utils import profiler
+
+    runs = {mode: [] for mode, _, _ in TRACE_MODES}
+    report = None
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    try:
+        for _ in range(TELEMETRY_REPEATS):
+            for mode, on, hist in TRACE_MODES:
+                tracing.set_enabled(on)
+                profiler.enable_histograms(hist)
+                tracing.reset()
+                before = default_registry().snapshot()
+                stats, _, _ = drive(f"telemetry_{mode}", make(),
+                                    native_source(rec, spec, threads), dev, 0.5)
+                after = default_registry().snapshot()
+                for k in KERNEL_NAMES:
+                    launches[k] += stats["launches"][k]
+                rows = registry_delta(before, after, "counters", "staging.rows")
+                if rows != stats["rows_staged"]:
+                    fail(f"{mode}: registry staging.rows moved {rows}, "
+                         f"the pipeline staged {stats['rows_staged']}")
+                counts = {st: registry_delta(before, after, "histograms",
+                                             f'staging.stage_seconds{{stage="{st}"}}', "count")
+                          for st in (*BATCH_STAGES, "host_pull")}
+                nb = stats["batches_staged"]
+                if any(counts[st] != nb for st in BATCH_STAGES) or counts["host_pull"] != nb + 1:
+                    fail(f"{mode}: stage histogram counts {counts}, {nb} batches")
+                events = tracing.stats()["total_events"]
+                if not on and events:
+                    fail(f"tracing off recorded {events} events")
+                spans = registry_delta(before, after, "histograms",
+                                       'profiler.span_seconds{span="dmlc:transfer_wait"}', "count")
+                # the consumer's span also covers the wait for the end of
+                # the stream, which no stage histogram counts
+                if hist and spans != nb + 1:
+                    fail(f"{mode}: {spans} transfer_wait span samples, {nb} batches")
+                runs[mode].append({k: stats[k] for k in (
+                    "staged_rows_per_sec", "step_ms", "wait_share", "steps")}
+                    | {"events": events, "span_hist_samples": spans,
+                       "stage_ms_per_batch": {st: v / nb * 1e3 for st, v in
+                                              stats["stage_seconds"].items()}})
+                if mode == "on" and report is None:
+                    report = tracing.stall_report(tracing.to_chrome_trace(), gap_ms=1.0)
+    finally:
+        tracing.set_enabled(None)
+        profiler.enable_histograms(None)
+        tracing.reset()
+
+    def spread(mode, key):
+        xs = [r[key] for r in runs[mode]]
+        return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+    summary = {mode: {k: spread(mode, k) for k in ("staged_rows_per_sec", "step_ms",
+                                                    "wait_share")} for mode in runs}
+    for mode in runs:
+        summary[mode]["stage_ms_per_batch"] = {
+            st: statistics.median(r["stage_ms_per_batch"][st] for r in runs[mode])
+            for st in runs[mode][0]["stage_ms_per_batch"]}
+    off = summary["off"]["staged_rows_per_sec"]["median"]
+    for mode in ("on", "on_hist"):
+        summary[mode]["rows_per_sec_cost"] = 1 - summary[mode]["staged_rows_per_sec"][
+            "median"] / off
+    stall = {
+        "threads": {name: {k: t[k] for k in ("busy_seconds", "idle_seconds", "wall_seconds")}
+                    for name, t in report["threads"].items()},
+        "busy_seconds_by_stage": report["busy_seconds_by_stage"],
+        "stall_seconds_by_stage": report["stall_seconds_by_stage"],
+        "starvation_gaps_over_1ms": len(report["starvation_gaps"]),
+    }
+    return {"runs": runs, "summary": summary, "stall_report": stall}, launches
+
+
+def dispatch_alone(rec, spec, dev, n: int = 64):
+    """The transfer thread's two stages alone on this thread, on one
+    producer batch: the copy into a pinned slot (``dispatch_pack``) and
+    the side-stream host→device copy's enqueue (``dispatch_put``), each
+    after the previous copy has completed. Against the same stages
+    inside the pipeline, the difference is what the other threads
+    (the step, the producer) cost them: the GIL and the memory bus."""
+    from dmlc_core_tpu_torch.staging.pipeline import _PinnedSlot
+
+    src = native_source(rec, spec)
+    packed = next(iter(src)).packed.copy()
+    src.close()
+    slot, stream = _PinnedSlot(), torch.cuda.Stream(dev)
+    pack, put = [], []
+    for _ in range(n):
+        slot.wait()
+        t0 = time.perf_counter()
+        buf = slot.fill(packed)
+        t1 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            u8 = torch.empty(buf.numel(), dtype=torch.uint8, device=dev)
+            u8.copy_(buf, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        slot.event = event
+        put.append(time.perf_counter() - t1)
+        pack.append(t1 - t0)
+    torch.cuda.synchronize()
+    return {"bytes": int(packed.nbytes), "dispatch_pack_ms": statistics.median(pack) * 1e3,
+            "dispatch_put_ms": statistics.median(put) * 1e3,
+            "pack_gb_per_s": packed.nbytes / statistics.median(pack) / 1e9}
+
+
+def traced_job(dev, tmp):
+    """(c) COLL_WORKERS workers at full width over the ring under
+    ``submit --trace-dir`` with DMLC_METRICS_PORT and DMLC_METRICS_REPORT:
+    the report's per-rank collective counters equal each rank's
+    io_stats(); ``tools trace merge`` holds all three processes with flow
+    arrows between the ranks; ``tools top`` and ``tools info`` run."""
+    import socket
+
+    rec = write_indexed(os.path.join(tmp, "tele.rec"),
+                        *criteo_data(np.random.default_rng(5), 1 << 16, D))
+    script = os.path.join(tmp, "coll_worker.py")
+    with open(script, "w") as f:
+        f.write(COLL_WORKER.format(repo=os.path.dirname(os.path.abspath(__file__))))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    prefix, traces = os.path.join(tmp, "tele"), os.path.join(tmp, "traces")
+    report_path = os.path.join(tmp, "report.json")
+    _, wall = submit_job(
+        ["--num-workers", str(COLL_WORKERS), "--trace-dir", traces, sys.executable, script,
+         rec, prefix, "ring", str(TELEMETRY_STEPS), str(COLL_LR), dev.type, str(D), str(E),
+         str(B), str(K), str(TELEMETRY_BEAT), str(port)],
+        env={"DMLC_METRICS_PORT": str(port), "DMLC_METRICS_REPORT": report_path,
+             "DMLC_TS_INTERVAL": "0.5", "DMLC_TRACE": "on"})
+    rank_files(prefix, COLL_WORKERS)
+    with open(report_path) as f:
+        report = json.load(f)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    ranks = {}
+    for r in range(COLL_WORKERS):
+        with open(f"{prefix}.rank{r}.json") as f:
+            res = json.load(f)
+        if any(res["launches"][k] != TELEMETRY_STEPS for k in KERNEL_NAMES):
+            fail(f"traced job rank {r}: launches {res['launches']}")
+        for k in KERNEL_NAMES:
+            launches[k] += res["launches"][k]
+        got = report["per_rank"][str(r)]["counters"]
+        io = res["io_stats"]
+        seen = {"bytes": got.get("tracker.collective.bytes"),
+                "ring_rounds": got.get('tracker.collective.rounds{path="ring"}'),
+                "recoveries": got.get("tracker.collective.recoveries", 0)}
+        want = {"bytes": io["bytes"], "ring_rounds": io["rounds"]["ring"],
+                "recoveries": io["recoveries"]}
+        if seen != want:
+            fail(f"traced job rank {r}: the tracker's report {seen}, io_stats {want}")
+        ranks[r] = {"report": seen, "step_ms": statistics.median(res["split_s"]["step"]) * 1e3}
+    with open(f"{prefix}.mid.json") as f:
+        mid = json.load(f)
+    if mid["top_rc"] != 0:
+        fail(f"tools top --once --json exited {mid['top_rc']}: {mid['top_err']}")
+    top = json.loads(mid["top"])
+    win = mid["metrics"]["windowed"]["per_rank"]
+    if not {"0", "1"} <= set(win):
+        fail(f"/metrics.json?window=5 mid-run holds ranks {sorted(win)}")
+    files = sorted(os.path.join(traces, f) for f in os.listdir(traces)
+                   if f.startswith("dmlc-trace-"))
+    merged_path = os.path.join(tmp, "merged.json")
+    tool = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.tools", "trace", "merge",
+                           *files, "-o", merged_path], capture_output=True, text=True,
+                          timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if tool.returncode != 0:
+        fail(f"tools trace merge exited {tool.returncode}: {tool.stderr[-2000:]}")
+    with open(merged_path) as f:
+        evs = json.load(f)["traceEvents"]
+    labels = {e["pid"]: e["args"]["name"] for e in evs
+              if e["ph"] == "M" and e["name"] == "process_name"}
+    spans_by = {}
+    for e in evs:
+        if e["ph"] == "X":
+            spans_by.setdefault(labels.get(e["pid"], "?"), set()).add(e["name"])
+    want_procs = {"tracker", "worker0", "worker1"}
+    if not want_procs <= {lb.split()[0] for lb in spans_by}:
+        fail(f"the merged trace holds spans of {sorted(spans_by)}")
+    starts = {e["id"]: labels.get(e["pid"]) for e in evs if e["ph"] == "s"}
+    between = sum(1 for e in evs if e["ph"] == "f" and e["id"] in starts
+                  and starts[e["id"]] != labels.get(e["pid"])
+                  and str(starts[e["id"]]).startswith("worker")
+                  and str(labels.get(e["pid"])).startswith("worker"))
+    if not between:
+        fail("the merged trace has no flow arrow between the ranks")
+    info = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.tools", "info"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if info.returncode != 0:
+        fail(f"tools info exited {info.returncode}: {info.stderr[-2000:]}")
+    build = json.loads(info.stdout)
+    if not build["torch"]["devices"] or build["kernels"]["library"] is None:
+        fail(f"tools info reports no device or no built kernels: {build['torch']}")
+    report_rep = tracing_report(merged_path)
+    return {"wall_s": wall, "steps": TELEMETRY_STEPS, "ranks": ranks,
+            "trace_files": len(files), "processes": sorted(spans_by),
+            "flows_between_ranks": between,
+            "mid_run_window": {r: v["derived"] for r, v in win.items()},
+            "top": top["ranks"], "info_devices": build["torch"]["devices"],
+            "merged_stall": report_rep}, launches
+
+
+def tracing_report(path):
+    """Per-stage stall seconds of a merged trace (``tools trace report``)."""
+    from dmlc_core_tpu_torch.telemetry import tracing
+
+    rep = tracing.stall_report(tracing.load_trace(path), gap_ms=1.0)
+    return {"stall_seconds_by_stage": rep["stall_seconds_by_stage"],
+            "critical_path": {p: {"wall_seconds": c["wall_seconds"],
+                                  "bottleneck_thread": c["bottleneck_thread"]}
+                              for p, c in rep["critical_path"].items()}}
+
+
+def telemetry_phase(dev, kernels):
+    """The Criteo-width FM path with telemetry on: (a) under
+    ``profiler.trace``, (b) tracing off / on / on with histograms in
+    turns, (c) the traced, scraped full-width collective job. Returns the
+    ``{"telemetry": ...}`` line and the phase's launches."""
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    def make():
+        return FactorizationMachine(D, E, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        idx, val, labels = criteo_data(rng, N_BATCHES * B, D)
+        rec = write_file(os.path.join(tmp, "criteo.rec"), rowrec_bytes(idx, val, labels),
+                         SLICE_REPEATS)
+        spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+        threads = picked_threads(N_BATCHES * B * SLICE_REPEATS, B)
+        drive("telemetry_warm", make(), native_source(rec, spec, threads), dev, 0.5)
+        out = {"trace": traced_fm_pass(rec, spec, make, dev, tmp, threads)}
+        for name, k in out["trace"]["kernel_us"].items():
+            k["kernel_phase_us"] = next(r["ms"] for r in kernels if r["name"] == name) * 1e3
+        out["cost"], launches = tracing_cost(rec, spec, make, dev, threads)
+        out["cost"]["dispatch_alone"] = dispatch_alone(rec, spec, dev)
+        out["job"], job_launches = traced_job(dev, tmp)
+    for k in KERNEL_NAMES:
+        launches[k] += out["trace"]["launches"][k] + job_launches[k]
+    return out, launches
+
+
 def ptxas_summary(log: str):
     """Registers, spill bytes and shared memory of each compiled kernel
     instance, from nvcc's ``-Xptxas -v`` output."""
@@ -1583,13 +1938,15 @@ def main() -> None:
     codec = codec_phase(dev, slice_stats["fm"])
     examples = examples_phase(dev)
     collective, coll_launches = collective_phase(dev)
+    telemetry, tele_launches = telemetry_phase(dev, kernels)
     entry_phase(dev)
     torch.cuda.synchronize()
 
     main_runs = [*slice_stats.values(), shuffle["fm"]["timed"], codec["fm"]["zlib"]]
     for row in kernels:
         # the full-width collective workers count in their own processes
-        n = sum(s["launches"][row["name"]] for s in main_runs) + coll_launches[row["name"]]
+        n = (sum(s["launches"][row["name"]] for s in main_runs)
+             + coll_launches[row["name"]] + tele_launches[row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -1608,6 +1965,7 @@ def main() -> None:
     print(json.dumps({"codec": codec}))
     print(json.dumps({"examples": examples}))
     print(json.dumps({"collective": collective}))
+    print(json.dumps({"telemetry": telemetry}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

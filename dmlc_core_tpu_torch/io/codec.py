@@ -25,21 +25,26 @@ Block wire format (the payload of a cflag-4 RecordIO frame)::
 
 Environment: ``DMLC_DECODE_CACHE_MB`` (the decoded-block LRU's budget,
 default 256) and ``DMLC_DECODE_THREADS`` (the decode pool's size, default
-the usable-CPU count). The JAX package's telemetry counters are not
-ported; the indexed splitter counts cache hits and misses in
-``io_stats()``. ``DecodeContext`` has no shared host tier: that is the
-block-cache daemon of the remote filesystems, not ported.
+the usable-CPU count). Telemetry, under the JAX package's names: the
+``io.codec.bytes_raw``/``bytes_compressed``/``cache_hits``/
+``cache_misses`` counters, the ``io.codec.decode_seconds`` histogram and
+one ``dmlc:decode_block`` span per decode. ``DecodeContext`` has no
+shared host tier: that is the block-cache daemon of the remote
+filesystems, not ported.
 """
 
 from __future__ import annotations
 
 import struct
 import threading
+import time as _time
 import zlib as _zlib
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
+from ..telemetry import default_registry as _default_registry
+from ..telemetry import tracing as _tracing
 from ..utils.cpus import available_cpus
 from ..utils.env import get_env
 from ..utils.logging import Error, check
@@ -67,6 +72,21 @@ __all__ = [
 # codec_id, version, reserved, n_records, raw_len, crc32
 BLOCK_HEADER = struct.Struct("<BBHIII")
 BLOCK_VERSION = 1
+
+_REG = _default_registry()
+_BYTES_RAW = _REG.counter(
+    "io.codec.bytes_raw", help="uncompressed bytes through the codec layer"
+)
+_BYTES_COMPRESSED = _REG.counter(
+    "io.codec.bytes_compressed", help="compressed bytes through the codec layer"
+)
+_DECODE_SECONDS = _REG.histogram(
+    "io.codec.decode_seconds", help="per-block decompress wall time"
+)
+_CACHE_HITS = _REG.counter("io.codec.cache_hits", help="decoded-block cache hits")
+_CACHE_MISSES = _REG.counter(
+    "io.codec.cache_misses", help="decoded-block cache misses"
+)
 
 
 def crc32(data) -> int:
@@ -284,6 +304,8 @@ def encode_block(raw: bytes, n_records: int, codec: Union[str, Codec],
     """Framed record bytes → block blob (header + compressed bytes)."""
     c = get_codec(codec)
     comp = c.compress(raw, level)
+    _BYTES_RAW.inc(len(raw))
+    _BYTES_COMPRESSED.inc(len(comp))
     return BLOCK_HEADER.pack(c.codec_id, BLOCK_VERSION, 0, n_records, len(raw),
                              crc32(raw)) + comp
 
@@ -299,7 +321,13 @@ def decode_block(blob) -> Tuple[bytes, int]:
     check(version == BLOCK_VERSION,
           f"unsupported compressed-block version {version} "
           f"(this reader supports {BLOCK_VERSION})")
-    raw = get_codec(codec_id).decompress(blob[BLOCK_HEADER.size:], raw_len)
+    codec = get_codec(codec_id)
+    # one flight-recorder span per decode-pool job: the timeline shows
+    # each decode worker's occupancy beside the reader waiting on it
+    t0 = _time.perf_counter()
+    with _tracing.span("dmlc:decode_block", codec=codec.name, raw_len=raw_len):
+        raw = codec.decompress(blob[BLOCK_HEADER.size:], raw_len)
+    _DECODE_SECONDS.observe(_time.perf_counter() - t0)
     check(len(raw) == raw_len,
           f"compressed block decoded to {len(raw)} bytes, header says "
           f"{raw_len} (truncated or corrupt block)")
@@ -307,6 +335,8 @@ def decode_block(blob) -> Tuple[bytes, int]:
     check(got_crc == want_crc,
           f"compressed block crc mismatch: got {got_crc:#010x}, header says "
           f"{want_crc:#010x} (corrupt block)")
+    _BYTES_RAW.inc(raw_len)
+    _BYTES_COMPRESSED.inc(len(blob) - BLOCK_HEADER.size)
     return raw, n_records
 
 
@@ -387,9 +417,11 @@ class DecodedBlockCache:
             data = self._items.get(key)
             if data is None:
                 self.misses += 1
+                _CACHE_MISSES.inc()
                 return None
             self._items.move_to_end(key)
             self.hits += 1
+            _CACHE_HITS.inc()
             return data
 
     def put(self, key, data: bytes) -> None:

@@ -1,17 +1,25 @@
 """Transient-failure classification and backoff (the port of the half of
 ``dmlc_core_tpu/io/retry.py`` the tracker needs).
 
-- ``is_transient``: would a retry plausibly succeed? Connection resets,
-  refusals, aborts, timeouts and short HTTP bodies yes; anything else no.
+- ``is_transient``: would a retry plausibly succeed? HTTP 408/429/5xx,
+  socket-caused URLErrors, connection resets, refusals, aborts, timeouts
+  and short HTTP bodies yes; anything else no.
 - ``RetryPolicy``: exponential backoff with decorrelated jitter
   (``min(cap, uniform(base, 3*prev))``), a per-operation attempt cap and
   a cumulative backoff budget shared by every operation of one policy.
 - ``count_fault_injected``: the counter every fired chaos fault ticks.
+- ``stats()``/``stats_delta()``/``reset_stats()``: the io_stats() view
+  over the registry series ``io.retry.retries``,
+  ``io.retry.backoff_seconds`` and ``io.faults.injected`` (a
+  ``ScopedView``; the series stay monotonic, ``reset_stats`` rebases
+  the view). Each backoff sleep is a ``dmlc:retry_backoff`` span.
 
-The HTTP half (``request``, ``HttpError``) and ``RetryingReadStream``
-come with the remote filesystems (``ROADMAP.md`` §1 item 8). The
-counters are plain module integers (``stats()``), not registry series:
-the telemetry registry is §1 item 6.
+- ``request``: one HTTP round trip with that retry, the port's single
+  urlopen site (``tools top`` polls the tracker's endpoint through it);
+  HTTP errors raise ``HttpError`` with the status and headers.
+
+``RetryingReadStream`` comes with the remote filesystems (``ROADMAP.md``
+§1 item 8).
 
 Env knobs (read at policy construction): DMLC_RETRY_ATTEMPTS (4),
 DMLC_RETRY_BASE_SECS (0.1), DMLC_RETRY_CAP_SECS (5.0),
@@ -26,19 +34,75 @@ import random
 import socket
 import threading
 import time
+import urllib.error
+import urllib.request
 from typing import Callable, Dict, Optional
 
+from ..telemetry import default_registry as _default_registry
+from ..telemetry import tracing as _tracing
 from ..utils.logging import Error
 
-__all__ = ["RetryPolicy", "count_fault_injected", "is_transient", "stats"]
+__all__ = [
+    "HttpError",
+    "RetryPolicy",
+    "count_fault_injected",
+    "is_transient",
+    "request",
+    "reset_stats",
+    "stats",
+    "stats_delta",
+]
 
-_lock = threading.Lock()
-_counts = {"retries": 0, "backoff_secs": 0.0, "faults_injected": 0}
+_registry = _default_registry()
+_RETRIES = _registry.counter(
+    "io.retry.retries", help="transient-failure retries healed"
+)
+_BACKOFF = _registry.counter(
+    "io.retry.backoff_seconds", help="total retry backoff slept (secs)"
+)
+_FAULTS = _registry.counter(
+    "io.faults.injected", help="faults fired by the fault:// layer"
+)
+
+_SERIES = ("io.retry.retries", "io.retry.backoff_seconds", "io.faults.injected")
+_VIEW_LOCK = threading.Lock()  # guards the shared view's baseline swap
+_VIEW = _registry.scoped(names=_SERIES)
+
+
+# HTTP statuses worth retrying besides the 5xx band
+_TRANSIENT_HTTP = frozenset({408, 429})
+
+
+class HttpError(Error):
+    """HTTP-level failure carrying the status and response headers
+    (the message keeps the ``... -> HTTP <code>: <body>`` form).
+    ``header()`` looks a name up case-insensitively."""
+
+    def __init__(self, message: str, status: int, headers=None) -> None:
+        super().__init__(message)
+        self.status = status
+        self.headers: Dict[str, str] = dict(headers or {})
+
+    def header(self, name: str, default: Optional[str] = None) -> Optional[str]:
+        want = name.lower()
+        for k, v in self.headers.items():
+            if k.lower() == want:
+                return v
+        return default
 
 
 def is_transient(exc: BaseException) -> bool:
-    """Resets, refusals, aborts, broken pipes, timeouts and short HTTP
-    bodies are transient; everything else is not."""
+    """Would a retry plausibly succeed? HTTP 408/429/5xx, socket-caused
+    URLErrors, short bodies, resets, refusals and timeouts: yes;
+    everything else (4xx, parse errors): no."""
+    if isinstance(exc, HttpError):
+        return exc.status in _TRANSIENT_HTTP or 500 <= exc.status <= 599
+    if isinstance(exc, urllib.error.HTTPError):
+        return exc.code in _TRANSIENT_HTTP or 500 <= exc.code <= 599
+    if isinstance(exc, urllib.error.URLError):
+        # reason is an exception for socket-level failures and a string
+        # for protocol-level ones
+        return isinstance(exc.reason, (OSError, TimeoutError))
     return isinstance(
         exc,
         (
@@ -52,23 +116,50 @@ def is_transient(exc: BaseException) -> bool:
 
 
 def _count_retry(backoff: float) -> None:
-    with _lock:
-        _counts["retries"] += 1
-        _counts["backoff_secs"] += backoff
+    _RETRIES.inc()
+    _BACKOFF.inc(backoff)
 
 
 def count_fault_injected(n: int = 1) -> None:
     """Called per fired chaos fault, so injected faults are counted next
     to the healed retries."""
-    with _lock:
-        _counts["faults_injected"] += n
+    _FAULTS.inc(n)
 
 
 def stats() -> Dict[str, float]:
-    """The process's counters: ``retries``, ``backoff_secs`` and
-    ``faults_injected``."""
-    with _lock:
-        return dict(_counts)
+    """The process's counters since the last ``reset_stats()``:
+    ``retries``, ``backoff_secs`` and ``faults_injected``. The three
+    series are read without a joint lock (each is thread-sharded), so a
+    retry completing mid-read can skew one field against another by one
+    increment; read after quiescing for exact triples."""
+    with _VIEW_LOCK:
+        d = _VIEW.delta()
+    return {
+        "retries": int(d.get("io.retry.retries", 0)),
+        "backoff_secs": round(float(d.get("io.retry.backoff_seconds", 0.0)), 6),
+        "faults_injected": int(d.get("io.faults.injected", 0)),
+    }
+
+
+def stats_delta(snapshot: Dict[str, float]) -> Dict[str, float]:
+    """Counters accumulated since ``snapshot`` (an earlier stats())."""
+    now = stats()
+    return {
+        "retries": int(now["retries"] - snapshot.get("retries", 0)),
+        "backoff_secs": round(
+            float(now["backoff_secs"] - snapshot.get("backoff_secs", 0.0)), 6
+        ),
+        "faults_injected": int(
+            now["faults_injected"] - snapshot.get("faults_injected", 0)
+        ),
+    }
+
+
+def reset_stats() -> None:
+    """Zero the stats() view (test isolation). The registry counters
+    stay monotonic; only the view's baseline moves."""
+    with _VIEW_LOCK:
+        _VIEW.rebase()
 
 
 def _env_float(name: str, default: float) -> float:
@@ -137,7 +228,13 @@ class RetryPolicy:
         self.retries += 1
         self.backoff_secs += delay
         _count_retry(delay)
-        self._sleep(delay)
+        # the backoff sleep is a stall on the trace timeline
+        with _tracing.span(
+            "dmlc:retry_backoff",
+            what=what or None,
+            delay_ms=round(delay * 1000.0, 3),
+        ):
+            self._sleep(delay)
 
     def run(self, fn: Callable[[], "object"], what: str = ""):
         """Call ``fn`` with transient-failure retry: other errors and
@@ -151,3 +248,35 @@ class RetryPolicy:
                     raise
                 self.pause(cause=exc, what=what)
                 attempt += 1
+
+
+def request(
+    url: str,
+    method: str = "GET",
+    headers: Optional[Dict[str, str]] = None,
+    data: Optional[bytes] = None,
+    timeout: float = 60.0,
+    policy: Optional[RetryPolicy] = None,
+):
+    """One HTTP round trip with transient-failure retry; returns the
+    open response (the caller reads and closes it). Raises ``HttpError``
+    on HTTP errors, ``Error`` on connection failures."""
+    policy = policy or RetryPolicy()
+
+    def once():
+        req = urllib.request.Request(
+            url, data=data, headers=headers or {}, method=method
+        )
+        return urllib.request.urlopen(req, timeout=timeout)
+
+    try:
+        return policy.run(once, what=f"{method} {url}")
+    except urllib.error.HTTPError as e:
+        body = e.read(4096).decode(errors="replace")
+        raise HttpError(
+            f"{method} {url} -> HTTP {e.code}: {body[:500]}",
+            status=e.code,
+            headers=e.headers,
+        ) from e
+    except urllib.error.URLError as e:
+        raise Error(f"{method} {url} failed: {e.reason}") from e

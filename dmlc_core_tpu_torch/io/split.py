@@ -37,8 +37,11 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry import default_registry as _default_registry
+from ..telemetry import tracing as _tracing
 from ..utils.logging import Error, check, check_eq
 from ..utils.prefetch import Prefetcher
+from ..utils.profiler import annotate
 from . import codec as _codec
 from . import serializer
 from .filesystem import FileInfo, FileSystem
@@ -72,6 +75,31 @@ __all__ = [
 DEFAULT_BUFFER_BYTES = (2 << 20) * 4
 # a split thread that does not stop within this many seconds raises
 _JOIN_TIMEOUT = 30.0
+
+# registry mirrors of the per-instance I/O-shape counters, under the JAX
+# package's names: the same increments feed each split's io_stats()
+# (exact, per instance) and these process-global series (the fleet view
+# over heartbeats and scrapes)
+_REG = _default_registry()
+_SPANS = _REG.counter("io.split.spans", help="positioned reads issued")
+_SEEKS = _REG.counter("io.split.seeks", help="stream seek() calls")
+_BYTES_READ = _REG.counter("io.split.bytes_read", help="bytes read by splits")
+_INDEX_EVICTIONS = _REG.counter(
+    "io.split.index_cache_evictions",
+    help="parsed sidecar indexes evicted from the bytes-bounded LRU",
+)
+_RECORDS = _REG.counter("io.split.records", help="records emitted by splits")
+_GATHER_BATCHES = _REG.counter(
+    "io.split.gather_batches",
+    help="zero-copy (buf, starts, sizes) gather batches emitted",
+)
+_GATHER_BYTES = _REG.counter(
+    "io.split.gather_bytes", help="record bytes referenced by gather batches"
+)
+_GATHER_FALLBACK = _REG.counter(
+    "io.split.gather_fallback_batches",
+    help="shuffled emissions that re-framed bytes instead of gathering",
+)
 
 
 def local_path(uri: str) -> str:
@@ -560,6 +588,7 @@ def _load_index_cached(stat_key) -> Dict[str, np.ndarray]:
             while _INDEX_CACHE_BYTES > budget and len(_INDEX_CACHE) > 1:
                 _k, old = _INDEX_CACHE.popitem(last=False)
                 _INDEX_CACHE_BYTES -= sum(v.nbytes for v in old.values())
+                _INDEX_EVICTIONS.inc()
     return data
 
 
@@ -990,6 +1019,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         self.seek_calls += 1
         self.spans_read += 1
         self.bytes_read += size - nleft
+        _SEEKS.inc()
+        _SPANS.inc()
+        _BYTES_READ.inc(size - nleft)
         return b"".join(out)
 
     # -- compressed blocks ----------------------------------------------------
@@ -1020,6 +1052,8 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             check_eq(len(data), nbytes, "span read truncated")
             self.spans_read += 1
             self.bytes_read += nbytes
+            _SPANS.inc()
+            _BYTES_READ.inc(nbytes)
             mv = memoryview(data)
             for k in order[starts[si]:ends[si]].tolist():
                 rel = int(offs[k]) - begin
@@ -1032,10 +1066,11 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             ctx.put_block(self._block_key(bid), raw)
         return out
 
-    def _blocks(self, bids) -> Dict[int, bytes]:
+    def _blocks(self, bids, window: bool = False) -> Dict[int, bytes]:
         """The decoded blocks ``bids`` (unique ids): cached ones from the
         decode context, the rest read and decoded; counts hits and
-        misses."""
+        misses. A ``window`` load that reads and decodes runs under a
+        ``dmlc:window_span_decode`` span with the miss count."""
         found = self._decode_ctx.get_blocks([self._block_key(b) for b in bids])
         blocks: Dict[int, bytes] = {}
         for b in bids:
@@ -1045,7 +1080,10 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         missing = sorted(b for b in bids if b not in blocks)
         self.decode_cache_hits += len(blocks)
         self.decode_cache_misses += len(missing)
-        if missing:
+        if missing and window:
+            with _tracing.span("dmlc:window_span_decode", blocks=len(missing)):
+                blocks.update(self._fetch_blocks(missing))
+        elif missing:
             blocks.update(self._fetch_blocks(missing))
         return blocks
 
@@ -1077,7 +1115,7 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         order."""
         bids = self._rec_block[perm]
         uniq = np.unique(bids)
-        decoded = self._blocks(uniq.tolist())
+        decoded = self._blocks(uniq.tolist(), window=True)
         lens = np.asarray([len(decoded[b]) for b in uniq.tolist()], dtype=np.int64)
         base = np.concatenate(([0], np.cumsum(lens)[:-1]))
         buf = np.frombuffer(b"".join(decoded[b] for b in uniq.tolist()), dtype=np.uint8)
@@ -1131,6 +1169,8 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         total = int(span_len.sum())
         self.spans_read += len(spans)
         self.bytes_read += total
+        _SPANS.inc(len(spans))
+        _BYTES_READ.inc(total)
         reader = self._get_span_reader()
         if len(spans) == 1:
             begin, nbytes = spans[0]
@@ -1151,6 +1191,10 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         coalesced spans → ``(buf, rel, size)`` in permutation order.
         When the merged gaps more than double the buffer, it is
         compacted to the records' own bytes."""
+        with annotate("dmlc:window_load"):
+            return self._load_window_inner(lo, hi)
+
+    def _load_window_inner(self, lo: int, hi: int):
         perm = np.asarray(self._permutation[lo:hi], dtype=np.int64)
         if self._compressed:
             return self._load_window_compressed(perm)
@@ -1220,7 +1264,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         while got < n:
             state = self._win_buf
             if state is None or self._win_pos >= len(state[1]):
-                if not self._refill_window():
+                with annotate("dmlc:gather_refill"):
+                    refilled = self._refill_window()
+                if not refilled:
                     break
                 state = self._win_buf
             buf, rel, size = state
@@ -1248,8 +1294,11 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         check(self.windowed, "next_gather_batch needs a windowed shuffle")
         state = self._win_buf
         if state is None or self._win_pos >= len(state[1]):
-            if not self._refill_window():
-                return None
+            # only the refill can block; the emission below is a couple
+            # of numpy views, too cheap to trace per batch
+            with annotate("dmlc:gather_refill"):
+                if not self._refill_window():
+                    return None
             state = self._win_buf
         buf, rel, size = state
         take = min(n_records, len(rel) - self._win_pos)
@@ -1262,15 +1311,20 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             s = size[self._win_pos:self._win_pos + take]
             out = (buf, r.astype(np.int64), s.astype(np.int64))
         self._win_pos += take
+        nbytes = int(out[2].sum())
         self.records_emitted += take
         self.gather_batches += 1
-        self.gather_bytes += int(out[2].sum())
+        self.gather_bytes += nbytes
+        _RECORDS.inc(take)
+        _GATHER_BATCHES.inc()
+        _GATHER_BYTES.inc(nbytes)
         return out
 
     def count_gather_fallback(self, n: int = 1) -> None:
         """A consumer that copied ``next_gather_batch`` views into framed
         bytes reports it here; the port's producers never do."""
         self.gather_fallback_batches += n
+        _GATHER_FALLBACK.inc(n)
 
     def io_stats(self) -> Dict[str, object]:
         """I/O-shape counters since construction: ``spans`` positioned
@@ -1311,6 +1365,8 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             self._n_overflow = n - got
             self.records_emitted += got
             self.gather_fallback_batches += 1
+            _RECORDS.inc(got)
+            _GATHER_FALLBACK.inc()
             return chunks[0] if len(chunks) == 1 else b"".join(chunks)
         if self._legacy_record:
             n = self._n_overflow or n_records
@@ -1325,6 +1381,7 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
                 return None
             self._n_overflow = n - len(parts)
             self.records_emitted += len(parts)
+            _RECORDS.inc(len(parts))
             return b"".join(parts)
         n = self._n_overflow or n_records
         last = min(self._current + n, self.index_end)
@@ -1340,6 +1397,7 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             chunk = self._read_at(begin_off, end_off - begin_off)
         if chunk:
             self.records_emitted += last - self._current
+            _RECORDS.inc(last - self._current)
         self._current = last
         return chunk if chunk else None
 
@@ -1460,11 +1518,19 @@ class _Wrapper:
         return self._base.extract_records(chunk)
 
     def io_stats(self) -> Dict[str, object]:
-        return self._base.io_stats()
+        return _base_stats(self._base)
 
     def close(self) -> None:
         self._halt()
         self._base.close()
+
+
+def _base_stats(base) -> Dict[str, object]:
+    """A wrapped split's io_stats(), or an empty dict for a base without
+    one (as the JAX wrappers answer)."""
+    fn = getattr(base, "io_stats", None)
+    out = fn() if fn is not None else None
+    return dict(out) if out else {}
 
 
 class ThreadedInputSplit(_Wrapper):
@@ -1546,7 +1612,10 @@ class CachedInputSplit(_Wrapper):
         self._base.reset_partition(part_index, num_parts)
 
     def io_stats(self) -> Dict[str, object]:
-        return {**self._base.io_stats(), "cache_epochs_replayed": self.epochs_replayed}
+        out = _base_stats(self._base)
+        if out:
+            out["cache_epochs_replayed"] = self.epochs_replayed
+        return out
 
 
 class InputSplitShuffle:
@@ -1627,7 +1696,7 @@ class InputSplitShuffle:
         return self._base.extract_records(chunk)
 
     def io_stats(self) -> Dict[str, object]:
-        return self._base.io_stats()
+        return _base_stats(self._base)
 
     def close(self) -> None:
         self._base.close()

@@ -23,8 +23,8 @@ import torch
 from ..utils.logging import Error
 
 __all__ = [
-    "KERNELS", "build", "empty_launch", "launch", "launches", "reset_launches",
-    "scatter_smem_bytes",
+    "KERNELS", "build", "built_library", "empty_launch", "launch", "launches",
+    "reset_launches", "scatter_smem_bytes", "source_sha256",
 ]
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ell_kernels.cu"
@@ -70,14 +70,30 @@ def _nvcc() -> str:
     return path
 
 
+def source_sha256() -> str:
+    """sha256 of ``ell_kernels.cu`` in this checkout."""
+    return hashlib.sha256(_SRC.read_bytes()).hexdigest()
+
+
+def _library_file() -> Path:
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
+    return _BUILD_DIR / f"ell_kernels-{key.hexdigest()[:16]}.so"
+
+
+def built_library() -> Optional[Path]:
+    """The library built from this source and flags, or None before the
+    first build."""
+    out = _library_file()
+    return out if out.exists() else None
+
+
 def build() -> Path:
     """Compile the kernels if this source/flags pair has no library yet;
     returns the library's path. The compiler's output (register and
     shared memory use per kernel) is kept beside the library and in
     ``build_log``."""
     global build_log
-    key = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
-    out = _BUILD_DIR / f"ell_kernels-{key.hexdigest()[:16]}.so"
+    out = _library_file()
     log = out.with_suffix(".log")
     if out.exists():
         build_log = log.read_text() if log.exists() else ""

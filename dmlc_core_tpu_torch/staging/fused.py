@@ -68,6 +68,7 @@ from ..io.recordio import (
     scan_compressed_blob,
 )
 from ..io.uri import URISpec, rejoin_query, uri_int
+from ..telemetry import default_registry as _default_registry
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from .batcher import (
@@ -101,6 +102,20 @@ _PROBE_BYTES = 262144
 # the head of a rowrec file that decides its route (writers write uniform
 # files; a compressed block past it raises where the mmap route meets it)
 _REC_SNIFF_BYTES = 4 << 20
+
+# registry mirrors of the fused producers' counters (the per-instance
+# attributes stay authoritative for io_stats(); these give the fleet
+# view over heartbeats and scrapes), under the JAX package's names
+_REG = _default_registry()
+_ROWS_OUT = _REG.counter(
+    "staging.rows_out", help="rows emitted in fixed-shape batches"
+)
+_TRUNCATED = _REG.counter(
+    "staging.truncated_nnz", help="features dropped by fixed-shape overflow"
+)
+_BAD_RECORDS = _REG.counter(
+    "staging.bad_records", help="malformed records skipped by fused parsers"
+)
 
 
 class EllRowRecBatches:
@@ -468,6 +483,7 @@ class _RingBatches:
         packed, v = self._ring[self._slot]
         self._slot = (self._slot + 1) % len(self._ring)
         self.rows_out += n_valid
+        _ROWS_OUT.inc(n_valid)
         if self.spec.overflow == "error" and self.truncated_nnz:
             limit = (f"beyond max_nnz={self.spec.max_nnz}"
                      if self.spec.layout == "ell"
@@ -585,6 +601,8 @@ class FusedDenseLibSVMBatches(_FusedBaseTextBatches):
             chunk, off, self._base, v["x"], v["labels"], v["weights"], fill,
             cr_hint)
         self.truncated_nnz += trunc
+        if trunc:
+            _TRUNCATED.inc(trunc)
         return rows, consumed, cr_hint
 
 
@@ -620,6 +638,8 @@ class FusedDenseCSVBatches(_FusedTextBatches):
             chunk, off, self._delim, self._label_col, self._weight_col,
             v["x"], v["labels"], v["weights"], fill, cr_hint)
         self.truncated_nnz += trunc
+        if trunc:
+            _TRUNCATED.inc(trunc)
         if bad:
             self.bad_lines += bad
             raise Error("Delimiter not found in the line. "
@@ -639,6 +659,8 @@ class FusedEllLibSVMBatches(_FusedBaseTextBatches):
             chunk, off, self._base, v["indices"], v["values"], v["nnz"],
             v["labels"], v["weights"], fill, cr_hint)
         self.truncated_nnz += trunc
+        if trunc:
+            _TRUNCATED.inc(trunc)
         return rows, consumed, cr_hint
 
 
@@ -655,6 +677,8 @@ class FusedEllLibFMBatches(_FusedBaseTextBatches):
             chunk, off, self._base, v["indices"], v["values"], v["nnz"],
             v["labels"], v["weights"], fill, cr_hint)
         self.truncated_nnz += trunc
+        if trunc:
+            _TRUNCATED.inc(trunc)
         return rows, consumed, cr_hint
 
 
@@ -721,6 +745,10 @@ class FusedEllRowRecBatches(_RingBatches):
         self.rows_in += rows
         self.truncated_nnz += trunc
         self.bad_records += bad
+        if trunc:
+            _TRUNCATED.inc(trunc)
+        if bad:
+            _BAD_RECORDS.inc(bad)
 
     def _feed(self, chunk, off: int, fill: int):
         """Parse ``chunk[off:]`` into the current slot → (off, fill,

@@ -14,6 +14,17 @@ reuse it while the step still reads it. On the CPU ``torch.from_numpy``
 would share the producer's ring slot, so the bytes are copied first (a
 yielded batch must not change when the producer's ring wraps). Batches
 without a usable packed layout take one transfer per array.
+
+Telemetry (the JAX package's series and span names): the registry
+counters ``staging.rows``/``bytes``/``device_puts``/``batches{path}``
+and one ``staging.stage_seconds{stage}`` histogram per stage, resolved
+once at import so the transfer thread pays one thread-local add per
+write; each stage runs under ``annotate("dmlc:<stage>")``, which puts it
+on the flight recorder's ring and, while a torch profiler records on
+that thread, on the capture's timeline. The staging thread's pull of
+each producer batch is a ``dmlc:produce`` span (the port's own: the JAX
+pipeline has none there). ``stage_seconds`` and ``throughput()`` keep
+their sums.
 """
 
 from __future__ import annotations
@@ -27,9 +38,11 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..telemetry import default_registry as _default_registry
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import check
 from ..utils.prefetch import Prefetcher
+from ..utils.profiler import annotate
 from .batcher import Batch
 
 __all__ = [
@@ -41,6 +54,42 @@ __all__ = [
 ]
 
 logger = logging.getLogger("dmlc_core_tpu_torch.staging")
+
+_REG = _default_registry()
+_ROWS_STAGED = _REG.counter("staging.rows", help="rows staged to device")
+_BYTES_STAGED = _REG.counter("staging.bytes", help="bytes staged to device")
+_DEVICE_PUTS = _REG.counter("staging.device_puts", help="device transfers")
+# registered under the JAX names although their paths (the adopted
+# dsserve slot, the jitted unpacker cache) are not ported: they stay 0
+_REG.counter(
+    "staging.adopted_slots",
+    help="packed slots device_put straight from the producer's buffer "
+    "(dispatch_pack copy skipped)",
+)
+_REG.counter(
+    "dsserve.slot_copies",
+    help="received dsserve slots that took the dispatch_pack memcpy "
+    "anyway (0 on the zero-copy adopt path)",
+)
+_REG.counter("staging.unpack_evictions", help="jitted-unpacker LRU evictions")
+_BATCH_COUNTERS = {
+    kind: _REG.counter(
+        "staging.batches",
+        help="staged batches by transfer path",
+        labels={"path": kind},
+    )
+    for kind in ("packed", "packed_shard", "per_array")
+}
+_STAGES = ("host_pull", "dispatch_pack", "dispatch_put", "dispatch_slot_wait",
+           "transfer_wait")
+_STAGE_HISTS = {
+    stage: _REG.histogram(
+        "staging.stage_seconds",
+        help="per-stage staging durations (secs)",
+        labels={"stage": stage},
+    )
+    for stage in _STAGES
+}
 
 
 def packed_layout(batch: Batch):
@@ -97,6 +146,8 @@ class StagingStats:
                 self.packed_batches += 1
             else:
                 self.per_array_batches += 1
+        _DEVICE_PUTS.inc(puts)
+        _BATCH_COUNTERS["packed" if packed else "per_array"].inc()
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
@@ -105,6 +156,19 @@ class StagingStats:
                 "packed_batches": self.packed_batches,
                 "per_array_batches": self.per_array_batches,
             }
+
+
+def _produced(host_batches: Iterable[Batch]) -> Iterator[Batch]:
+    """The producer's batches, each pulled under a ``dmlc:produce`` span
+    (the staging thread's work; its waits to hand a batch on are the
+    gaps between spans)."""
+    it = iter(host_batches)
+    while True:
+        with annotate("dmlc:produce"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def _per_array(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -222,7 +286,7 @@ class StagingPipeline:
             self._slots = [_PinnedSlot() for _ in range(self._depth + 2)]
             self._slot_i = 0
         self._host_iter = Prefetcher(
-            lambda: iter(host_batches), prefetch, "staging"
+            lambda: _produced(host_batches), prefetch, "staging"
         )
         self._xfer_iter = Prefetcher(self._staged, self._depth, "staging-xfer")
 
@@ -230,18 +294,22 @@ class StagingPipeline:
         self.stage_seconds[key] += dt
         if dispatch:
             self.stage_seconds["stage_dispatch"] += dt
+        _STAGE_HISTS[key].observe(dt)
 
     def _put_cuda(self, packed: np.ndarray, layout) -> _Staged:
         slot = self._slots[self._slot_i]
         self._slot_i = (self._slot_i + 1) % len(self._slots)
+        if slot.event is not None:
+            t0 = time.perf_counter()
+            with annotate("dmlc:dispatch_slot_wait"):
+                slot.wait()
+            self._observe("dispatch_slot_wait", time.perf_counter() - t0)
         t0 = time.perf_counter()
-        slot.wait()
-        self._observe("dispatch_slot_wait", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        src = slot.fill(packed)
+        with annotate("dmlc:dispatch_pack"):
+            src = slot.fill(packed)
         self._observe("dispatch_pack", time.perf_counter() - t0, dispatch=True)
         t0 = time.perf_counter()
-        with torch.cuda.stream(self._copy_stream):
+        with annotate("dmlc:dispatch_put"), torch.cuda.stream(self._copy_stream):
             u8 = torch.empty(src.numel(), dtype=torch.uint8, device=self._device)
             u8.copy_(src, non_blocking=True)
             event = torch.cuda.Event()
@@ -259,14 +327,16 @@ class StagingPipeline:
     def _staged_loop(self) -> Iterator[_Staged]:
         while True:
             t0 = time.perf_counter()
-            host = self._host_iter.next()
+            with annotate("dmlc:host_pull"):
+                host = self._host_iter.next()
             self._observe("host_pull", time.perf_counter() - t0)
             if host is None:
                 return
             layout = packed_layout(host)
             if layout is None:
                 t0 = time.perf_counter()
-                item = _Staged(arrays=_per_array(host, self._device))
+                with annotate("dmlc:stage"):
+                    item = _Staged(arrays=_per_array(host, self._device))
                 self._observe("dispatch_put", time.perf_counter() - t0,
                               dispatch=True)
                 self.staging.tick_batch(False, len(item.arrays))
@@ -275,14 +345,24 @@ class StagingPipeline:
                 self.staging.tick_batch(True, 1)
             else:
                 t0 = time.perf_counter()
-                u8 = torch.from_numpy(np.array(host.packed, copy=True))
+                with annotate("dmlc:dispatch_pack"):
+                    u8 = torch.from_numpy(np.array(host.packed, copy=True))
                 self._observe("dispatch_pack", time.perf_counter() - t0,
                               dispatch=True)
-                item = _Staged(u8=u8, layout=layout)
+                # on the CPU the put is the hand-over of the copied bytes;
+                # it is a stage all the same, as in the JAX pipeline
+                t0 = time.perf_counter()
+                with annotate("dmlc:dispatch_put"):
+                    item = _Staged(u8=u8, layout=layout)
+                self._observe("dispatch_put", time.perf_counter() - t0,
+                              dispatch=True)
                 self.staging.tick_batch(True, 1)
+            nbytes = sum(v.nbytes for v in host.as_dict().values())
             self.rows_staged += host.n_valid
             self.batches_staged += 1
-            self.bytes_staged += sum(v.nbytes for v in host.as_dict().values())
+            self.bytes_staged += nbytes
+            _ROWS_STAGED.inc(host.n_valid)
+            _BYTES_STAGED.inc(nbytes)
             del host  # release the producer's slot before blocking downstream
             yield item
 
@@ -294,10 +374,11 @@ class StagingPipeline:
         try:
             while True:
                 t0 = time.perf_counter()
-                item = self._xfer_iter.next()
-                if item is None:
-                    return
-                dev = item.ready()
+                with annotate("dmlc:transfer_wait"):
+                    item = self._xfer_iter.next()
+                    if item is None:
+                        return
+                    dev = item.ready()
                 self._observe("transfer_wait", time.perf_counter() - t0)
                 yield dev
         finally:

@@ -1,0 +1,484 @@
+"""Command-line tools of the port: ``python -m dmlc_core_tpu_torch.tools``.
+
+The port of the telemetry half of ``dmlc_core_tpu/tools``, with the same
+arguments and output:
+
+- ``info``: the runtime feature report (``build_info()``: the parse core,
+  codecs, env flags, torch, CUDA and each device, the CUDA kernels'
+  source hash). ``info <uri>`` describes an indexed shard through the
+  point-lookup layer, which is not ported (``ROADMAP.md`` §1 item 7): it
+  raises.
+- ``trace dump|merge|report``: the flight recorder's operator surface.
+- ``top``: a live dashboard over the tracker's ``/metrics.json?window=``.
+
+The other subcommands (``ls``, ``cat``, ``cp``, ``split``, ``recordio``,
+``rowrec``, ``recompress``, ``dump``, ``ckpt``) wait for ``ROADMAP.md``
+§1 item 9; ``serve``, ``cached``, ``dsserve`` for items 7 and 8;
+``journal`` and ``autoscale`` for item 4b. Importing this module loads
+no torch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List, Optional
+
+from ..utils.logging import Error
+
+__all__ = ["main"]
+
+
+def _cmd_info(args) -> int:
+    """Runtime feature report (build_info): the parse core, env flags,
+    the torch runtime and the kernels, as JSON."""
+    import json
+
+    from .. import build_info
+
+    if getattr(args, "uri", None):
+        raise Error(
+            "tools info <uri> describes an indexed shard through the "
+            "point-lookup layer (io/lookup.py), which is not ported "
+            "(ROADMAP.md §1 item 7)"
+        )
+    print(json.dumps(build_info(), indent=2))
+    return 0
+
+
+def _cmd_trace(args) -> int:
+    """Operator surface for the flight recorder (telemetry/tracing.py):
+
+    - ``dump <pid>``: SIGUSR2 the process — its installed handler
+      writes the span rings to ``DMLC_TRACE_DIR`` (or the temp dir)
+      without stopping it.
+    - ``merge -o out.json in...json``: join per-process trace files
+      from a submit run (workers + tracker, of either package)
+      into ONE Perfetto-loadable timeline keyed by rank/pid.
+    - ``report trace.json``: stall attribution — per-stage busy/stall
+      seconds, ring-starvation gaps over ``--gap-ms``, critical-path
+      estimate per process.
+    """
+    import json
+    import signal as _signal
+
+    from ..telemetry import tracing
+
+    if args.action == "dump":
+        # `trace dump 1234` and `trace dump --pid 1234` both work — a
+        # positional pid lands in the inputs list
+        pid = args.pid
+        if not pid and len(args.inputs) == 1 and args.inputs[0].isdigit():
+            pid = int(args.inputs[0])
+        if not pid:
+            print("error: trace dump needs a pid", file=sys.stderr)
+            return 2
+        try:
+            os.kill(pid, _signal.SIGUSR2)
+        except (OSError, AttributeError) as e:
+            print(f"error: cannot signal pid {pid}: {e}",
+                  file=sys.stderr)
+            return 1
+        where = os.environ.get("DMLC_TRACE_DIR") or "its temp dir"
+        print(
+            f"SIGUSR2 sent to {pid}; it dumps "
+            f"dmlc-trace-<label>-{pid}.json into its own "
+            f"DMLC_TRACE_DIR (here: {where})",
+            file=sys.stderr,
+        )
+        return 0
+    if args.action == "merge":
+        if not args.out or len(args.inputs) < 1:
+            print("error: trace merge needs -o OUT and >=1 input",
+                  file=sys.stderr)
+            return 2
+        merged = tracing.merge_traces(
+            args.inputs, align_clocks=args.align_clocks
+        )
+        tracing.write_trace(merged, args.out)
+        print(
+            f"merged {merged['otherData']['merged']} trace(s), "
+            f"{len(merged['traceEvents'])} events -> {args.out} "
+            f"(load in https://ui.perfetto.dev)",
+            file=sys.stderr,
+        )
+        return 0
+    # report
+    if len(args.inputs) != 1:
+        print("error: trace report takes exactly one trace file",
+              file=sys.stderr)
+        return 2
+    report = tracing.stall_report(
+        tracing.load_trace(args.inputs[0]), gap_ms=args.gap_ms
+    )
+    if args.json:
+        print(json.dumps(report, indent=2))
+        return 0
+    print(f"stall attribution for {args.inputs[0]} "
+          f"(gap threshold {args.gap_ms} ms)")
+    print("\nper-stage time (busy = work, stall = waiting):")
+    stages = sorted(
+        set(report["busy_seconds_by_stage"])
+        | set(report["stall_seconds_by_stage"])
+    )
+    for s in stages:
+        b = report["busy_seconds_by_stage"].get(s)
+        w = report["stall_seconds_by_stage"].get(s)
+        kind = "stall" if w is not None else "busy"
+        secs = w if w is not None else b
+        n = report["span_counts_by_stage"].get(s, 0)
+        print(f"  {s:<24} {kind:<5} {secs:>10.4f}s  ({n} spans)")
+    print("\nthreads (busy/idle inside each thread's span extent):")
+    for name, t in sorted(report["threads"].items()):
+        print(f"  {name:<40} busy {t['busy_seconds']:.4f}s  "
+              f"idle {t['idle_seconds']:.4f}s  "
+              f"wall {t['wall_seconds']:.4f}s")
+    gaps = report["starvation_gaps"]
+    print(f"\nstarvation gaps >= {args.gap_ms} ms: {len(gaps)}")
+    for g in gaps[:10]:
+        print(f"  {g['duration_ms']:>10.2f} ms  {g['stage']:<20} "
+              f"{g['process']} / {g['thread']}")
+    print("\ncritical-path estimate per process:")
+    for proc, c in report["critical_path"].items():
+        top = list(c["attributed_seconds"].items())[:3]
+        attr = ", ".join(f"{k} {v:.3f}s" for k, v in top)
+        print(f"  {proc}: wall {c['wall_seconds']:.3f}s, bottleneck "
+              f"thread {c['bottleneck_thread']} ({attr}; "
+              f"unattributed {c['unattributed_seconds']:.3f}s)")
+    return 0
+
+
+
+
+def _top_endpoint(raw: str) -> str:
+    """Normalize the endpoint argument: full URL, host:port, or a bare
+    port (loopback — the tracker binds 127.0.0.1)."""
+    raw = (raw or "").strip()
+    if not raw:
+        raw = os.environ.get("DMLC_METRICS_PORT", "")
+    if not raw:
+        raise Error(
+            "tools top needs the tracker metrics endpoint (a URL, "
+            "host:port or port — the tracker logs 'telemetry endpoint "
+            "on 127.0.0.1:PORT/metrics' at start, or pin it with "
+            "DMLC_METRICS_PORT)"
+        )
+    if raw.isdigit():
+        raw = f"127.0.0.1:{raw}"
+    if not raw.startswith(("http://", "https://")):
+        raw = f"http://{raw}"
+    return raw.rstrip("/")
+
+
+def _top_model(report: dict, window: float) -> dict:
+    """Flatten a ``/metrics.json?window=`` report into the dashboard's
+    model (also the ``--once --json`` output): per-rank and cluster
+    rows/s, stall fractions, queue depth, cache hit rates, service
+    QPS/p99. Pure — unit-testable without a tracker."""
+    win = report.get("windowed") or {}
+    per_rank = win.get("per_rank") or {}
+    cluster = win.get("cluster") or {}
+    def rank_order(kv):
+        # tracker row first, then ranks NUMERICALLY (string sort puts
+        # rank 10 before rank 2 on a 12-worker job)
+        rank = kv[0]
+        if rank == "tracker":
+            return (0, 0, rank)
+        try:
+            return (1, int(rank), rank)
+        except ValueError:
+            return (2, 0, rank)
+
+    ranks = {}
+    for rank, view in sorted(per_rank.items(), key=rank_order):
+        d = view.get("derived") or {}
+        ranks[rank] = {
+            "rows_per_sec": d.get("rows_per_sec", 0.0),
+            "stall_fraction": d.get("stall_fraction", {}),
+            "samples": view.get("samples", 0),
+            **{
+                k: d[k]
+                for k in (
+                    "block_cache_hit_rate",
+                    "decode_cache_hit_rate",
+                    "lookup_qps",
+                    "lookup_p99_ms",
+                    "dsserve_slots_per_sec",
+                    "dsserve_wire_ratio",
+                    "dsserve_shm_frac",
+                    "shard_queue_depth",
+                    "stream_lag_seconds",
+                    "stream_lag_records",
+                    "stream_watermark_records",
+                )
+                if k in d
+            },
+        }
+    cd = cluster.get("derived") or {}
+    # the shard queue depth lives on the tracker pseudo-rank's gauges
+    qd = (
+        (per_rank.get("tracker") or {})
+        .get("gauges", {})
+        .get("tracker.shards.queue_depth")
+    )
+    model = {
+        "window_secs": window,
+        "n_ranks": cluster.get("n_ranks", 0),
+        "ranks": ranks,
+        "cluster": cd,
+    }
+    if qd is not None:
+        model["shard_queue_depth"] = qd
+    # autoscale controller status (tracker/autoscale.py registers it as
+    # a report section; absent on fixed-fleet jobs)
+    if isinstance(report.get("autoscale"), dict):
+        model["autoscale"] = report["autoscale"]
+    return model
+
+
+def _bar(frac: float, width: int = 10) -> str:
+    frac = max(0.0, min(1.0, float(frac)))
+    n = int(round(frac * width))
+    return "█" * n + "·" * (width - n)
+
+
+def _fmt_rate(v: float) -> str:
+    if v >= 1e6:
+        return f"{v / 1e6:.2f}M"
+    if v >= 1e3:
+        return f"{v / 1e3:.1f}k"
+    return f"{v:.1f}"
+
+
+def _render_top(model: dict, endpoint: str) -> str:
+    lines = [
+        f"dmlc top — {endpoint}  window={model['window_secs']:g}s  "
+        f"ranks={model['n_ranks']}"
+    ]
+    cd = model.get("cluster") or {}
+    summary = [f"cluster rows/s {_fmt_rate(cd.get('rows_per_sec', 0.0))}"]
+    if "shard_queue_depth" in model:
+        summary.append(
+            f"shard queue {model['shard_queue_depth'].get('last', 0):g}"
+        )
+    for key, label in (
+        ("block_cache_hit_rate", "blockcache hit"),
+        ("decode_cache_hit_rate", "decode hit"),
+    ):
+        if key in cd:
+            summary.append(f"{label} {cd[key] * 100:.0f}%")
+    if "lookup_qps" in cd:
+        p99 = cd.get("lookup_p99_ms")
+        summary.append(
+            f"lookup {cd['lookup_qps']:g} qps"
+            + (f" p99 {p99:g}ms" if p99 is not None else "")
+        )
+    if "dsserve_slots_per_sec" in cd:
+        dss = f"dsserve {cd['dsserve_slots_per_sec']:g} slots/s"
+        if "dsserve_wire_ratio" in cd:
+            dss += f" wire {cd['dsserve_wire_ratio'] * 100:.0f}%"
+        if "dsserve_shm_frac" in cd:
+            dss += f" shm {cd['dsserve_shm_frac'] * 100:.0f}%"
+        summary.append(dss)
+    if "stream_lag_seconds" in cd:
+        # slowest follower across the fleet (merge_windows takes max)
+        summary.append(
+            f"stream lag {cd['stream_lag_seconds']:.2f}s"
+            f"/{cd.get('stream_lag_records', 0):g} recs"
+        )
+    lines.append("  ".join(summary))
+    asc = model.get("autoscale")
+    if asc:
+        parts = [
+            f"autoscale fleet {asc.get('actual', 0)}→"
+            f"{asc.get('target', 0)} "
+            f"(bounds {asc.get('min_workers', 0)}:"
+            f"{asc.get('max_workers', 0)})"
+        ]
+        last = asc.get("last") or {}
+        if last:
+            parts.append(
+                f"last {last.get('kind', '?')} ({last.get('reason', '?')})"
+            )
+        ceiling = asc.get("cost_ceiling") or 0
+        parts.append(
+            f"cost {asc.get('cost_spent', 0.0):.0f}"
+            + (f"/{ceiling:g} ws" if ceiling else " ws")
+        )
+        if asc.get("direction_changes"):
+            parts.append(f"flaps {asc['direction_changes']}")
+        lines.append("  ".join(parts))
+    lines.append("")
+    # the lag column only appears on streaming jobs — a sealed-corpus
+    # top keeps its exact layout
+    has_lag = any(
+        "stream_lag_seconds" in r
+        for r in (model.get("ranks") or {}).values()
+    )
+    lag_head = f"{'lag':>8}  " if has_lag else ""
+    lines.append(f"{'rank':>8}  {'rows/s':>10}  {lag_head}stall by stage")
+    for rank, r in (model.get("ranks") or {}).items():
+        stalls = sorted(
+            (r.get("stall_fraction") or {}).items(),
+            key=lambda kv: -kv[1],
+        )[:3]
+        stall_txt = "  ".join(
+            f"{stage} {_bar(frac)} {frac * 100:.0f}%"
+            for stage, frac in stalls
+            if frac > 0
+        )
+        # data-plane mix for ranks draining dsserve: wire bytes per raw
+        # byte (codec win when < 100%) and the shm/tcp slot split
+        extras = []
+        if "dsserve_wire_ratio" in r:
+            extras.append(f"wire {r['dsserve_wire_ratio'] * 100:.0f}%")
+        if "dsserve_shm_frac" in r:
+            extras.append(f"shm {r['dsserve_shm_frac'] * 100:.0f}%")
+        if extras:
+            stall_txt = "  ".join(filter(None, [stall_txt, *extras]))
+        lag_txt = ""
+        if has_lag:
+            if "stream_lag_seconds" in r:
+                lag_txt = f"{r['stream_lag_seconds']:.2f}s".rjust(8) + "  "
+            else:
+                lag_txt = f"{'-':>8}  "
+        lines.append(
+            f"{rank:>8}  {_fmt_rate(r.get('rows_per_sec', 0.0)):>10}  "
+            f"{lag_txt}{stall_txt}"
+        )
+    return "\n".join(lines)
+
+
+def _cmd_top(args) -> int:
+    """Live terminal dashboard over the tracker's windowed telemetry:
+    polls ``/metrics.json?window=N`` and renders per-rank rows/s, the top
+    stall stages as bars, shard queue depth, cache hit rates and
+    service QPS/p99. ``--once`` renders one frame (``--json`` for the
+    machine-readable model), the scripted mode."""
+    import json as _json
+    import time as _time
+
+    from ..io import retry as _retry
+
+    endpoint = _top_endpoint(args.endpoint)
+    url = f"{endpoint}/metrics.json?window={args.window:g}"
+
+    def fetch() -> dict:
+        with _retry.request(url, timeout=10.0) as resp:
+            return _json.loads(resp.read().decode())
+
+    if args.once:
+        model = _top_model(fetch(), args.window)
+        if args.json:
+            print(_json.dumps(model, indent=1))
+        else:
+            print(_render_top(model, endpoint))
+        return 0
+    try:
+        while True:
+            frame = _render_top(_top_model(fetch(), args.window), endpoint)
+            # clear + home, then the frame (plain ANSI — no curses dep)
+            sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+            sys.stdout.flush()
+            _time.sleep(max(0.2, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m dmlc_core_tpu_torch.tools",
+        description=__doc__.splitlines()[0],
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    info = sub.add_parser(
+        "info",
+        help="runtime feature report (JSON); a shard URI raises "
+             "(point lookups are not ported)",
+    )
+    info.add_argument(
+        "uri", nargs="?", default="",
+        help="indexed .rec URI to describe (not ported)",
+    )
+    info.add_argument(
+        "--index", default="",
+        help="index sidecar URI (default <uri>.idx)",
+    )
+    info.set_defaults(fn=_cmd_info)
+
+    tr = sub.add_parser(
+        "trace", help="flight-recorder dump/merge/report (Perfetto)"
+    )
+    tr.add_argument("action", choices=["dump", "merge", "report"])
+    tr.add_argument(
+        "inputs", nargs="*",
+        help="trace JSON files (merge: many; report: one)",
+    )
+    tr.add_argument(
+        "--pid", default=0, type=int,
+        help="dump: process to SIGUSR2 (it writes its own rings)",
+    )
+    tr.add_argument(
+        "-o", "--out", default="",
+        help="merge: output trace JSON path",
+    )
+    tr.add_argument(
+        "--gap-ms", default=10.0, type=float,
+        help="report: minimum wait-span duration counted as a "
+             "starvation gap (default 10)",
+    )
+    tr.add_argument(
+        "--json", action="store_true",
+        help="report: emit the full report as JSON",
+    )
+    tr.add_argument(
+        "--align-clocks", action="store_true",
+        help="merge: shift each file's timestamps by its recorded "
+             "heartbeat-RTT clock offset (multi-HOST runs; same-host "
+             "files already share a wall clock)",
+    )
+    tr.set_defaults(fn=_cmd_trace)
+
+    top = sub.add_parser(
+        "top",
+        help="live cluster dashboard over the tracker's "
+             "/metrics.json?window= endpoint",
+    )
+    top.add_argument(
+        "endpoint", nargs="?", default="",
+        help="tracker metrics endpoint: URL, host:port or bare port "
+             "(the tracker logs 'telemetry endpoint on ...' at start)",
+    )
+    top.add_argument(
+        "--window", default=30.0, type=float,
+        help="rate window in seconds (default 30)",
+    )
+    top.add_argument(
+        "--interval", default=2.0, type=float,
+        help="refresh interval in seconds (default 2)",
+    )
+    top.add_argument(
+        "--once", action="store_true",
+        help="render one frame and exit (scripts/tests)",
+    )
+    top.add_argument(
+        "--json", action="store_true",
+        help="with --once: print the derived model as JSON",
+    )
+    top.set_defaults(fn=_cmd_top)
+
+
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    try:
+        return args.fn(args)
+    except (Error, OSError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1

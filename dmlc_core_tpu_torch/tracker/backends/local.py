@@ -12,12 +12,13 @@ path. A task failure is pushed to the collective engines' death watch
 
 Left out, each refused by ``refuse_unported`` with the ``ROADMAP.md``
 item that brings it: the block-cache daemon (``--block-cache``, §1 item
-8), the dsserve tier (``--dsserve``, §1 item 7), flight-recorder traces
-(``--trace-dir``, §1 item 6), and the shard service, the journal and the
-supervised tracker, and autoscale (``--shard-oversplit``,
+8), the dsserve tier (``--dsserve``, §1 item 7), and the shard service,
+the journal and the supervised tracker, and autoscale (``--shard-oversplit``,
 ``--shard-lease-ttl``, ``--tracker-journal``, ``--autoscale*``, §1 item
 4b). The failure observers hold no shard-lease reclaim for the same
-reason.
+reason. ``--trace-dir`` (exported by ``submit``) reaches every task
+through the inherited environment; a task the supervisor SIGKILLs leaves
+no trace file, since no exit hook runs.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ _UNPORTED = (
     ("block_cache", "--block-cache", "§1 item 8"),
     ("block_cache_mb", "--block-cache-mb", "§1 item 8"),
     ("dsserve", "--dsserve", "§1 item 7"),
-    ("trace_dir", "--trace-dir", "§1 item 6"),
     ("shard_oversplit", "--shard-oversplit", "§1 item 4b"),
     ("shard_lease_ttl", "--shard-lease-ttl", "§1 item 4b"),
     ("tracker_journal", "--tracker-journal", "§1 item 4b"),
@@ -108,15 +108,13 @@ def submit(args) -> None:
             # (a no-op when the job never opened a watch)
             on_task_failure=[collective.notify_task_failure],
         )
-        # the tasks-exited-but-rendezvous-never-completed heuristic only
-        # holds on the rabit path; the PS tracker joins a scheduler
-        # process whose teardown can legitimately outlive the tasks
-        checks.append(
-            sup.run_in_thread(
-                nworker + nserver, "local-supervisor",
-                grace=None if nserver == 0 else float("inf"),
-            )
-        )
+        if nserver:
+            # the PS tracker waits on its scheduler alone, which may exit
+            # before the tasks have run: run them to their end here, so
+            # the job ends when both have
+            sup.run(nworker + nserver)
+            return
+        checks.append(sup.run_in_thread(nworker, "local-supervisor"))
 
     run_tracker_submit(
         args, launch_all,

@@ -8,11 +8,13 @@ links carry the collective engine's frames (``collective.py``).
 Env bootstrap mirrors the worker contract: DMLC_TRACKER_URI/PORT, and
 DMLC_TASK_ID as the job id for rank recovery.
 
-Left out: ``heartbeat`` ships no time-series samples and estimates no
-clock offset, and the client sets no shard-lease identity
-(``DMLC_SHARD_RANK``): the time series and tracing are ``ROADMAP.md``
-§1 item 6, the shard service §1 item 4b. The heartbeat's wire form is
-the JAX package's.
+Every tracker RPC carries the flight recorder's trace context, so a
+merged timeline draws the arrow from the worker's wait to the tracker's
+handling. ``heartbeat`` ships the registry snapshot and the time-series
+ring's new samples and estimates this host's clock offset, in the JAX
+package's wire form. Left out: the shard-lease identity
+(``DMLC_SHARD_RANK``), which belongs to the shard service
+(``ROADMAP.md`` §1 item 4b).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..io.retry import _env_float
+from ..telemetry import timeseries as _timeseries
+from ..telemetry import tracing as _tracing
 from .protocol import (
     CMD_METRICS,
     CMD_PRINT,
@@ -76,6 +80,7 @@ class RabitWorker:
         self._listener: Optional[socket.socket] = None
         self.connect_timeout = _env_float("DMLC_PEER_CONNECT_TIMEOUT", 30.0)
         self._shut = False
+        self._ts_seq = 0  # newest time-series sample seq already shipped
 
     def _connect_tracker(
         self, cmd: str, rank: int, world: int,
@@ -85,7 +90,7 @@ class RabitWorker:
         # backoff dial, so a tracker restart window is survived
         return connect_worker_retry(
             self.tracker_uri, self.tracker_port, rank, world, self.jobid, cmd,
-            retry_secs=retry_secs,
+            trace_ctx=_tracing.rpc_context(), retry_secs=retry_secs,
         )
 
     # -- rendezvous ----------------------------------------------------------
@@ -109,6 +114,12 @@ class RabitWorker:
         cmd = CMD_RECOVER if recover_rank >= 0 else CMD_START
         fs = self._connect_tracker(cmd, recover_rank, world_size)
         self.rank = fs.recv_int()
+        # every rendezvoused worker samples its registry on the default
+        # time-series ring (DMLC_TS_INTERVAL, default 2 s; DMLC_TS=off
+        # disables): heartbeats ship the new samples, so the tracker's
+        # /metrics.json?window= has per-rank windowed rates
+        if _timeseries.sampling_enabled():
+            _timeseries.ensure_default()
         self.parent = fs.recv_int()
         self.world_size = fs.recv_int()
         n_tree = fs.recv_int()
@@ -207,12 +218,20 @@ class RabitWorker:
         fs.close()
 
     def heartbeat(self, metrics: Optional[Dict[str, Any]] = None) -> None:
-        """Send one JSON payload on a tracker heartbeat (cmd=metrics);
-        the tracker keeps the newest payload per rank. ``metrics``
-        defaults to ``{}``. The tracker answers with its wall stamp,
-        which is read and dropped. A heartbeat never raises into the
-        caller on a tracker outage (short retry budget
-        ``DMLC_HEARTBEAT_RETRY_SECS``, default 2 s).
+        """Piggyback a telemetry snapshot on a tracker heartbeat
+        (cmd=metrics). ``metrics`` defaults to the process-global
+        registry snapshot: one call ships every counter, gauge and
+        histogram this worker accumulated; the tracker aggregates per
+        rank and cluster-wide and serves them on its /metrics endpoint.
+
+        With the default snapshot the payload also carries the default
+        time-series ring's NEW samples under ``timeseries`` (shedding the
+        oldest when the frame would pass ``FramedSocket.MAX_STR``), and
+        the tracker's wall-stamp reply is bracketed to estimate this
+        host's clock offset (RTT midpoint → ``tracing.set_clock_offset``).
+        A heartbeat never raises into the caller on a tracker outage
+        (short retry budget ``DMLC_HEARTBEAT_RETRY_SECS``, default 2 s):
+        its samples are re-shipped next time.
 
         Requires a completed ``start()``: without a rank the tracker
         would drop the frame, so fail loudly at the caller instead."""
@@ -221,24 +240,62 @@ class RabitWorker:
                 "heartbeat() before start(): this worker has no rank yet, "
                 "so the tracker would discard its metrics"
             )
-        data = json.dumps(metrics or {}, separators=(",", ":"))
-        try:
-            fs = self._connect_tracker(
-                CMD_METRICS, self.rank, -1,
-                retry_secs=_env_float("DMLC_HEARTBEAT_RETRY_SECS", 2.0),
-            )
-        except (ConnectionError, OSError, TimeoutError):
-            return
-        try:
-            fs.send_str(data)
+        ring = None
+        if metrics is None:
+            from ..telemetry import default_registry
+
+            metrics = default_registry().snapshot()
+            ring = _timeseries.default_ring(create=False)
+        shipped_seq = None
+        if ring is not None:
+            ring.sample()  # the series always reaches "now"
+            new = ring.samples(since=self._ts_seq)
+            if new:
+                metrics = dict(metrics)
+                metrics["timeseries"] = new
+                shipped_seq = new[-1]["seq"]
+        data = json.dumps(metrics, separators=(",", ":"))
+        # the string framing bounds payloads at MAX_STR: shed the OLDEST
+        # samples (already out of any live window) before the tracker
+        # would call the frame hostile and drop it
+        budget = FramedSocket.MAX_STR - (128 << 10)
+        while len(data) > budget and len(metrics.get("timeseries", ())) > 1:
+            keep = metrics["timeseries"]
+            metrics["timeseries"] = keep[(len(keep) + 1) // 2:]
+            data = json.dumps(metrics, separators=(",", ":"))
+        if len(data) > budget and "timeseries" in metrics:
+            # one sample alone is too large: ship the bare snapshot and
+            # keep the samples for the next attempt
+            metrics = {k: v for k, v in metrics.items() if k != "timeseries"}
+            data = json.dumps(metrics, separators=(",", ":"))
+            shipped_seq = None
+        with _tracing.span("dmlc:heartbeat", rank=self.rank):
             try:
-                fs.recv_str()
-            except (ConnectionError, OSError):
-                pass  # a tracker that replies nothing
-        except (ConnectionError, OSError, TimeoutError):
-            return
-        finally:
-            fs.close()
+                fs = self._connect_tracker(
+                    CMD_METRICS, self.rank, -1,
+                    retry_secs=_env_float("DMLC_HEARTBEAT_RETRY_SECS", 2.0),
+                )
+            except (ConnectionError, OSError, TimeoutError):
+                return  # tracker down: re-shipped next tick
+            try:
+                fs.send_str(data)
+                # bracket only the tracker's read-tail + reply, not the
+                # upload, so the midpoint is not biased by the payload
+                t0 = time.time_ns()  # noqa: L008 (RTT bracket for the clock offset, not a duration)
+                try:
+                    reply = json.loads(fs.recv_str())
+                    t1 = time.time_ns()  # noqa: L008 (RTT bracket, see above)
+                    wall = reply.get("wall_ns")
+                    if isinstance(wall, (int, float)):
+                        _tracing.set_clock_offset((t0 + t1) / 2.0 - float(wall))
+                except (ConnectionError, OSError, ValueError):
+                    pass  # a tracker that replies nothing: no estimate
+            except (ConnectionError, OSError, TimeoutError):
+                return
+            finally:
+                fs.close()
+        if shipped_seq is not None:
+            self._ts_seq = shipped_seq
 
     def shutdown(self) -> None:
         """Signal completion (cmd=shutdown, reference tracker.py:272-277).

@@ -76,11 +76,14 @@ mid-round worker death (the spec is one env var shared by every worker,
 so the kill names its victim). Fired faults tick the global
 ``faults_injected`` counter.
 
-Counters are attributes of the engine (``io_stats()``): rounds by
-path, recoveries, payload bytes and the seconds spent waiting on peer
-links. The JAX package keeps them as telemetry-registry series and runs
-each wait under a flight-recorder span; the registry and the spans are
-``ROADMAP.md`` §1 item 6, and the frame header's flow id is sent as 0.
+Counters: the engine's own (``io_stats()``: rounds by path, recoveries,
+payload bytes, seconds waiting on peer links) and, under the JAX
+package's names, the registry series ``tracker.collective.rounds{path}``,
+``tracker.collective.recoveries``, ``tracker.collective.bytes`` and the
+``tracker.collective.link_wait_seconds`` histogram. Each round runs
+under a ``dmlc:allreduce_wait`` span; every frame header carries the
+sender's flight-recorder flow id, which the receiver lands as the
+arrow's finish (0 when the recorder is off).
 
 Env knobs: DMLC_COLLECTIVE_TIMEOUT (300 s zero-progress backstop),
 DMLC_ALLREDUCE_RING_BYTES (65536), DMLC_COLLECTIVE_CACHE (8),
@@ -106,6 +109,8 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from ..io.retry import _env_float, count_fault_injected, is_transient
+from ..telemetry import default_registry as _default_registry
+from ..telemetry import tracing as _tracing
 from ..utils.logging import Error
 from . import topology
 from .client import RabitWorker
@@ -123,12 +128,33 @@ __all__ = [
 #: the round paths the engine counts (``Collective.rounds``)
 _PATHS = ("tree", "ring", "bcast", "local")
 
+_registry = _default_registry()
+_ROUNDS = {
+    path: _registry.counter(
+        "tracker.collective.rounds",
+        help="collective rounds completed",
+        labels={"path": path},
+    )
+    for path in _PATHS
+}
+_RECOVERIES = _registry.counter(
+    "tracker.collective.recoveries",
+    help="dead-link recoveries (reset flood + re-rendezvous)",
+)
+_BYTES = _registry.counter(
+    "tracker.collective.bytes", help="payload bytes reduced/broadcast"
+)
+_LINK_WAIT = _registry.histogram(
+    "tracker.collective.link_wait_seconds",
+    help="blocking peer-link wait per collective round",
+)
+
 # -- peer-link wire framing ----------------------------------------------------
 # One fixed header per message; payloads are raw ndarray bytes (dtype
 # and shape are call-site contract — every rank passes the same). The
 # seq field tags the round; aux carries the ring step / reset attempt /
-# checkpoint version; flow is the JAX engine's flight-recorder flow id,
-# which the port sends as 0 (no recorder) and ignores on receipt.
+# checkpoint version; flow is the sender's flight-recorder flow id
+# (0 = recorder off), landed by the receiver inside its wait span.
 _FRAME_MAGIC = 0x44434C31  # "DCL1"
 _HDR = struct.Struct("<IBIIqQ")  # magic u32, kind u8, seq u32, aux u32, nbytes i64, flow u64
 _MAX_PAYLOAD = 1 << 31
@@ -618,22 +644,26 @@ class Collective:
         seq = self.seq
         ctx = _Round(seq, a.reshape(-1), reducer, a)
         self.bytes += a.nbytes
+        _BYTES.inc(a.nbytes)
         t0 = time.perf_counter()
-        self._round_prologue(ctx)
-        # a round whose attempt already advanced (a link died during the
-        # prologue, or a peer's RESET flood arrived early) is a FAULTED
-        # round: every peer that heard the reset falls back to the tree,
-        # so this rank must too — re-entering the ring against tree-mode
-        # peers deadlocks until the timeout
-        if path == "ring" and ctx.attempt == 0:
-            try:
-                result = self._run_ring(ctx)
-            except _RingAborted:
-                ctx.clear_partial()
+        with _tracing.span("dmlc:allreduce_wait", seq=seq, path=path):
+            self._round_prologue(ctx)
+            # a round whose attempt already advanced (a link died during
+            # the prologue, or a peer's RESET flood arrived early) is a
+            # FAULTED round: every peer that heard the reset falls back
+            # to the tree, so this rank must too — re-entering the ring
+            # against tree-mode peers deadlocks until the timeout
+            if path == "ring" and ctx.attempt == 0:
+                try:
+                    result = self._run_ring(ctx)
+                except _RingAborted:
+                    ctx.clear_partial()
+                    result = self._run_tree(ctx)
+            else:
                 result = self._run_tree(ctx)
-        else:
-            result = self._run_tree(ctx)
-        self.link_wait_secs += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.link_wait_secs += dt
+        _LINK_WAIT.observe(dt)
         self._finish_round(result, path)
         return (
             np.frombuffer(result, dtype=ctx.dtype).reshape(ctx.shape).copy()
@@ -651,14 +681,19 @@ class Collective:
             out = a.copy()
             self._finish_round(out.tobytes(), "local")
             return out
-        ctx = _Round(self.seq, None, None, a)
+        seq = self.seq
+        ctx = _Round(seq, None, None, a)
         self.bytes += a.nbytes
+        _BYTES.inc(a.nbytes)
         t0 = time.perf_counter()
-        self._round_prologue(ctx)
-        if self.rank == root:
-            ctx.result = a.tobytes()
-        result = self._run_tree(ctx)
-        self.link_wait_secs += time.perf_counter() - t0
+        with _tracing.span("dmlc:allreduce_wait", seq=seq, path="bcast"):
+            self._round_prologue(ctx)
+            if self.rank == root:
+                ctx.result = a.tobytes()
+            result = self._run_tree(ctx)
+        dt = time.perf_counter() - t0
+        self.link_wait_secs += dt
+        _LINK_WAIT.observe(dt)
         self._finish_round(result, "bcast")
         return (
             np.frombuffer(result, dtype=ctx.dtype).reshape(ctx.shape).copy()
@@ -921,7 +956,8 @@ class Collective:
             with self._send_lock(sock):
                 sock.sendall(
                     _HDR.pack(
-                        _FRAME_MAGIC, kind, seq, aux, len(payload), 0,
+                        _FRAME_MAGIC, kind, seq, aux, len(payload),
+                        _tracing.flow_send_id(),
                     )
                 )
                 if payload:
@@ -961,12 +997,15 @@ class Collective:
     ) -> Tuple[int, int, int, bytes]:
         sock.settimeout(self.io_timeout)
         hdr = self._recv_exact(rank, sock, _HDR.size)
-        magic, kind, seq, aux, nbytes, _flow = _HDR.unpack(hdr)
+        magic, kind, seq, aux, nbytes, flow = _HDR.unpack(hdr)
         if magic != _FRAME_MAGIC or not 0 <= nbytes <= _MAX_PAYLOAD:
             raise _LinkDied(
                 rank, ConnectionError(f"bad frame (magic={magic:#x})")
             )
         payload = self._recv_exact(rank, sock, nbytes) if nbytes else b""
+        # land the sender's flow arrow inside the wait span this recv
+        # runs under (allreduce_wait): cause → effect on the timeline
+        _tracing.flow_recv(flow)
         return kind, seq, aux, payload
 
     def _pump(
@@ -1132,6 +1171,7 @@ class Collective:
 
     def _recover(self, ctx: Optional[_Round], dead_rank: int) -> None:
         self.recoveries += 1
+        _RECOVERIES.inc()
         if dead_rank >= 0:
             self._drop_link(dead_rank)
         if ctx is not None and ctx.result is None:
@@ -1154,7 +1194,9 @@ class Collective:
         while len(self._results) > self._cache_cap:
             self._results.popitem(last=False)
         self.seq += 1
-        self.rounds[path if path in self.rounds else "tree"] += 1
+        path = path if path in self.rounds else "tree"
+        self.rounds[path] += 1
+        _ROUNDS[path].inc()
         for k in [k for k in self._early if k[0] < self.seq]:
             # frames for finished rounds that arrived early (dup floods)
             del self._early[k]

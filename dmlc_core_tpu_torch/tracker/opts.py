@@ -184,8 +184,7 @@ def get_opts(args: Optional[List[str]] = None):
         help="Export DMLC_TRACE_DIR to every process of the job "
              "(tracker, workers, block-cache daemon): each dumps its "
              "flight-recorder rings there at exit / on SIGUSR2; join "
-             "with 'python -m dmlc_core_tpu.tools trace merge' "
-             "(docs/observability.md).",
+             "with 'python -m dmlc_core_tpu_torch.tools trace merge'.",
     )
     # durable control plane (tracker/journal.py): tracker state journal
     # + crash supervision (docs/robustness.md)

@@ -9,10 +9,9 @@ peer-death notices down) and the four shard-service commands, which the
 port's tracker answers at once with an error: the shard service is
 ``ROADMAP.md`` §1 item 4b.
 
-The trace context a caller may piggyback on the handshake's cmd string
-(``pack_cmd``) stays an opaque string here: the port passes it on and
-never decodes it (tracing is §1 item 6). ``connect_worker_retry`` emits
-no trace instant for the same reason.
+The trace context a caller piggybacks on the handshake's cmd string
+(``pack_cmd``, from ``telemetry.tracing.rpc_context()``) stays an
+opaque string here; the tracker decodes it (``tracing.handler_span``).
 
 This module is the only place the command strings are spelled out.
 """
@@ -25,6 +24,7 @@ import struct
 from typing import Optional
 
 from ..io.retry import RetryPolicy, is_transient
+from ..telemetry import tracing as _tracing
 
 MAGIC = 0xFF99
 
@@ -289,7 +289,8 @@ def connect_worker_retry(
     ``retry_secs`` (default ``DMLC_TRACKER_RETRY_SECS``) of cumulative
     backoff is spent, then re-raises the last error. The jitter is the
     herd-breaker: a fleet whose tracker just relaunched redials spread
-    over the backoff envelope instead of in one synchronized wave."""
+    over the backoff envelope instead of in one synchronized wave. Every
+    retry emits a ``dmlc:tracker_reconnect`` trace instant."""
     budget = (
         default_tracker_retry_secs() if retry_secs is None else retry_secs
     )
@@ -299,6 +300,7 @@ def connect_worker_retry(
         cap_secs=2.0,
         budget_secs=max(0.0, budget),
     )
+    attempt = 0
     while True:
         try:
             return connect_worker(
@@ -307,4 +309,9 @@ def connect_worker_retry(
         except (OSError, ConnectionError) as e:
             if budget <= 0 or not is_transient(e):
                 raise
+            attempt += 1
+            _tracing.instant(
+                "dmlc:tracker_reconnect",
+                cmd=cmd, rank=rank, attempt=attempt, error=type(e).__name__,
+            )
             policy.pause(cause=e, what=f"tracker dial cmd={cmd}")

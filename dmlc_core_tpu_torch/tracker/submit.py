@@ -38,9 +38,15 @@ def config_logger(args) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     args = opts.get_opts(argv)
     config_logger(args)
-    # one trace id for the whole job, inherited by every launched
-    # process, as the JAX submit exports it (the port reads none: its
-    # tracing is ROADMAP.md §1 item 6)
+    if getattr(args, "trace_dir", None):
+        # one env export covers every process of the job: the tracker
+        # (this process) and the workers inherit os.environ at launch,
+        # and each dumps its flight-recorder rings into the directory
+        # at exit (telemetry/tracing.py)
+        os.makedirs(args.trace_dir, exist_ok=True)
+        os.environ["DMLC_TRACE_DIR"] = args.trace_dir
+    # one trace id for the whole job: every launched process inherits
+    # it, so spans of the tracker and the workers share a trace
     os.environ.setdefault(
         "DMLC_TRACE_ID", f"{random.getrandbits(63) | 1:x}"
     )

@@ -9,12 +9,16 @@ graph is wired. ``recover`` re-issues a restarted worker's previous rank
 (job-id memo) with the current neighbor endpoints — the failure-recovery
 contract rabit builds on.
 
+Telemetry: ``cmd=metrics`` heartbeats feed a ``ClusterAggregator``
+(``RabitTracker.metrics``) that merges the ranks' registry snapshots and
+time-series samples; a loopback HTTP endpoint serves it (``/metrics``,
+``/metrics.json?window=N``; ``DMLC_METRICS_PORT`` pins the port,
+``DMLC_METRICS_HTTP=0`` turns it off), ``DMLC_METRICS_REPORT`` names a
+file for the end-of-job report, the tracker samples its own registry
+under the ``tracker`` pseudo-rank, and its handshakes, heartbeat merges
+and rank assignments are spans and instants on the flight recorder.
+
 Left out, each raising where it would be switched on:
-- the telemetry aggregator and its HTTP endpoint, the time-series ring
-  (``DMLC_METRICS_PORT`` raises; ``ROADMAP.md`` §1 item 6). A
-  ``cmd=metrics`` heartbeat is still read off the wire, answered with the
-  tracker's wall stamp, and its newest payload kept per rank in
-  ``RabitTracker.metrics``;
 - the control-plane journal (a journal directory raises), the dynamic
   shard service (a shard command is answered at once with an error) and
   the autoscale controller (``DMLC_AUTOSCALE`` raises): §1 item 4b.
@@ -32,6 +36,9 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from ..telemetry import ClusterAggregator, serve_metrics
+from ..telemetry import timeseries as _timeseries
+from ..telemetry import tracing as _tracing
 from ..utils.logging import Error
 from . import collective as _collective
 from .protocol import (
@@ -42,6 +49,7 @@ from .protocol import (
     CMD_START,
     CMD_WATCH,
     MAGIC,
+    RENDEZVOUS_CMDS,
     SHARD_CMDS,
     FramedSocket,
     bind_first_free,
@@ -321,9 +329,6 @@ def refuse_unported_env(journal_dir: Optional[str] = None) -> None:
     if journal_dir or os.environ.get("DMLC_TRACKER_JOURNAL"):
         raise Error("the tracker's control-plane journal is not ported "
                     "(ROADMAP.md §1 item 4b)")
-    if os.environ.get("DMLC_METRICS_PORT"):
-        raise Error("the tracker's telemetry endpoint (DMLC_METRICS_PORT) is "
-                    "not ported (ROADMAP.md §1 item 6)")
     if os.environ.get("DMLC_AUTOSCALE"):
         raise Error("the autoscale controller (DMLC_AUTOSCALE) is not ported "
                     "(ROADMAP.md §1 item 4b)")
@@ -369,8 +374,20 @@ class RabitTracker:
         self.start_time: Optional[float] = None
         self.end_time: Optional[float] = None
         self.messages: List[str] = []  # relayed worker 'print' logs
-        #: the newest cmd=metrics payload of each rank, as sent
-        self.metrics: Dict[int, str] = {}
+        # per-rank heartbeat snapshots aggregated cluster-wide, served
+        # over a loopback HTTP endpoint while the job runs and dumped as
+        # a JSON report at its end (DMLC_METRICS_REPORT=<path>)
+        self.metrics = ClusterAggregator()
+        self.metrics_report: Optional[Dict[str, object]] = None
+        self.metrics_port: Optional[int] = None
+        self._metrics_server = None
+        # the tracker samples its OWN registry into the cluster store
+        # under the "tracker" pseudo-rank
+        self._ts_ring = _timeseries.TimeSeriesRing(
+            on_sample=lambda s: self.metrics.timeseries.add(
+                _timeseries.TRACKER_RANK, [s]
+            )
+        )
         # collective peer-death watch (collective.py): workers holding a
         # cmd=watch connection learn of a supervisor-reported task
         # failure the instant the supervisor does. Registered
@@ -403,42 +420,61 @@ class RabitTracker:
                 name="rabit-handshake",
             ).start()
 
+    def _handshake_reply(self, entry: "WorkerEntry") -> bool:
+        """Read a one-string payload and answer what is answered off the
+        state thread; True when the connection is done with."""
+        if entry.cmd in (CMD_PRINT, CMD_METRICS) or entry.cmd in SHARD_CMDS:
+            # read the one-string payload here too: it is the other
+            # blocking recv a hostile client could stall on
+            entry.print_msg = entry.sock.recv_str()
+        if entry.cmd == CMD_METRICS:
+            # answer with the tracker's wall stamp: the worker brackets
+            # the exchange and estimates its clock offset from the RTT
+            # midpoint (client.py heartbeat → tracing.set_clock_offset)
+            try:
+                entry.sock.send_str(
+                    json.dumps({"wall_ns": time.time_ns()})  # noqa: L008 (wall stamp for clock alignment, not a duration)
+                )
+            except OSError:
+                pass
+        if entry.cmd in SHARD_CMDS:
+            # no shard service: answer at once with an error and
+            # close, so a lease client never waits on this tracker
+            entry.sock.send_str(json.dumps({"error": _UNPORTED_SHARDS}))
+            entry.sock.close()
+            return True
+        if entry.cmd == CMD_WATCH:
+            # collective death watch: the connection STAYS OPEN and
+            # is push-only from here on, so it never touches the
+            # state thread. A fabricated rank is dropped: it could
+            # otherwise evict a live watcher.
+            if not 0 <= entry.rank < self.n_workers:
+                logger.warning(
+                    "watch registration from invalid rank %d — "
+                    "dropping connection", entry.rank,
+                )
+                entry.sock.close()
+                return True
+            self.watch.add(entry.rank, entry.sock)
+            return True
+        return False
+
     def _handshake(self, conn: socket.socket, addr: Tuple) -> None:
         """Blocking WorkerEntry construction off the state thread: a
-        slow-loris client burns only this thread's timeout."""
+        slow-loris client burns only this thread's timeout. The work done
+        here (payload read, reply) runs under a handler span carrying the
+        client's trace context, so a merged timeline draws the flow arrow
+        from the worker's wait span to this handling."""
         try:
             entry = WorkerEntry(conn, addr)
-            if entry.cmd in (CMD_PRINT, CMD_METRICS) or entry.cmd in SHARD_CMDS:
-                # read the one-string payload here too: it is the other
-                # blocking recv a hostile client could stall on
-                entry.print_msg = entry.sock.recv_str()
-            if entry.cmd == CMD_METRICS:
-                # answer with the tracker's wall stamp, as the JAX
-                # tracker does (its workers estimate a clock offset)
-                try:
-                    entry.sock.send_str(json.dumps({"wall_ns": time.time_ns()}))
-                except OSError:
-                    pass
-            if entry.cmd in SHARD_CMDS:
-                # no shard service: answer at once with an error and
-                # close, so a lease client never waits on this tracker
-                entry.sock.send_str(json.dumps({"error": _UNPORTED_SHARDS}))
-                entry.sock.close()
-                return
-            if entry.cmd == CMD_WATCH:
-                # collective death watch: the connection STAYS OPEN and
-                # is push-only from here on, so it never touches the
-                # state thread. A fabricated rank is dropped: it could
-                # otherwise evict a live watcher.
-                if not 0 <= entry.rank < self.n_workers:
-                    logger.warning(
-                        "watch registration from invalid rank %d — "
-                        "dropping connection", entry.rank,
-                    )
-                    entry.sock.close()
+            # bounded span vocabulary: a hostile cmd string must not
+            # mint unbounded span names on the ring
+            kind = entry.cmd if entry.cmd in RENDEZVOUS_CMDS else "unknown"
+            with _tracing.handler_span(
+                f"dmlc:tracker_{kind}", entry.trace_ctx, rank=entry.rank
+            ):
+                if self._handshake_reply(entry):
                     return
-                self.watch.add(entry.rank, entry.sock)
-                return
         except (ConnectionError, OSError) as e:
             logger.warning("bad handshake: %s", e)
             conn.close()
@@ -509,6 +545,8 @@ class RabitTracker:
             flush_deferred()
             if kind == "stop":
                 logger.info("@tracker stopped before job completion")
+                # a closed-early job still reports what aggregated
+                self._finish_metrics_report()
                 return
             if kind == "assign_failed":
                 logger.warning(
@@ -530,6 +568,11 @@ class RabitTracker:
                 logger.debug(
                     "%s from %s; assigned rank %d",
                     entry.cmd, entry.host, rank_done,
+                )
+                # rendezvous milestones on the tracker's timeline row
+                _tracing.instant(
+                    "dmlc:tracker_rank_assigned",
+                    rank=rank_done, cmd=entry.cmd,
                 )
                 if len(started) == n_workers and self.start_time is None:
                     logger.info(
@@ -554,7 +597,11 @@ class RabitTracker:
                         f"metrics heartbeat from invalid rank "
                         f"{entry.rank}",
                     )
-                    self.metrics[entry.rank] = entry.print_msg or ""
+                    # the aggregator validates and drops malformed payloads
+                    with _tracing.span(
+                        "dmlc:tracker_heartbeat", rank=entry.rank
+                    ):
+                        self.metrics.update(entry.rank, entry.print_msg or "")
                     continue
                 if entry.cmd == CMD_SHUTDOWN:
                     check_proto(
@@ -673,8 +720,51 @@ class RabitTracker:
                 "@tracker %.3f secs between node start and job finish",
                 self.end_time - self.start_time,
             )
+        self._finish_metrics_report()
+
+    def _finish_metrics_report(self) -> None:
+        """End-of-job telemetry dump: the aggregated per-rank + cluster
+        report is kept on ``self.metrics_report`` and, when
+        ``DMLC_METRICS_REPORT`` names a path, written there as JSON."""
+        if self.metrics.updates == 0:
+            return
+        try:
+            self.metrics_report = self.metrics.report()
+        except Exception:
+            # the job's completion does not ride on its telemetry
+            logger.exception("telemetry report aggregation failed")
+            return
+        path = os.environ.get("DMLC_METRICS_REPORT")
+        if path:
+            try:
+                with open(path, "w") as f:
+                    json.dump(self.metrics_report, f)
+                logger.info("@tracker telemetry report written to %s", path)
+            except OSError as e:
+                logger.warning("telemetry report write failed: %s", e)
 
     def start(self, n_workers: Optional[int] = None) -> None:
+        # the submit process IS the tracker: name it on the merged
+        # timeline (workers carry worker<N> from DMLC_ROLE/DMLC_TASK_ID)
+        _tracing.set_process_label("tracker")
+        _tracing.instant("dmlc:tracker_start", n_workers=self.n_workers)
+        # loopback telemetry endpoint (GET /metrics = Prometheus text,
+        # /metrics.json = full report); DMLC_METRICS_HTTP=0 disables,
+        # DMLC_METRICS_PORT pins the port (default: ephemeral)
+        if os.environ.get("DMLC_METRICS_HTTP", "1") not in ("0", "false"):
+            try:
+                port = int(os.environ.get("DMLC_METRICS_PORT", "0"))
+                self._metrics_server, self.metrics_port = serve_metrics(
+                    self.metrics, port=port
+                )
+                logger.info(
+                    "telemetry endpoint on 127.0.0.1:%d/metrics",
+                    self.metrics_port,
+                )
+            except (OSError, ValueError) as e:
+                logger.warning("telemetry endpoint disabled: %s", e)
+        if _timeseries.sampling_enabled():
+            self._ts_ring.start()
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="rabit-accept",
         )
@@ -714,6 +804,13 @@ class RabitTracker:
             pass
         if self._accept_thread is not None:
             self._accept_thread.join(5)
+        self._ts_ring.stop()
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+            # shutdown() only stops the serve loop: close the listening
+            # socket too, or a relaunch on a pinned port hits EADDRINUSE
+            self._metrics_server.server_close()
+            self._metrics_server = None
         # the state thread blocks on its event queue, not on accept():
         # closing the socket alone does not terminate it
         self._events.put(("stop", None, None, None))
@@ -840,8 +937,10 @@ def submit(
     else:
         ps = PSTracker(host_ip=ip, cmd=pscmd, envs=envs)
         envs.update(ps.worker_envs())
-        if ps.alive():
-            fun_submit(n_workers, n_servers, envs)
+        # the tasks launch whether or not the scheduler is still running
+        # (reference tracker.py:410-433): a scheduler that exits at once
+        # must not race the job out of its workers
+        fun_submit(n_workers, n_servers, envs)
         while ps.alive():
             time.sleep(0.1)
             if abort_check is not None:

@@ -1,1 +1,2 @@
-"""Shared helpers: CHECK machinery and device resolution."""
+"""Shared helpers: CHECK machinery, device resolution, env access,
+timers and the profiler hooks."""

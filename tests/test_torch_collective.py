@@ -262,6 +262,62 @@ def test_size_based_path_choice_is_counted():
         assert stats["bytes"] == big[0].nbytes + small[0].nbytes
 
 
+@pytest.mark.parametrize("path", ["tree", "ring"])
+def test_frames_carry_real_flow_ids_and_rounds_reach_the_registry(path):
+    """Every frame header carries the sender's flight-recorder flow id
+    (the JAX engine's wire form): in a mixed port/JAX world, each flow a
+    port engine sends lands as a finish in the JAX receiver's recorder
+    and the reverse, never 0; each round runs under a
+    dmlc:allreduce_wait span and ticks the registry series the engine's
+    io_stats() keeps."""
+    from dmlc_core_tpu.telemetry import tracing as jax_tracing
+    from dmlc_core_tpu_torch.telemetry import default_registry
+    from dmlc_core_tpu_torch.telemetry import tracing
+
+    n = 2
+    arrs = [np.arange(4096, dtype=np.float64) * (r + 1) for r in range(n)]
+    recorders = (tracing, jax_tracing)
+    for mod in recorders:
+        mod.reset()
+        mod.set_enabled(True)
+    before = default_registry().snapshot()
+    try:
+        def body(c, rank):  # the JAX engine keeps no io_stats()
+            out = c.allreduce(arrs[rank], "sum", path=path)
+            return out, getattr(c, "io_stats", lambda: None)()
+
+        results = run_collective(n, body, engines=["port", "jax"])
+        port_ev = tracing.to_chrome_trace()["traceEvents"]
+        jax_ev = jax_tracing.to_chrome_trace()["traceEvents"]
+    finally:
+        for mod in recorders:
+            mod.set_enabled(None)
+            mod.reset()
+    ref = jax_coll.reference_allreduce(arrs, "sum", path)
+    assert all(r[0].tobytes() == ref.tobytes() for r in results)
+
+    def ids(events, ph):
+        return {e["id"] for e in events if e["ph"] == ph and e["name"] == "rpc"}
+
+    port_sent, jax_got = ids(port_ev, "s"), ids(jax_ev, "f")
+    jax_sent, port_got = ids(jax_ev, "s"), ids(port_ev, "f")
+    assert port_sent & jax_got and jax_sent & port_got
+    assert 0 not in port_sent | jax_sent
+    assert port_got <= jax_sent | port_sent
+    assert any(e["ph"] == "X" and e["name"] == "dmlc:allreduce_wait" for e in port_ev)
+    after = default_registry().snapshot()
+
+    def delta(kind, key, field=None):
+        now, was = after[kind].get(key, 0), before[kind].get(key, 0)
+        return (now[field] - (was[field] if was else 0)) if field else now - was
+
+    (stats,) = [r[1] for r in results if r[1] is not None]
+    assert stats["bytes"] == arrs[0].nbytes and stats["rounds"][path] == 1
+    assert delta("counters", f'tracker.collective.rounds{{path="{path}"}}') == 1
+    assert delta("counters", "tracker.collective.bytes") == stats["bytes"]
+    assert delta("histograms", "tracker.collective.link_wait_seconds", "count") == 1
+
+
 @pytest.mark.parametrize("engine,n", [("port", 2), ("port", 3), ("jax", 2)])
 def test_a_ring_round_larger_than_the_socket_buffers(engine, n):
     """16 MB a rank: every rank's first ring segment is larger than the

@@ -40,9 +40,20 @@ THREADS = ("codec-decode", "split-prefetch", "split-cache", "split-window-readah
 B, K, D = 32, 7, 24
 
 
+# telemetry's threads (metrics endpoints, the reporter, the time-series
+# sampler) start lazily; one that a test starts must end with it
+TELEMETRY_THREADS = ("metrics-http", "telemetry-reporter", "telemetry-timeseries")
+
+
 @pytest.fixture(autouse=True)
 def no_thread_left_behind():
+    before = set(threading.enumerate())
     yield
+    started = [t for t in threading.enumerate()
+               if t.name.startswith(TELEMETRY_THREADS) and t not in before]
+    for t in started:
+        t.join(timeout=5.0)
+    assert not [t.name for t in started if t.is_alive()]
     codec.shutdown_decode_pool()
     if jax_codec._POOL is not None:  # the reference's pool shares the name
         jax_codec._POOL.shutdown(wait=True)

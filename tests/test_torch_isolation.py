@@ -54,6 +54,18 @@ TRACKER_MODULES = [
     "dmlc_core_tpu_torch.tracker.submit",
     "dmlc_core_tpu_torch.tracker.backends",
     "dmlc_core_tpu_torch.tracker.backends.local",
+    # the telemetry the tracker records into, the profiler hooks and the
+    # tools: torch only once a caller imports it
+    "dmlc_core_tpu_torch.telemetry",
+    "dmlc_core_tpu_torch.telemetry.registry",
+    "dmlc_core_tpu_torch.telemetry.export",
+    "dmlc_core_tpu_torch.telemetry.tracing",
+    "dmlc_core_tpu_torch.telemetry.timeseries",
+    "dmlc_core_tpu_torch.telemetry.aggregate",
+    "dmlc_core_tpu_torch.utils.profiler",
+    "dmlc_core_tpu_torch.utils.timer",
+    "dmlc_core_tpu_torch.tools",
+    "dmlc_core_tpu_torch.tools.__main__",
 ]
 
 # the modules of the indexed, shuffled path, the checkpoints, the example

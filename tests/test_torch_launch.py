@@ -46,6 +46,7 @@ from dmlc_core_tpu_torch.examples import train_criteo_rec, train_higgs
 from dmlc_core_tpu_torch.models import FactorizationMachine
 from dmlc_core_tpu_torch.tracker import launcher
 from dmlc_core_tpu_torch.tracker import supervisor as port_supervisor
+from dmlc_core_tpu_torch.tracker import tracker as port_tracker
 from dmlc_core_tpu_torch.tracker.supervisor import JobAborted, RendezvousNeverCompleted
 from dmlc_core_tpu_torch.utils.logging import Error
 
@@ -385,6 +386,28 @@ def test_ps_tracker_runs_the_scheduler_and_every_task(tmp_path):
     assert len(roots) == 1 and roots.pop().startswith("127.0.0.1:")
 
 
+def test_ps_tasks_launch_after_a_scheduler_that_exits_at_once(monkeypatch):
+    """The PS path launches every task even when the scheduler has already
+    exited (the JAX submit launches them only while it runs, a race the
+    port's test above lost under load)."""
+    class DoneScheduler:
+        def __init__(self, **_):
+            pass
+
+        def worker_envs(self):
+            return {"DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": 9}
+
+        def alive(self):
+            return False
+
+    monkeypatch.setattr(port_tracker, "PSTracker", DoneScheduler)
+    launched = []
+    port_tracker.submit(2, 1, lambda nw, ns, envs: launched.append((nw, ns, envs)),
+                        host_ip="127.0.0.1", pscmd="true")
+    assert [(nw, ns) for nw, ns, _ in launched] == [(2, 1)]
+    assert launched[0][2]["DMLC_PS_ROOT_PORT"] == 9
+
+
 def test_dry_run_does_not_block(capsys):
     submit.main(["--cluster", "local", "--num-workers", "2", "--dry-run", "--host-ip",
                  "127.0.0.1", "python3", "t.py"])
@@ -393,7 +416,7 @@ def test_dry_run_does_not_block(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--block-cache"], "8"), (["--block-cache-mb", "64"], "8"), (["--dsserve", "2"], "7"),
-    (["--trace-dir", "/nonexistent/t"], "6"), (["--shard-oversplit", "4"], "4b"),
+    (["--shard-oversplit", "4"], "4b"),
     (["--shard-lease-ttl", "5"], "4b"), (["--tracker-journal", "/nonexistent/j"], "4b"),
     (["--autoscale", "1:2"], "4b"), (["--autoscale-cost-ceiling", "10"], "4b"),
     (["--autoscale-dwell", "3"], "4b"),

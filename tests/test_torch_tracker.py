@@ -191,7 +191,6 @@ def test_unknown_cluster_raises():
 
 @pytest.mark.parametrize("env,item", [
     ({"DMLC_TRACKER_JOURNAL": "/nonexistent/j"}, "4b"),
-    ({"DMLC_METRICS_PORT": "9137"}, "6"),
     ({"DMLC_AUTOSCALE": "1:4"}, "4b"),
 ])
 def test_tracker_refuses_unported_features(monkeypatch, env, item):
@@ -369,14 +368,15 @@ def test_heartbeat_payload_is_kept_per_rank():
         with pytest.raises(RuntimeError, match="before start"):
             w.heartbeat({"x": 1})
         w.start(world_size=1)
-        w.heartbeat({"steps": 3})
+        w.heartbeat({"counters": {"steps": 3}})
         jw = jax_client.RabitWorker("127.0.0.1", tracker.port, jobid="0")
         jw.rank = 0
-        jw.heartbeat({"steps": 4})  # a JAX worker's heartbeat reads the reply
+        jw.heartbeat({"counters": {"steps": 4}})  # a JAX worker reads the reply
         deadline = time.monotonic() + 5
-        while json.loads(tracker.metrics.get(0, "{}")).get("steps") != 4:
+        while tracker.metrics.per_rank().get(0, {}).get("counters", {}).get("steps") != 4:
             assert time.monotonic() < deadline
             time.sleep(0.05)
+        assert tracker.metrics.updates == 2
         w.shutdown()
         assert tracker.join(timeout=JOIN_S)
     finally:
