@@ -137,7 +137,28 @@ Phases (any failure exits non-zero and prints no result line):
    tracker once from the journal and the report holds a ``recovery``
    section; (d) the Criteo example with ``DMLC_DYNAMIC_SHARDS=1``, 2
    workers, 2 epochs, each epoch's micro-shards done once;
-12. the ``entry()`` forward on the card against the CPU.
+12. dsserve at the Criteo width over the shuffle phase's 2^18 indexed
+   rows (``shuffle=batch``), the servers separate ``python -m
+   dmlc_core_tpu_torch.tools dsserve serve`` processes: (a) one server in
+   static mode, FM SGD on the card for 128 steps from
+   ``dsserve://127.0.0.1:<port>/<file>?index=...`` with every received
+   slot adopted by the staging pipeline (the host→device copy straight
+   from the pooled, page-locked receive buffer), each batch's digest
+   equal to the local ``ell_batches`` batch's and the params within
+   ``PARAM_REL`` of a local pass over the same batches; (b) four arms,
+   TCP or shared memory (``DMLC_DSSERVE_SHM``) by adoption on or off
+   (``DMLC_STAGING_ADOPT``), each twice in turns beside a local-file
+   pass, 128 steps a pass: staged rows/s, wait share, step ms, the
+   ``dispatch_pack`` and ``dispatch_put`` seconds, the client's receive
+   wait, the adopted slots (all of them with adoption on, none off),
+   the copies (none with adoption on), the slots shared memory carried
+   (some on the shm arms) and what was page-locked; (c) ``submit
+   --dsserve 2`` with one trainer on the card over the file cut into 8
+   leased micro-shards, the tier's first server SIGKILLed once the
+   trainer took 8 steps: every micro-shard committed once, each equal
+   to the static part, K1-K4 once a step, the params within
+   ``PARAM_REL`` of a one-process replay of the batches trained;
+13. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -146,8 +167,9 @@ registers. It prints a ``{"ptxas": [...]}`` (with the scatters' dynamic
 shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
 ``{"slice": {...}}``, a ``{"shuffle": {...}}``, a ``{"codec": {...}}``,
 an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
-``{"telemetry": {...}}`` and a ``{"shards": {...}}`` line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+``{"telemetry": {...}}``, a ``{"shards": {...}}`` and a ``{"dsserve":
+{...}}`` line, the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -156,6 +178,7 @@ import hashlib
 import json
 import os
 import re
+import shlex
 import statistics
 import subprocess
 import sys
@@ -657,7 +680,12 @@ class RowLog:
     def __init__(self, source, digests: bool = False) -> None:
         self.source, self.rows = source, []
         self.digests = [] if digests else None
-        self.ring_slots = source.ring_slots
+        # the producer contract the pipeline reads: a ring's size, or a
+        # dsserve client's adoptable slots and its host-memory pinning
+        self.ring_slots = getattr(source, "ring_slots", None)
+        self.adopt_slots = getattr(source, "adopt_slots", False)
+        if hasattr(source, "pin_host_memory"):
+            self.pin_host_memory = source.pin_host_memory
 
     def __iter__(self):
         for batch in self.source:
@@ -702,6 +730,7 @@ def drive(name, model, source, dev, lr, min_steps: int = 20, stop_after=None,
     wall = time.perf_counter() - t_start
     launches = dict(_build.launches)
     thr = pipe.throughput()
+    staging = pipe.staging_stats()
     if not drain_close(pipe, source):
         fail("staging pipeline did not close cleanly")
     n = len(losses)
@@ -724,7 +753,7 @@ def drive(name, model, source, dev, lr, min_steps: int = 20, stop_after=None,
         "wait_share": wait_s / wall, "wall_s": wall, "first_batch_wait_s": first_wait,
         "stage_seconds": {k[5:]: v for k, v in thr.items() if k.startswith("secs_")},
         "loss_first": losses[0], "loss_last": losses[-1],
-        "launches": launches,
+        "launches": launches, "staging": staging,
     }, first, params0
 
 
@@ -2455,6 +2484,339 @@ def shards_phase(dev):
     return out, launches
 
 
+DSSERVE_ARMS = (("tcp", "on"), ("shm", "on"), ("tcp", "off"), ("shm", "off"))
+DSSERVE_OVERSPLIT, DSSERVE_TTL, DSSERVE_KILL_AT = 8, 5, 8
+
+DSSERVE_WORKER = """
+import hashlib, json, os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.ops import _build
+from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+from dmlc_core_tpu_torch.staging.fused import ell_batches
+from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
+
+# a trainer over the job's dsserve tier: it writes <out>.step once it has
+# taken kill_at steps (this script then SIGKILLs one server), and logs the
+# digest of each batch it trained with the micro-shard that carried it
+inner, out, lr, kill_at, dev = (sys.argv[1], sys.argv[2], float(sys.argv[3]),
+                                int(sys.argv[4]), torch.device(sys.argv[5]))
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+model = FactorizationMachine({d}, {e}, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+spec = BatchSpec(batch_size={b}, max_nnz={k}, value_dtype=np.float32)
+src = ell_batches("dsserve://" + os.environ["DMLC_DSSERVE"] + inner, spec)
+trained, done = [], []
+src.on_slot = lambda shard, seq, payload: trained.append(
+    (shard, hashlib.blake2b(payload).hexdigest()))
+src.on_shard_done = lambda shard, status: done.append((shard, status))
+pipe = StagingPipeline(src, device=dev)
+losses, step_s = [], []
+_build.reset_launches()
+t_start = time.perf_counter()
+for batch in pipe:
+    t0 = time.perf_counter()
+    losses.append(float(model.sgd_step(batch, lr=lr)))
+    sync()
+    step_s.append(time.perf_counter() - t0)
+    if len(losses) == kill_at:
+        open(out + ".step", "w").close()
+wall = time.perf_counter() - t_start
+launches = dict(_build.launches)
+stats, staging = src.io_stats(), pipe.staging_stats()
+drain_close(pipe, src)
+np.savez(out + ".npz", **{{n: p.detach().cpu().numpy() for n, p in model.params().items()}})
+with open(out + ".json", "w") as f:
+    json.dump({{"launches": launches, "losses": losses, "step_s": step_s, "wall_s": wall,
+               "trained": trained, "done": done, "io_stats": stats,
+               "staging": staging}}, f)
+"""
+
+
+def dsserve_server(tmp: str, env: dict):
+    """One ``python -m dmlc_core_tpu_torch.tools dsserve serve`` process
+    with no tracker in its environment (static stripes): (process,
+    "127.0.0.1:port")."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pf = os.path.join(tmp, "dsserve.port")
+    full = {k: v for k, v in os.environ.items()
+            if k not in ("DMLC_TRACKER_URI", "DMLC_TRACKER_PORT")}
+    full.update(env, PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tools", "dsserve", "serve",
+         "--port", "0", "--port-file", pf], env=full, cwd=repo)
+    deadline = time.monotonic() + 60
+    while not os.path.exists(pf):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            fail("the dsserve server did not start")
+        time.sleep(0.05)
+    with open(pf) as f:
+        ep = json.load(f)
+    return proc, f"{ep['host']}:{ep['port']}"
+
+
+def stop_process(proc, what: str) -> None:
+    """SIGTERM (a dsserve server's graceful retire), then SIGKILL past 30 s."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"{what} ignored SIGTERM for 30 s")
+
+
+def dsserve_pass(name, endpoint: str, inner: str, spec, dev, model, transport: str,
+                 adopt: str, digests: bool = False):
+    """One FM pass over ``dsserve://endpoint/inner`` (static mode, one
+    server) with the client's transport (``DMLC_DSSERVE_SHM``) and the
+    pipeline's adoption (``DMLC_STAGING_ADOPT``) set for it. Gates: adopt
+    on, every batch adopted and none copied; adopt off, none adopted;
+    shm, slots carried by shared memory."""
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+    from dmlc_core_tpu_torch.staging.pipeline import host_pinning_stats
+    from dmlc_core_tpu_torch.telemetry import default_registry
+
+    keys = ("DMLC_DSSERVE_SHM", "DMLC_STAGING_ADOPT")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ["DMLC_DSSERVE_SHM"] = "on" if transport == "shm" else "off"
+    os.environ["DMLC_STAGING_ADOPT"] = adopt
+    reg = default_registry()
+    copies0 = reg.snapshot()["counters"].get("dsserve.slot_copies", 0)
+    pin0 = host_pinning_stats()
+    try:
+        src = ell_batches(f"dsserve://{endpoint}{inner}", spec)
+        stats, _, _ = drive(name, model, src, dev, SHARD_LR, digests=digests)
+    finally:
+        restore_env(old)
+    io = src.io_stats()
+    pin1 = host_pinning_stats()
+    n = stats["batches_staged"]
+    adopted = stats["staging"]["slots_adopted"]
+    copies = reg.snapshot()["counters"].get("dsserve.slot_copies", 0) - copies0
+    row = {"transport": transport, "adopt": adopt, "batches": n, "adopted": adopted,
+           "adopted_pinned": stats["staging"]["slots_adopted_pinned"],
+           "slot_copies": copies, "shm_slots": io["shm_slots"], "tcp_slots": io["tcp_slots"],
+           "recv_wait_s": io["recv_wait_secs"], "recv_alloc_bytes": io["recv_alloc_bytes"],
+           "pool_banks": io["pool_banks"],
+           "pinned": {k: pin1[k] - pin0[k] for k in pin1}}
+    if adopt == "on" and not (adopted == n and copies == 0):
+        fail(f"{name}: {adopted} of {n} batches adopted, {copies} copied")
+    if adopt == "off" and adopted:
+        fail(f"{name}: {adopted} batches adopted with DMLC_STAGING_ADOPT=off")
+    if transport == "shm" and not io["shm_slots"] > 0:
+        fail(f"{name}: no slot came through shared memory: {io}")
+    if transport == "tcp" and io["shm_slots"]:
+        fail(f"{name}: {io['shm_slots']} slots came through shared memory on TCP")
+    stats["dsserve"] = row
+    return stats
+
+
+def dsserve_static(rec: str, spec, dev, make, tmp: str):
+    """(a) and (b): one static server process. (a) FM over its stream
+    (TCP, adopted) against a local pass over the same file: each batch's
+    digest equal, the params within PARAM_REL. (b) the four arms
+    (transport x adopt) twice in turns, beside a local pass each time."""
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    inner = f"{rec}?index={rec}.idx&shuffle=batch&batch_size={B}&seed=1&epoch=0"
+    proc, endpoint = dsserve_server(tmp, {"DMLC_DSSERVE_SHM": "on",
+                                          "DMLC_DSSERVE_SHM_SLOTS": "32",
+                                          "DMLC_DSSERVE_WIRE_CODEC": "off"})
+    params = lambda m: {k: p.detach().cpu().numpy() for k, p in m.params().items()}  # noqa: E731
+    pick = ("steps", "step_ms", "staged_rows_per_sec", "wait_share", "wall_s")
+    try:
+        local_model, remote_model = make(), make()
+        local, _, _ = drive("dsserve_local", local_model, ell_batches(inner, spec), dev,
+                            SHARD_LR, digests=True)
+        remote = dsserve_pass("dsserve_static", endpoint, inner, spec, dev, remote_model,
+                              "tcp", "on", digests=True)
+        if remote["digests"] != local["digests"]:
+            diff = sum(a != b for a, b in zip(remote["digests"], local["digests"]))
+            fail(f"dsserve static: {diff} of {len(local['digests'])} received slots differ "
+                 f"from the local producer's ({len(remote['digests'])} received)")
+        gap = param_gap(params(remote_model), params(local_model))
+        check_gap(gap, "dsserve static against the local pass")
+        static = {"steps": remote["steps"], "param_gap": gap,
+                  "launches": remote["launches"], "dsserve": remote["dsserve"],
+                  **{k: remote[k] for k in pick}, "local": {k: local[k] for k in pick}}
+        arms = {"local": []}
+        arms.update({f"{t}_adopt_{a}": [] for t, a in DSSERVE_ARMS})
+        launches = dict.fromkeys(KERNEL_NAMES, 0)
+        for rep in range(2):
+            run, _, _ = drive(f"dsserve_arm_local_{rep}", make(), ell_batches(inner, spec), dev,
+                              SHARD_LR)
+            arms["local"].append(run)
+            for transport, adopt in DSSERVE_ARMS:
+                run = dsserve_pass(f"dsserve_arm_{transport}_{adopt}_{rep}", endpoint, inner,
+                                   spec, dev, make(), transport, adopt)
+                arms[f"{transport}_adopt_{adopt}"].append(run)
+                for k in KERNEL_NAMES:
+                    launches[k] += run["launches"][k]
+    finally:
+        stop_process(proc, "the dsserve server")
+    for k in KERNEL_NAMES:
+        launches[k] += remote["launches"][k]
+        if remote["launches"][k] != remote["steps"]:
+            fail(f"dsserve static: launches {remote['launches']} for {remote['steps']} steps")
+    table = {}
+    for arm, runs in arms.items():
+        table[arm] = [{**{k: r[k] for k in pick},
+                       "dispatch_pack_s": r["stage_seconds"]["dispatch_pack"],
+                       "dispatch_put_s": r["stage_seconds"]["dispatch_put"],
+                       "transfer_wait_s": r["stage_seconds"]["transfer_wait"],
+                       **r.get("dsserve", {})} for r in runs]
+    return {"uri": inner, "static": static, "arms": table}, launches
+
+
+def server_pid(port_file_name: str):
+    """The pid of the dsserve server launched with ``--port-file`` naming
+    ``port_file_name``."""
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"dsserve" in argv and any(a.endswith(port_file_name.encode()) for a in argv):
+            return int(pid)
+    return None
+
+
+def dsserve_lease(rec: str, spec, dev, tmp: str):
+    """(c) ``submit --dsserve 2`` with one trainer over the file cut into
+    DSSERVE_OVERSPLIT micro-shards; the tier's first server (task 1000)
+    SIGKILLed once the trainer took DSSERVE_KILL_AT steps. Gates: the
+    ledger completes every micro-shard once (no duplicate), each
+    micro-shard's batches equal the static part's, K1-K4 once a step, and
+    the params within PARAM_REL of a one-process replay of the batches
+    trained."""
+    import signal
+    from collections import defaultdict
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "dsserve_worker.py")
+    with open(script, "w") as f:
+        f.write(DSSERVE_WORKER.format(repo=repo, d=D, e=E, b=B, k=K))
+    inner = f"{rec}?index={rec}.idx&shuffle=batch&batch_size={B}&seed=1&epoch=0"
+    prefix = os.path.join(tmp, "dsserve_lease")
+    report_path = prefix + ".report.json"
+    env = dict(os.environ, PYTHONPATH=repo, DMLC_METRICS_REPORT=report_path)
+    for k in ("DMLC_TRACKER_URI", "DMLC_TRACKER_PORT", "DMLC_SHARD_RANK", "DMLC_TASK_ID"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit", "--cluster", "local",
+         "--host-ip", "127.0.0.1", "--num-workers", "1", "--dsserve", "2",
+         "--shard-oversplit", str(DSSERVE_OVERSPLIT), "--shard-lease-ttl", str(DSSERVE_TTL),
+         # the backend runs the command through bash: quote the URI's "&"
+         sys.executable, script, shlex.quote(inner), prefix, str(SHARD_LR),
+         str(DSSERVE_KILL_AT), dev.type],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=repo,
+        start_new_session=True)
+    killed = None
+    try:
+        deadline = time.monotonic() + JOB_TIMEOUT
+        while not os.path.exists(prefix + ".step"):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError(f"the trainer never reached step {DSSERVE_KILL_AT}")
+            time.sleep(0.02)
+        pid = server_pid("server1000.port")
+        if pid is None:
+            raise RuntimeError("no dsserve server of task 1000 to kill")
+        os.kill(pid, signal.SIGKILL)
+        killed = {"pid": pid, "at_step": DSSERVE_KILL_AT, "wall": time.time()}
+        stdout, stderr = proc.communicate(timeout=JOB_TIMEOUT)
+    except (subprocess.TimeoutExpired, RuntimeError) as e:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        fail(f"dsserve lease job: {e}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dsserve lease job exited {proc.returncode}:\n{stdout[-3000:]}\n"
+             f"{stderr[-3000:]}")
+    with open(prefix + ".json") as f:
+        res = json.load(f)
+    with open(report_path) as f:
+        ledger = json.load(f).get("shards") or {}
+    m = DSSERVE_OVERSPLIT
+    batches = {}
+    static = static_part_digests(rec, spec, m, batches)
+    by_shard = defaultdict(list)
+    for shard, h in res["trained"]:
+        by_shard[shard].append(h)
+    if [by_shard[i] for i in range(m)] != static or sorted(by_shard) != list(range(m)):
+        fail("dsserve lease: a micro-shard's batches differ from the static part "
+             f"(shards {sorted(by_shard)})")
+    io = res["io_stats"]
+    if not (ledger.get("completed") == m and ledger.get("duplicates") == 0
+            and io["shards_recorded"] == m and sorted(s for s, _ in res["done"]) == list(range(m))
+            and all(st == "recorded" for _, st in res["done"])):
+        fail(f"dsserve lease: not exactly once: ledger {ledger}, client {io}, "
+             f"dones {res['done']}")
+    n = len(res["losses"])
+    if n != sum(map(len, static)) or any(res["launches"][k] != n for k in KERNEL_NAMES):
+        fail(f"dsserve lease: {n} steps, launches {res['launches']}")
+    if not np.mean(res["losses"][-4:]) < np.mean(res["losses"][:4]):
+        fail(f"dsserve lease: the loss did not fall: {res['losses']}")
+    params = dict(np.load(prefix + ".npz"))
+    want, rounds, replay_s = shard_replay(dev, batches, [[h for _, h in res["trained"]]])
+    del batches
+    gap = param_gap(params, want)
+    check_gap(gap, "dsserve lease against the one-process replay")
+    out = {"wall_s": wall, "killed": killed, "ledger": ledger, "io_stats": io,
+           "staging": res["staging"], "steps": n,
+           "step_ms": statistics.median(res["step_s"]) * 1e3,
+           "rows_per_sec": n * B / res["wall_s"], "trainer_wall_s": res["wall_s"],
+           "shard_order": [s for s, _ in res["done"]],
+           "replay_gap": gap, "replay_rounds": rounds, "replay_s": replay_s,
+           "loss_first": res["losses"][0], "loss_last": res["losses"][-1]}
+    return out, res["launches"]
+
+
+def dsserve_phase(dev, card: str):
+    """dsserve at the Criteo width over the shuffle phase's 2^18 indexed
+    rows: (a) and (b) from one static server process, (c) a leased tier
+    through the launcher with a server killed mid-stream. Returns the
+    ``{"dsserve": ...}`` line and the launches of (a), (b) and (c)."""
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    def make():
+        return FactorizationMachine(D, E, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"),
+                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
+        out, launches = dsserve_static(rec, spec, dev, make, tmp)
+        out["lease"], lease_launches = dsserve_lease(rec, spec, dev, tmp)
+    for k in KERNEL_NAMES:
+        launches[k] += lease_launches[k]
+    out["card"] = card
+    out["rows"] = PRODUCER_ROWS
+    med = lambda xs: statistics.median(xs)  # noqa: E731
+    out["summary"] = {
+        arm: {"staged_rows_per_sec": [r["staged_rows_per_sec"] for r in runs],
+              "wait_share": [r["wait_share"] for r in runs],
+              "step_ms": [r["step_ms"] for r in runs],
+              "dispatch_pack_s": [r["dispatch_pack_s"] for r in runs],
+              "dispatch_put_s": [r["dispatch_put_s"] for r in runs],
+              "recv_wait_s": [r.get("recv_wait_s") for r in runs],
+              "median_rows_per_sec": med([r["staged_rows_per_sec"] for r in runs])}
+        for arm, runs in out["arms"].items()}
+    return out, launches
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -2511,6 +2873,7 @@ def main() -> None:
     collective, coll_launches = collective_phase(dev)
     telemetry, tele_launches = telemetry_phase(dev, kernels)
     shards, shard_launches = shards_phase(dev)
+    dsserve, dsserve_launches = dsserve_phase(dev, smi_line)
     entry_phase(dev)
     torch.cuda.synchronize()
 
@@ -2519,7 +2882,7 @@ def main() -> None:
         # the full-width collective workers count in their own processes
         n = (sum(s["launches"][row["name"]] for s in main_runs)
              + coll_launches[row["name"]] + tele_launches[row["name"]]
-             + shard_launches[row["name"]])
+             + shard_launches[row["name"]] + dsserve_launches[row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -2540,6 +2903,7 @@ def main() -> None:
     print(json.dumps({"collective": collective}))
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"shards": shards}))
+    print(json.dumps({"dsserve": dsserve}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

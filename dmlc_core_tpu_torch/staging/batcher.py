@@ -33,6 +33,7 @@ __all__ = [
     "alloc_dense_slot",
     "alloc_ell_slot",
     "alloc_packed_slot",
+    "packed_layout",
 ]
 
 # every section starts on an 8-byte boundary (the widest staged dtype),
@@ -85,6 +86,31 @@ class Batch:
         else:
             out.update(indices=self.indices, values=self.values, nnz=self.nnz)
         return out
+
+
+def packed_layout(batch: Batch):
+    """(name, offset, nbytes, shape, dtype) per array, from the views'
+    addresses inside ``batch.packed`` — or None when an array is not a
+    dense C-contiguous view into it (a strided view can have bounds
+    inside the buffer without its bytes being the run [off, off+nbytes))."""
+    try:  # numpy >= 2.0 moved it; 1.x has the top-level name
+        from numpy.lib.array_utils import byte_bounds
+    except ImportError:
+        byte_bounds = np.byte_bounds
+
+    packed = batch.packed
+    if packed is None or not packed.flags.c_contiguous:
+        return None
+    base, end = byte_bounds(packed)
+    layout = []
+    for k, v in batch.as_dict().items():
+        if not v.flags.c_contiguous:
+            return None
+        lo, hi = byte_bounds(v)
+        if lo < base or hi > end:
+            return None
+        layout.append((k, lo - base, v.nbytes, v.shape, str(v.dtype)))
+    return tuple(layout)
 
 
 @dataclass

@@ -961,6 +961,20 @@ def _format(uri: str, fmt: str, default: str) -> str:
     return str(URISpec(uri).args.get("format", default)) if fmt == "auto" else fmt
 
 
+def _dsserve(uri: str, spec: BatchSpec, part_index: int, num_parts: int,
+             format: str):
+    """A ``dsserve://`` URI: the remote preprocessing tier's stream
+    (``dsserve/client.py``). The servers run ``ell_batches`` /
+    ``dense_batches`` for their shards; striping is per endpoint or per
+    tracker lease, so the static shard arguments do not apply."""
+    check(part_index == 0 and num_parts == 1,
+          "dsserve:// sources stripe across servers (or tracker "
+          "leases), not part_index/num_parts")
+    from ..dsserve.client import DsServeBatches
+
+    return DsServeBatches(uri, spec, format=format)
+
+
 def ell_batches(
     uri: str,
     spec: BatchSpec,
@@ -979,7 +993,11 @@ def ell_batches(
     the URI, defaulting to rowrec). ``indexing_mode`` applies to libsvm
     and libfm (``?indexing_mode=`` on the URI wins). ``nthread`` > 1 fans
     the parse out over threads (``ShardedFusedBatches``). Iterable, with
-    ``ring_slots``, ``truncated_nnz`` and ``close()``."""
+    ``ring_slots``, ``truncated_nnz`` and ``close()``. A
+    ``dsserve://host:port,.../<dataset-uri>`` URI reads packed slots from
+    the dsserve tier instead (``DsServeBatches``)."""
+    if uri.startswith("dsserve://"):
+        return _dsserve(uri, spec, part_index, num_parts, format)
     fmt = _format(uri, format, "rowrec")
     check(fmt in ("rowrec", "libsvm", "libfm"),
           f"ell_batches supports rowrec/libsvm/libfm, not {fmt!r}")
@@ -1008,7 +1026,9 @@ def dense_batches(
 
     ``format``: 'libsvm' | 'csv' | 'auto' (``?format=`` from the URI,
     defaulting to libsvm, reference data.cc:68-76); csv options ride the
-    URI. Otherwise as ``ell_batches``."""
+    URI. Otherwise as ``ell_batches``, ``dsserve://`` included."""
+    if uri.startswith("dsserve://"):
+        return _dsserve(uri, spec, part_index, num_parts, format)
     fmt = _format(uri, format, "libsvm")
     check(fmt in ("libsvm", "csv"),
           f"dense_batches supports libsvm/csv, not {fmt!r}")

@@ -15,6 +15,21 @@ would share the producer's ring slot, so the bytes are copied first (a
 yielded batch must not change when the producer's ring wraps). Batches
 without a usable packed layout take one transfer per array.
 
+Adopted slots (a producer that declares ``adopt_slots``, the dsserve
+client, and ``DMLC_STAGING_ADOPT`` on): the host→device copy reads the
+received buffer itself, with no copy into a pinned slot. The copy's
+source is kept referenced until the copy's event has completed (torch's
+caching host allocator tracks only the buffers it allocated, so nothing
+else would keep a pooled bank from being recycled, or an shm segment
+from being acked back to its server, under the DMA). The producer is
+asked to page-lock what it receives into (``pin_host_memory``): pool
+banks from torch's pinned allocator, each mapped shm segment registered
+once with ``cudaHostRegister``; a failed registration raises. On the CPU
+an adopted slot is shared with ``torch.from_numpy`` (the tensor holds
+the array, so the producer's liveness tracking sees it), and a buffer
+that fails the shape check (not page-aligned) is copied and counted in
+``dsserve.slot_copies``.
+
 Telemetry (the JAX package's series and span names): the registry
 counters ``staging.rows``/``bytes``/``device_puts``/``batches{path}``
 and one ``staging.stage_seconds{stage}`` histogram per stage, resolved
@@ -31,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional
@@ -40,10 +56,10 @@ import torch
 
 from ..telemetry import default_registry as _default_registry
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.logging import check
+from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from ..utils.profiler import annotate
-from .batcher import Batch
+from .batcher import Batch, packed_layout
 
 __all__ = [
     "StagingPipeline",
@@ -59,18 +75,18 @@ _REG = _default_registry()
 _ROWS_STAGED = _REG.counter("staging.rows", help="rows staged to device")
 _BYTES_STAGED = _REG.counter("staging.bytes", help="bytes staged to device")
 _DEVICE_PUTS = _REG.counter("staging.device_puts", help="device transfers")
-# registered under the JAX names although their paths (the adopted
-# dsserve slot, the jitted unpacker cache) are not ported: they stay 0
-_REG.counter(
+_SLOTS_ADOPTED = _REG.counter(
     "staging.adopted_slots",
     help="packed slots device_put straight from the producer's buffer "
     "(dispatch_pack copy skipped)",
 )
-_REG.counter(
+_SLOT_COPIES = _REG.counter(
     "dsserve.slot_copies",
     help="received dsserve slots that took the dispatch_pack memcpy "
     "anyway (0 on the zero-copy adopt path)",
 )
+# registered under the JAX name although its path (the jitted unpacker
+# cache) is not ported: it stays 0
 _REG.counter("staging.unpack_evictions", help="jitted-unpacker LRU evictions")
 _BATCH_COUNTERS = {
     kind: _REG.counter(
@@ -92,29 +108,126 @@ _STAGE_HISTS = {
 }
 
 
-def packed_layout(batch: Batch):
-    """(name, offset, nbytes, shape, dtype) per array, from the views'
-    addresses inside ``batch.packed`` — or None when an array is not a
-    dense C-contiguous view into it (a strided view can have bounds
-    inside the buffer without its bytes being the run [off, off+nbytes))."""
-    try:  # numpy >= 2.0 moved it; 1.x has the top-level name
-        from numpy.lib.array_utils import byte_bounds
-    except ImportError:
-        byte_bounds = np.byte_bounds
+_PAGE = 4096  # an adopted slot starts on a page, as a pinned ring slot does
 
+
+def _adopt_enabled() -> bool:
+    """``DMLC_STAGING_ADOPT`` gate (default on): off forces the
+    dispatch_pack copy even for adopt-capable producers — the A/B lever
+    for the zero-copy receive path."""
+    return os.environ.get("DMLC_STAGING_ADOPT", "on").strip().lower() not in (
+        "off", "0", "false", "no",
+    )
+
+
+def adoptable_slot(batch: Batch) -> bool:
+    """True when this batch's packed buffer can be copied to the device
+    directly, skipping the dispatch_pack copy. Callers first check the
+    producer declared ``adopt_slots`` — the promise that a delivered
+    buffer is stable until every view over it dies (dsserve's pooled
+    recv banks and shm segments are liveness-tracked by finalizers). Per
+    batch all that remains is shape: page-aligned and contiguous."""
     packed = batch.packed
-    if packed is None or not packed.flags.c_contiguous:
-        return None
-    base, end = byte_bounds(packed)
-    layout = []
-    for k, v in batch.as_dict().items():
-        if not v.flags.c_contiguous:
-            return None
-        lo, hi = byte_bounds(v)
-        if lo < base or hi > end:
-            return None
-        layout.append((k, lo - base, v.nbytes, v.shape, str(v.dtype)))
-    return tuple(layout)
+    return (
+        packed is not None
+        and packed.flags.c_contiguous
+        and packed.ctypes.data % _PAGE == 0
+    )
+
+
+class _InFlight:
+    """Adopted host buffers that a host→device copy may still read, each
+    kept referenced until its copy's event has completed; at most
+    ``cap`` at once (the oldest is waited for to make room)."""
+
+    def __init__(self, cap: int) -> None:
+        self._cap = max(1, cap)
+        self._q: list = []  # (event, buffer), oldest first
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def prune(self) -> None:
+        """Drop the buffers whose copies have completed, oldest first."""
+        n = 0
+        while n < len(self._q) and self._q[n][0].query():
+            n += 1
+        del self._q[:n]
+
+    def full(self) -> bool:
+        return len(self._q) >= self._cap
+
+    def wait_oldest(self) -> None:
+        event, _buf = self._q.pop(0)
+        event.synchronize()
+
+    def add(self, event, buf) -> None:
+        self._q.append((event, buf))
+
+    def drain(self) -> None:
+        while self._q:
+            self.wait_oldest()
+
+
+def _cuda_check(err, what: str) -> None:
+    code = int(getattr(err, "value", err))
+    if code != 0:
+        raise Error(f"{what} failed: {err} ({code})")
+
+
+class _CudaPinning:
+    """Page-locking for an adopting CUDA pipeline's producer (see
+    ``dsserve.client.set_host_pinning``): each pool bank comes from
+    torch's pinned allocator, each mapped shm segment is registered with
+    ``cudaHostRegister`` once and unregistered before it is unmapped.
+    Counts what it pinned."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.banks = 0
+        self.segments = 0
+        self.segments_unregistered = 0
+
+    def bank(self, nbytes: int) -> np.ndarray:
+        with self._lock:
+            self.banks += 1
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+
+    def register(self, addr: int, nbytes: int) -> None:
+        _cuda_check(torch.cuda.cudart().cudaHostRegister(addr, nbytes, 0),
+                    f"cudaHostRegister of {nbytes} bytes")
+        with self._lock:
+            self.segments += 1
+
+    def unregister(self, addr: int) -> None:
+        _cuda_check(torch.cuda.cudart().cudaHostUnregister(addr),
+                    "cudaHostUnregister")
+        with self._lock:
+            self.segments_unregistered += 1
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"banks_pinned": self.banks, "segments_pinned": self.segments,
+                    "segments_unpinned": self.segments_unregistered}
+
+
+_PINNING: Optional[_CudaPinning] = None
+_PINNING_LOCK = threading.Lock()
+
+
+def _cuda_pinning() -> _CudaPinning:
+    global _PINNING
+    with _PINNING_LOCK:
+        if _PINNING is None:
+            _PINNING = _CudaPinning()
+        return _PINNING
+
+
+def host_pinning_stats() -> Dict[str, int]:
+    """What adopting CUDA pipelines had their producers page-lock so far
+    in this process: pool banks and shm segments (0s when none asked)."""
+    return _PINNING.stats() if _PINNING is not None else {
+        "banks_pinned": 0, "segments_pinned": 0, "segments_unpinned": 0}
 
 
 def _torch_dtype(dtype: str) -> torch.dtype:
@@ -268,6 +381,12 @@ class StagingPipeline:
         self.batches_staged = 0
         self.bytes_staged = 0
         self.close_timed_out = False
+        # slot adoption only when the producer PROMISES its packed
+        # buffers stay stable until every view dies (dsserve's pooled and
+        # shm receive buffers); ring producers recycle eagerly
+        self._adopt = bool(getattr(host_batches, "adopt_slots", False)) and _adopt_enabled()
+        self.slots_adopted = 0
+        self.slots_adopted_pinned = 0
         # wall seconds per stage; the transfer thread's stages overlap
         # the consumer's, so the sum may exceed wall time
         self.stage_seconds: Dict[str, float] = {
@@ -285,6 +404,10 @@ class StagingPipeline:
             self._copy_stream = torch.cuda.Stream(self._device)
             self._slots = [_PinnedSlot() for _ in range(self._depth + 2)]
             self._slot_i = 0
+            self._inflight = _InFlight(self._depth + 2)
+            pin = getattr(host_batches, "pin_host_memory", None)
+            if self._adopt and pin is not None:
+                pin(_cuda_pinning())
         self._host_iter = Prefetcher(
             lambda: _produced(host_batches), prefetch, "staging"
         )
@@ -318,6 +441,28 @@ class StagingPipeline:
         self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
         return _Staged(u8=u8, event=event, layout=layout)
 
+    def _adopt_cuda(self, packed: np.ndarray, layout) -> _Staged:
+        """The copy straight from the producer's buffer, which stays
+        referenced until the copy's event completes."""
+        self._inflight.prune()
+        if self._inflight.full():
+            t0 = time.perf_counter()
+            with annotate("dmlc:dispatch_slot_wait"):
+                self._inflight.wait_oldest()
+            self._observe("dispatch_slot_wait", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with annotate("dmlc:dispatch_put"), torch.cuda.stream(self._copy_stream):
+            src = torch.from_numpy(packed)
+            if src.is_pinned():
+                self.slots_adopted_pinned += 1
+            u8 = torch.empty(src.numel(), dtype=torch.uint8, device=self._device)
+            u8.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        self._inflight.add(event, packed)
+        self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
+        return _Staged(u8=u8, event=event, layout=layout)
+
     def _staged(self) -> Iterator[_Staged]:
         """Transfer thread: pull host batches, start their copies."""
         with (torch.cuda.device(self._device) if self._cuda
@@ -340,10 +485,28 @@ class StagingPipeline:
                 self._observe("dispatch_put", time.perf_counter() - t0,
                               dispatch=True)
                 self.staging.tick_batch(False, len(item.arrays))
+            elif self._adopt and adoptable_slot(host):
+                if self._cuda:
+                    item = self._adopt_cuda(host.packed, layout)
+                else:
+                    # shared: the tensor holds the array, so the
+                    # producer cannot recycle it under the consumer
+                    t0 = time.perf_counter()
+                    with annotate("dmlc:dispatch_put"):
+                        item = _Staged(u8=torch.from_numpy(host.packed), layout=layout)
+                    self._observe("dispatch_put", time.perf_counter() - t0,
+                                  dispatch=True)
+                self.slots_adopted += 1
+                _SLOTS_ADOPTED.inc()
+                self.staging.tick_batch(True, 1)
             elif self._cuda:
+                if self._adopt:  # adopt-capable, but this buffer is unaligned
+                    _SLOT_COPIES.inc()
                 item = self._put_cuda(host.packed, layout)
                 self.staging.tick_batch(True, 1)
             else:
+                if self._adopt:
+                    _SLOT_COPIES.inc()
                 t0 = time.perf_counter()
                 with annotate("dmlc:dispatch_pack"):
                     u8 = torch.from_numpy(np.array(host.packed, copy=True))
@@ -402,6 +565,8 @@ class StagingPipeline:
         out = self.staging.snapshot()
         out["dispatch_ring_depth"] = self._depth
         out["dispatch_ring_slots"] = len(self._slots) if self._cuda else 0
+        out["slots_adopted"] = self.slots_adopted
+        out["slots_adopted_pinned"] = self.slots_adopted_pinned
         return out
 
     def close(self) -> bool:
@@ -413,6 +578,8 @@ class StagingPipeline:
         xfer_joined = self._xfer_iter.destroy(timeout=1.0)
         if not (host_joined and xfer_joined):
             self.close_timed_out = True
+        elif self._cuda:
+            self._inflight.drain()  # the adopted sources' copies are done
         return host_joined and xfer_joined
 
 

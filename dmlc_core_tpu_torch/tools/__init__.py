@@ -6,18 +6,20 @@ arguments and output:
 - ``info``: the runtime feature report (``build_info()``: the parse core,
   codecs, env flags, torch, CUDA and each device, the CUDA kernels'
   source hash). ``info <uri>`` describes an indexed shard through the
-  point-lookup layer, which is not ported (``ROADMAP.md`` §1 item 7): it
-  raises.
+  point-lookup layer, which is not ported (``ROADMAP.md`` §1 item 7d):
+  it raises.
 - ``trace dump|merge|report``: the flight recorder's operator surface.
 - ``top``: a live dashboard over the tracker's ``/metrics.json?window=``
   (with the shard queue depth of a dynamic-shard job).
 - ``journal inspect``: the tracker's control-plane journal, record by
   record.
+- ``dsserve serve``: one dsserve preprocessing worker in the foreground
+  (what ``submit --dsserve N`` launches N of).
 
 The other subcommands (``ls``, ``cat``, ``cp``, ``split``, ``recordio``,
 ``rowrec``, ``recompress``, ``dump``, ``ckpt``) wait for ``ROADMAP.md``
-§1 item 9; ``serve``, ``cached``, ``dsserve`` and ``autoscale`` for items
-7 and 8. Importing this module loads no torch.
+§1 item 9b; ``serve`` for item 7d, ``autoscale`` for item 7b and
+``cached`` for item 8. Importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -43,9 +45,52 @@ def _cmd_info(args) -> int:
         raise Error(
             "tools info <uri> describes an indexed shard through the "
             "point-lookup layer (io/lookup.py), which is not ported "
-            "(ROADMAP.md §1 item 7)"
+            "(ROADMAP.md §1 item 7d)"
         )
     print(json.dumps(build_info(), indent=2))
+    return 0
+
+
+def _cmd_dsserve(args) -> int:
+    """Operator surface for the disaggregated preprocessing tier
+    (``dsserve/``):
+
+    - ``serve``: run one preprocessing worker in the foreground (what
+      ``submit --dsserve N`` launches N of, next to the tracker) until
+      SIGINT/SIGTERM. With a tracker in the environment
+      (``DMLC_TRACKER_URI``/``PORT``) the server leases micro-shards;
+      ``--port-file`` writes the bound endpoint as a JSON readiness
+      signal for launchers; ``--port 0`` binds any free port. SIGTERM
+      is the GRACEFUL retire signal: the server finishes the shard it
+      is producing, EPOCH_ENDs its streams, releases every held lease,
+      then exits zero — so a scale-down (or an operator's drain) never
+      strands a lease to its TTL.
+    """
+    import json
+    import signal
+
+    from ..dsserve.server import DsServeServer, write_port_file
+    from ..telemetry import tracing
+
+    tracing.set_process_label("dsserve-worker")
+    server = DsServeServer(args.host, args.port, rank=args.rank)
+    if args.port_file:
+        write_port_file(args.port_file, args.host, server.port)
+    signal.signal(signal.SIGTERM, lambda *_a: server.retire())
+    print(
+        f"dsserve worker pid {os.getpid()} rank {server.rank} serving "
+        f"{args.host}:{server.port}"
+        + (" (tracker-leased shards)"
+           if os.environ.get("DMLC_TRACKER_URI") else " (static stripes)"),
+        file=sys.stderr,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+        print(json.dumps(server.stats()), file=sys.stderr)
     return 0
 
 
@@ -512,6 +557,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="with --once: print the derived model as JSON",
     )
     top.set_defaults(fn=_cmd_top)
+
+    ds = sub.add_parser(
+        "dsserve", help="disaggregated preprocessing worker (dsserve://)"
+    )
+    ds.add_argument("action", choices=["serve"])
+    ds.add_argument("--host", default="127.0.0.1")
+    ds.add_argument(
+        "--port", default=0, type=int,
+        help="listen port (0 = any free port; see --port-file)",
+    )
+    ds.add_argument(
+        "--port-file", default="",
+        help="write the bound endpoint here as JSON once listening "
+             "(the dmlc-submit launcher's readiness signal)",
+    )
+    ds.add_argument(
+        "--rank", default=None, type=int,
+        help="shard-lease identity (default $DMLC_TASK_ID)",
+    )
+    ds.set_defaults(fn=_cmd_dsserve)
 
     jr = sub.add_parser(
         "journal",

@@ -16,10 +16,16 @@ death watch (``collective.notify_task_failure``) before the relaunch.
 relaunched on the same port from the same journal while the workers ride
 the outage.
 
+``--dsserve N`` starts the job's dsserve tier (``DsServeTier``): N
+``python -m dmlc_core_tpu_torch.tools dsserve serve`` processes beside
+the tracker, each leasing micro-shards from the job's shard service and
+streaming packed slots; their endpoints reach every task as
+``DMLC_DSSERVE``.
+
 Left out, each refused by ``refuse_unported`` with the ``ROADMAP.md``
 item that brings it: the block-cache daemon (``--block-cache``, §1 item
-8), and the dsserve tier with the autoscale controller that sizes it
-(``--dsserve``, ``--autoscale*``, §1 item 7). ``--trace-dir`` (exported
+8), and the autoscale controller with its elastic actuator
+(``--autoscale*``, §1 item 7b). ``--trace-dir`` (exported
 by ``submit``) reaches every task through the inherited environment; a
 task the supervisor SIGKILLs leaves no trace file, since no exit hook
 runs.
@@ -31,11 +37,13 @@ import json
 import logging
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ...utils.logging import Error
 from .. import collective, shardsvc
@@ -49,12 +57,11 @@ logger = logging.getLogger("dmlc_core_tpu_torch.tracker")
 _UNPORTED = (
     ("block_cache", "--block-cache", "§1 item 8"),
     ("block_cache_mb", "--block-cache-mb", "§1 item 8"),
-    ("dsserve", "--dsserve", "§1 item 7"),
-    # the controller's one actuator is the elastic dsserve tier, and two
-    # of its three input-stall stages are dsserve's
-    ("autoscale", "--autoscale", "§1 item 7"),
-    ("autoscale_cost_ceiling", "--autoscale-cost-ceiling", "§1 item 7"),
-    ("autoscale_dwell", "--autoscale-dwell", "§1 item 7"),
+    # the controller scales the dsserve tier through its elastic
+    # actuator, which comes with it
+    ("autoscale", "--autoscale", "§1 item 7b"),
+    ("autoscale_cost_ceiling", "--autoscale-cost-ceiling", "§1 item 7b"),
+    ("autoscale_dwell", "--autoscale-dwell", "§1 item 7b"),
 )
 
 
@@ -64,6 +71,192 @@ def refuse_unported(args) -> None:
     for attr, flag, item in _UNPORTED:
         if getattr(args, attr, None):
             raise Error(f"{flag} is not ported (ROADMAP.md {item})")
+
+
+class _DsWorker:
+    """One elastic-tier worker process and its identity."""
+
+    __slots__ = ("proc", "task_id", "port_file", "endpoint")
+
+    def __init__(self, proc, task_id: int, port_file: str) -> None:
+        self.proc = proc
+        self.task_id = task_id
+        self.port_file = port_file
+        self.endpoint: str = ""
+
+
+class DsServeTier:
+    """The job's disaggregated preprocessing tier (``dmlc-submit
+    --dsserve N``): N ``tools dsserve serve`` worker processes next to
+    the tracker, each leasing micro-shards from the job's shard service
+    (``envs`` carries the tracker address) and streaming packed slots.
+    Endpoints are collected from per-server port files and handed to
+    every worker as ``DMLC_DSSERVE`` so payloads can open
+    ``dsserve://$DMLC_DSSERVE/<dataset-uri>``; ``stop()`` tears the
+    tier down with the job. Lease identities start at task id 1000 so
+    they can never collide with trainer ranks (a collision would let a
+    trainer heartbeat renew a server's leases).
+
+    The tier is elastic: ``add_worker`` spawns one more server,
+    ``retire_worker`` SIGTERMs the newest one (the server finishes its
+    shard, releases its leases and exits; past the grace window it is
+    killed and ``shardsvc.release_task`` frees its leases immediately).
+    The live membership is mirrored into ``endpoints_file`` — an
+    atomically rewritten JSON the clients poll via ``DMLC_DSSERVE_FILE``
+    so a mid-epoch spawn gets dialed without waiting for the next epoch.
+    The autoscale controller that calls them is ``ROADMAP.md`` §1 item
+    7b."""
+
+    def __init__(
+        self, n: int, envs: Dict[str, object], host: str = "127.0.0.1"
+    ) -> None:
+        self._dir = tempfile.mkdtemp(prefix="dmlc-dsserve-")
+        self._lock = threading.Lock()
+        self._envs = {str(k): str(v) for k, v in envs.items()}
+        self._host = host
+        self._next_id = 1000
+        self._workers: List[_DsWorker] = []
+        self._retirees: List[_DsWorker] = []
+        self.endpoints_file = os.path.join(self._dir, "endpoints.json")
+        try:
+            spawned = [self._spawn() for _ in range(n)]
+            deadline = time.monotonic() + 15.0
+            for w in spawned:
+                self._await_port(w, deadline)
+        except BaseException:
+            self.stop()
+            raise
+        self._write_endpoints()
+        logger.info("dsserve tier serving at %s", self.endpoints)
+
+    @property
+    def endpoints(self) -> str:
+        with self._lock:
+            return ",".join(w.endpoint for w in self._workers if w.endpoint)
+
+    def _spawn(self) -> _DsWorker:
+        with self._lock:
+            task_id = self._next_id
+            self._next_id += 1
+        pf = os.path.join(self._dir, f"server{task_id}.port")
+        env = os.environ.copy()
+        env.update(self._envs)
+        env["DMLC_TASK_ID"] = str(task_id)
+        proc = subprocess.Popen([
+            sys.executable, "-m", "dmlc_core_tpu_torch.tools", "dsserve",
+            "serve", "--host", self._host, "--port", "0",
+            "--port-file", pf,
+        ], env=env)
+        w = _DsWorker(proc, task_id, pf)
+        with self._lock:
+            self._workers.append(w)
+        return w
+
+    def _await_port(self, w: _DsWorker, deadline: float) -> None:
+        while not os.path.exists(w.port_file):
+            if (w.proc.poll() is not None
+                    or time.monotonic() > deadline):
+                raise RuntimeError(
+                    f"dsserve worker task {w.task_id} failed to start "
+                    f"(port file {w.port_file} never appeared)"
+                )
+            time.sleep(0.05)
+        with open(w.port_file) as f:
+            ep = json.load(f)
+        w.endpoint = f"{ep['host']}:{ep['port']}"
+
+    def _write_endpoints(self) -> None:
+        """Atomic rewrite (tmp + rename, the write_port_file idiom) so
+        a client's discovery poll can never read a partial list."""
+        with self._lock:
+            eps = [w.endpoint for w in self._workers if w.endpoint]
+        tmp = self.endpoints_file + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"endpoints": eps}, f)
+        os.replace(tmp, self.endpoints_file)
+
+    def n_live(self) -> int:
+        with self._lock:
+            return sum(
+                1 for w in self._workers
+                if w.endpoint and w.proc.poll() is None
+            )
+
+    def add_worker(self, timeout: float = 15.0) -> str:
+        """Scale-up actuation: one more server, blocking until it binds
+        (so the controller's actual-fleet gauge is truthful by its next
+        tick) and published to the discovery file."""
+        w = self._spawn()
+        try:
+            self._await_port(w, time.monotonic() + timeout)
+        except BaseException:
+            with self._lock:
+                if w in self._workers:
+                    self._workers.remove(w)
+            if w.proc.poll() is None:
+                w.proc.kill()
+                w.proc.wait()
+            raise
+        self._write_endpoints()
+        logger.info(
+            "dsserve tier scaled up: +%s (task %d)", w.endpoint, w.task_id
+        )
+        return w.endpoint
+
+    def retire_worker(self, grace: float = 30.0) -> Optional[str]:
+        """Scale-down actuation: SIGTERM the newest live worker — the
+        server's retire path finishes its current shard, EPOCH_ENDs its
+        streams, releases its leases and exits zero. A worker that
+        outlives ``grace`` is killed and its leases released through
+        ``shardsvc.release_task`` so nothing waits out a TTL. Returns
+        the retired endpoint, or None when the tier is empty."""
+        with self._lock:
+            live = [w for w in self._workers if w.proc.poll() is None]
+            if not live:
+                return None
+            w = live[-1]
+            self._workers.remove(w)
+            self._retirees.append(w)
+        self._write_endpoints()
+        try:
+            w.proc.send_signal(signal.SIGTERM)
+        except OSError:
+            pass
+        threading.Thread(
+            target=self._reap, args=(w, grace), daemon=True,
+            name="dsserve-retire",
+        ).start()
+        logger.info(
+            "dsserve tier retiring %s (task %d)", w.endpoint, w.task_id
+        )
+        return w.endpoint
+
+    def _reap(self, w: _DsWorker, grace: float) -> None:
+        try:
+            w.proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            logger.warning(
+                "dsserve worker task %d ignored retire for %.0fs; killing "
+                "and releasing its leases", w.task_id, grace,
+            )
+            w.proc.kill()
+            w.proc.wait()
+            shardsvc.release_task(w.task_id, self._host)
+
+    def stop(self) -> None:
+        with self._lock:
+            procs = [w.proc for w in self._workers + self._retirees]
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        shutil.rmtree(self._dir, ignore_errors=True)
 
 
 class TrackerSupervisor:
@@ -209,14 +402,25 @@ def make_launcher(
 def submit(args) -> None:
     refuse_unported(args)
     checks: List = []
+    dsserve: Optional[DsServeTier] = None
 
     def launch_all(nworker: int, nserver: int, envs: Dict[str, object]) -> None:
+        nonlocal dsserve
+        n_ds = int(getattr(args, "dsserve", 0) or 0)
         if args.dry_run:
+            for i in range(n_ds):
+                print(f"[dry-run] dsserve worker {i}: "
+                      "python -m dmlc_core_tpu_torch.tools dsserve serve")
             for i in range(nworker + nserver):
                 role = "worker" if i < nworker else "server"
                 print(f"[dry-run] local task {i} role={role}: "
                       f"{' '.join(args.command)}")
             return
+        if n_ds > 0:
+            dsserve = DsServeTier(n_ds, envs,
+                                  host=getattr(args, "dsserve_host", "127.0.0.1"))
+            envs = dict(envs)
+            envs["DMLC_DSSERVE"] = dsserve.endpoints
         # --local-num-attempt retries == max_attempt total runs - 1
         # (reference local.py retry budget); DMLC_MAX_ATTEMPT wins if set.
         # localhost is one shared host, not a failure domain — per-task
@@ -240,12 +444,16 @@ def submit(args) -> None:
             return
         checks.append(sup.run_in_thread(nworker, "local-supervisor"))
 
-    if (getattr(args, "tracker_journal", None)
-            and int(getattr(args, "num_servers", 0) or 0) == 0
-            and not args.dry_run):
-        _supervised_submit(args, launch_all, checks)
-        return
-    run_tracker_submit(
-        args, launch_all,
-        abort_check=lambda: checks[0]() if checks else None,
-    )
+    try:
+        if (getattr(args, "tracker_journal", None)
+                and int(getattr(args, "num_servers", 0) or 0) == 0
+                and not args.dry_run):
+            _supervised_submit(args, launch_all, checks)
+        else:
+            run_tracker_submit(
+                args, launch_all,
+                abort_check=lambda: checks[0]() if checks else None,
+            )
+    finally:
+        if dsserve is not None:
+            dsserve.stop()

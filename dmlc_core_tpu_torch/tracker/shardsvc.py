@@ -753,8 +753,7 @@ def reclaim_task(task_id: int, host: str) -> None:
 def release_task(task_id: int, host: str = "") -> None:
     """Elastic-retire escalation hook: a retiring worker that had to be
     killed gets its leases released NOW instead of waiting out the TTL
-    (the JAX package's dsserve tier calls it; the port's comes with
-    ``ROADMAP.md`` §1 item 7). Same task→rank translation as
+    (``DsServeTier.retire_worker``'s kill branch). Same task→rank translation as
     ``reclaim_task``; no-op when no shard service is live."""
     service = active_service()
     if service is not None:

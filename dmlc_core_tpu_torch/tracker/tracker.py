@@ -26,8 +26,8 @@ rendezvous. With a journal directory (``--journal`` /
 the rank assignments are written ahead of each answer, and a tracker
 started on the same directory replays them: leases expire
 conservatively, completions and ranks survive. Left out: the autoscale
-controller (``DMLC_AUTOSCALE`` raises), ``ROADMAP.md`` §1 item 7, with
-the dsserve tier it scales.
+controller (``DMLC_AUTOSCALE`` raises), ``ROADMAP.md`` §1 item 7b, which
+scales the dsserve tier.
 """
 
 from __future__ import annotations
@@ -333,7 +333,7 @@ def refuse_unported_env() -> None:
     ``ROADMAP.md`` item that brings each."""
     if os.environ.get("DMLC_AUTOSCALE"):
         raise Error("the autoscale controller (DMLC_AUTOSCALE) is not ported: "
-                    "it scales the dsserve tier (ROADMAP.md §1 item 7)")
+                    "it scales the dsserve tier (ROADMAP.md §1 item 7b)")
 
 
 class RabitTracker:

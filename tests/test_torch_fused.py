@@ -342,7 +342,7 @@ def test_overflow_error_policy_raises(tmp_path, layout):
     (lambda p, s, d: ell_batches(p + "?format=libsvm&dynamic_shards=1", s), "not supported"),
     (lambda p, s, d: ell_batches(p + "?shuffle=batch", s), "indexed recordio source"),
     (lambda p, s, d: ell_batches(p + ";" + p, s), "multi-file"),
-    (lambda p, s, d: ell_batches("dsserve://h:1/x", s), "remote"),
+    (lambda p, s, d: plain_batches("dsserve://127.0.0.1:1/x", s), "remote"),
     (lambda p, s, d: ell_batches(p, s, format="csv"), "rowrec/libsvm/libfm"),
     (lambda p, s, d: ell_batches(p, d), "layout"),
     (lambda p, s, d: dense_batches(p, s), "dense"),

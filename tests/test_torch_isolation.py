@@ -39,8 +39,8 @@ print("BAD", bad)
 print("NAMES", " ".join(sorted(n for n in sys.modules if n.startswith("dmlc_core_tpu_torch."))))
 """
 
-# the tracker, the launcher, the collective, the shard service and the
-# journal: numpy, sockets and subprocesses, without torch
+# the tracker, the launcher, the collective, the shard service, the
+# journal and dsserve: numpy, sockets and subprocesses, without torch
 TRACKER_MODULES = [
     "dmlc_core_tpu_torch.tracker",
     "dmlc_core_tpu_torch.tracker.protocol",
@@ -69,10 +69,22 @@ TRACKER_MODULES = [
     "dmlc_core_tpu_torch.utils.timer",
     "dmlc_core_tpu_torch.tools",
     "dmlc_core_tpu_torch.tools.__main__",
+    # dsserve: a server process and the client's receive path load no
+    # torch (the staging pipeline that adopts the slots does)
+    "dmlc_core_tpu_torch.dsserve",
+    "dmlc_core_tpu_torch.dsserve.wire",
+    "dmlc_core_tpu_torch.dsserve.server",
+    "dmlc_core_tpu_torch.dsserve.client",
+    "dmlc_core_tpu_torch.concurrency",
+    "dmlc_core_tpu_torch.concurrency.threaded_iter",
+    "dmlc_core_tpu_torch.io.shm",
+    "dmlc_core_tpu_torch.staging.batcher",
+    "dmlc_core_tpu_torch.staging.fused",
 ]
 
 # the modules of the indexed, shuffled path, the checkpoints, the example
-# ports, the codec layer and the tracker: each must be among those imported
+# ports, the codec layer, the tracker and dsserve: each must be among
+# those imported
 NEW_MODULES = {
     "dmlc_core_tpu_torch.checkpoint",
     "dmlc_core_tpu_torch.io.stream",

@@ -189,7 +189,7 @@ def test_unknown_cluster_raises():
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"DMLC_AUTOSCALE": "1:4"}, "7"),
+    ({"DMLC_AUTOSCALE": "1:4"}, "7b"),
 ])
 def test_tracker_refuses_unported_features(monkeypatch, env, item):
     for k, v in env.items():
