@@ -158,7 +158,35 @@ Phases (any failure exits non-zero and prints no result line):
    trainer took 8 steps: every micro-shard committed once, each equal
    to the static part, K1-K4 once a step, the params within
    ``PARAM_REL`` of a one-process replay of the batches trained;
-13. the ``entry()`` forward on the card against the CPU.
+13. ``fault://`` at the Criteo width over the shuffle phase's 2^18
+   indexed rows: (a) FM SGD for 128 steps over ``shuffle=batch`` through
+   seeded chaos (open 5xx, mid-read resets, short reads; the retry
+   backoff at test speed), each batch's digest equal to the same pass
+   over the clean file, ``io_stats()`` showing faults fired and retries
+   healed, the params within ``PARAM_REL`` of the clean pass; (b) window
+   loads (``shuffle=window``, window 1024, one span a record) behind
+   ``fault://`` latency, serial (``DMLC_FETCH_THREADS=1``) and with the
+   span fetcher's default threads, twice in turns, FM over part 0 of 16
+   (8 steps) a pass:
+   staged rows/s, wait share, step ms, the ``dmlc:fetch_wait`` seconds,
+   the spans fetched and the fetch concurrency peak, each pass's batches
+   equal across the arms and to the clean file's;
+14. the autoscale loop (``bench.py``'s autoscale_phase_shift with the
+   card's FM as the trainer): one trainer launched by the port's
+   ``submit`` drains the same rows through ``dsserve://``
+   (``shuffle=record``, 6 micro-shards an epoch, each step paced to
+   10 ms), 3 cheap epochs over the plain file then 4 expensive ones over
+   its ``fault://`` latency wrap; once with ``--dsserve 2`` and once
+   with ``--autoscale 1:2``. Gates: the autoscaled run scales up at
+   least once, first in the expensive phase (the tracker's
+   ``dmlc:autoscale_decision`` instants), with at most 2 direction
+   changes, and ``tools autoscale replay`` of its report scales up first
+   in the expensive phase too; in both runs every (epoch, micro-shard)
+   is trained once with the local producer's batches, no duplicate,
+   K1-K4 once a step, the params within ``PARAM_REL`` of a one-process
+   replay. It prints both runs' expensive-phase makespans and their
+   ratio, the recv wait share per phase and the controller's spend;
+15. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -167,9 +195,9 @@ registers. It prints a ``{"ptxas": [...]}`` (with the scatters' dynamic
 shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
 ``{"slice": {...}}``, a ``{"shuffle": {...}}``, a ``{"codec": {...}}``,
 an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
-``{"telemetry": {...}}``, a ``{"shards": {...}}`` and a ``{"dsserve":
-{...}}`` line, the nvidia-smi line, and last ``{"ok": true, "device":
-{...}}``.
+``{"telemetry": {...}}``, a ``{"shards": {...}}``, a ``{"dsserve":
+{...}}``, a ``{"faults": {...}}`` and an ``{"autoscale": {...}}`` line,
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2817,6 +2845,458 @@ def dsserve_phase(dev, card: str):
     return out, launches
 
 
+# -- the faults phase: fault:// chaos and the span fetcher ---------------------------
+# (a) seeded chaos on every stream: 3 open 5xx, 2 mid-read resets and 2
+# short reads, healed by the retry layer
+FAULT_CHAOS = "resets=2,short=2,errors=3,seed=7"
+# ... with the retry backoff at test speed (the policy's env knobs): the
+# default 0.1 s base grows to seconds over a stream's 5 retries
+FAULT_RETRY = {"DMLC_RETRY_BASE_SECS": "0.01", "DMLC_RETRY_CAP_SECS": "0.05"}
+# (b) latency on about 2 reads in 5 of every stream (a spike every 2-3
+# read ordinals, more spikes than reads), one span a record, over part 0
+# of FETCH_PARTS (8 batches, 16 windows; a pass runs to its end, so no
+# window load is left in flight when the pipeline closes)
+FETCH_FAULT = "latency_ms=1,spikes=100000,seed=3"
+FETCH_WINDOW, FETCH_PARTS = 1024, 16
+
+
+def stall_seconds(stage: str) -> float:
+    """This process's ``trace.stall_seconds`` counter of ``stage``."""
+    from dmlc_core_tpu_torch.telemetry import default_registry
+
+    key = f'trace.stall_seconds{{stage="{stage}"}}'
+    return default_registry().snapshot()["counters"].get(key, 0.0)
+
+
+def fetch_arm(name: str, uri: str, spec, dev, model, threads):
+    """One FM pass over part 0 of FETCH_PARTS of ``uri`` with
+    ``DMLC_FETCH_THREADS`` set to ``threads`` (None: the default), the
+    split's counters read at each step, before the pass closes it."""
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+    from dmlc_core_tpu_torch.telemetry import default_registry
+
+    old = {"DMLC_FETCH_THREADS": os.environ.get("DMLC_FETCH_THREADS")}
+    if threads is None:
+        os.environ.pop("DMLC_FETCH_THREADS", None)
+    else:
+        os.environ["DMLC_FETCH_THREADS"] = str(threads)
+    peak = default_registry().gauge("io.fetch.concurrency_peak")
+    peak.reset_max()
+    wait0 = stall_seconds("fetch_wait")
+    io = {}
+    try:
+        src = ell_batches(uri, spec, part_index=0, num_parts=FETCH_PARTS)
+        stats, _, _ = drive(name, model, src, dev, SHARD_LR, min_steps=1, digests=True,
+                            must_fall=False, on_step=lambda _s, _b: io.update(src.io_stats()))
+    finally:
+        restore_env(old)
+    from dmlc_core_tpu_torch.io.spanfetch import fetch_threads
+
+    stats["fetch"] = {
+        "threads": threads or fetch_threads(), "fetch_wait_s": stall_seconds("fetch_wait") - wait0,
+        "fetch_spans": io.get("fetch_spans", 0), "spans": io.get("spans"),
+        "split_concurrency_peak": io.get("fetch_concurrency_peak", 1),
+        "concurrency_peak_gauge": peak.value(), "faults_injected": io.get("faults_injected"),
+    }
+    return stats
+
+
+def faults_phase(dev, card: str):
+    """The shuffle phase's 2^18 indexed rows behind ``fault://`` on the
+    card: (a) FM SGD for 128 steps over ``shuffle=batch`` through seeded
+    chaos (FAULT_CHAOS), each batch's digest equal to the same pass over
+    the clean file, faults fired and retries healed in ``io_stats()``, the
+    params within PARAM_REL of the clean pass; (b) window loads
+    (``shuffle=window``, one span a record) behind FETCH_FAULT latency,
+    serial (``DMLC_FETCH_THREADS=1``) and with the default fetch threads,
+    twice in turns, each pass's batches equal across the arms and to the
+    clean file's. Returns the ``{"faults": ...}`` line and the launches
+    of every pass."""
+    from dmlc_core_tpu_torch.io.faults import wrap_uri
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    def make():
+        return FactorizationMachine(D, E, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    params = lambda m: {k: p.detach().cpu().numpy() for k, p in m.params().items()}  # noqa: E731
+    pick = ("steps", "step_ms", "staged_rows_per_sec", "wait_share", "wall_s")
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"),
+                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
+        query = f"?index={rec}.idx&shuffle=batch&batch_size={B}&seed=1&epoch=0"
+        clean_model, chaos_model = make(), make()
+        clean, _, _ = drive("faults_clean", clean_model, ell_batches(rec + query, spec), dev,
+                            SHARD_LR, digests=True)
+        old = {k: os.environ.get(k) for k in FAULT_RETRY}
+        os.environ.update(FAULT_RETRY)
+        try:
+            src = ell_batches(wrap_uri(rec, FAULT_CHAOS) + query, spec)
+            chaos, _, _ = drive("faults_chaos", chaos_model, src, dev, SHARD_LR, digests=True)
+        finally:
+            restore_env(old)
+        io = src.io_stats()
+        runs += [clean, chaos]
+        if chaos["digests"] != clean["digests"] or chaos["steps"] != PRODUCER_ROWS // B:
+            diff = sum(a != b for a, b in zip(chaos["digests"], clean["digests"]))
+            fail(f"faults chaos: {diff} of {clean['steps']} batches differ from the clean "
+                 f"pass ({chaos['steps']} steps)")
+        if not (io.get("faults_injected", 0) > 0 and io.get("retries", 0) > 0):
+            fail(f"faults chaos: no fault fired or healed: {io}")
+        gap = param_gap(params(chaos_model), params(clean_model))
+        check_gap(gap, "faults chaos against the clean pass")
+        del chaos["digests"], clean["digests"]
+        chaos_out = {"uri": f"fault://{FAULT_CHAOS}<rec>{query.replace(rec, '<rec>')}",
+                     "retry_env": FAULT_RETRY, "io_stats": io, "param_gap": gap,
+                     "chaos": {k: chaos[k] for k in pick}, "clean": {k: clean[k] for k in pick}}
+
+        fquery = (f"?index={rec}.idx&shuffle=window&window={FETCH_WINDOW}&merge_gap=0"
+                  "&seed=1&epoch=0")
+        ref, _, _ = drive("fetch_clean", make(),
+                          ell_batches(rec + fquery, spec, part_index=0, num_parts=FETCH_PARTS),
+                          dev, SHARD_LR, min_steps=1, digests=True, must_fall=False)
+        runs.append(ref)
+        slow = wrap_uri(rec, FETCH_FAULT) + fquery
+        arms = {"threads_1": [], "threads_default": []}
+        for rep in range(2):
+            for arm, threads in (("threads_1", 1), ("threads_default", None)):
+                run = fetch_arm(f"fetch_{arm}_{rep}", slow, spec, dev, make(), threads)
+                if run["digests"] != ref["digests"]:
+                    fail(f"fetch {arm} pass {rep}: batches differ from the clean file's")
+                runs.append(run)
+                arms[arm].append({**{k: run[k] for k in pick}, **run["fetch"]})
+        for run in arms["threads_default"]:
+            if not (run["fetch_spans"] > 0 and run["split_concurrency_peak"] > 1
+                    and run["concurrency_peak_gauge"] > 1):
+                fail(f"fetch default arm: the span fetcher did not go parallel: {run}")
+    for run in runs:
+        for k in KERNEL_NAMES:
+            launches[k] += run["launches"][k]
+            if run["launches"][k] != run["steps"]:
+                fail(f"faults phase: launches {run['launches']} for {run['steps']} steps")
+    ref_out = {k: ref[k] for k in pick}
+    summary = {arm: {key: [r[key] for r in rs] for key in
+                     ("staged_rows_per_sec", "wait_share", "step_ms", "fetch_wait_s",
+                      "fetch_spans", "split_concurrency_peak", "concurrency_peak_gauge",
+                      "wall_s")} for arm, rs in arms.items()}
+    return {"card": card, "rows": PRODUCER_ROWS, "chaos": chaos_out,
+            "fetch": {"fault": FETCH_FAULT, "window": FETCH_WINDOW, "parts": FETCH_PARTS,
+                      "clean": ref_out, "arms": arms, "summary": summary}}, launches
+
+
+# -- the autoscale phase: submit --autoscale over a phase-shifting input --------------
+# bench.py's autoscale_phase_shift knobs (bench.py:1615-1627)
+AUTOSCALE_KNOBS = {"DMLC_AUTOSCALE_INTERVAL": "0.25", "DMLC_AUTOSCALE_WINDOW": "1.5",
+                   "DMLC_AUTOSCALE_DWELL": "10", "DMLC_TS_INTERVAL": "0.1"}
+AUTOSCALE_OVERSPLIT, AUTOSCALE_CHEAP, AUTOSCALE_EXPENSIVE = 6, 3, 4
+# the expensive phase: a latency spike on about 2 reads in 5 of each
+# micro-shard's read (65536-byte reads, more spikes than reads); chosen so
+# that one server alone holds the trainer back (PERF.md §4)
+AUTOSCALE_FAULT = "latency_ms=6,spikes=400,cap=65536,seed=5"
+# each step is paced to this period: the cheap phase stays bound by the
+# trainer, as bench.py paces its drain (25 ms a step there)
+AUTOSCALE_PACE_MS = 10.0
+
+AUTOSCALE_WORKER = """
+import hashlib, json, os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from dmlc_core_tpu_torch.dsserve import DsServeBatches
+from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.ops import _build
+from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
+from dmlc_core_tpu_torch.telemetry import default_registry
+from dmlc_core_tpu_torch.tracker.client import RabitWorker
+
+# one trainer over the job's dsserve tier, epoch by epoch: cheap epochs
+# over the plain file, then expensive ones over its fault:// latency wrap;
+# a heartbeat every 0.2 s ships the time series the controller reads. The
+# worker joins the rendezvous, and so starts sampling its time series and
+# heartbeating, after its first 16 steps: neither the controller nor a
+# replay of the report sees the wait for the servers' first producers
+cheap_uri, slow_uri, out = sys.argv[1], sys.argv[2], sys.argv[3]
+lr, n_cheap, n_slow = float(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6])
+pace, dev = float(sys.argv[7]) / 1e3, torch.device(sys.argv[8])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+model = FactorizationMachine({d}, {e}, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+spec = BatchSpec(batch_size={b}, max_nnz={k}, value_dtype=np.float32)
+reg = default_registry()
+recv_key = 'trace.stall_seconds{{stage="dsserve_recv_wait"}}'
+recv = lambda: reg.snapshot()["counters"].get(recv_key, 0.0)
+w, joined = RabitWorker(), False
+_build.reset_launches()
+trained, epochs, losses, step_s = [], [], [], []
+last_hb, epoch = 0.0, 0
+for phase, n, inner in (("cheap", n_cheap, cheap_uri), ("expensive", n_slow, slow_uri)):
+    for _ in range(n):
+        src = DsServeBatches("dsserve://" + os.environ["DMLC_DSSERVE"] + "/" + inner.lstrip("/"),
+                             spec, epoch=epoch, mode="lease")
+        src.on_slot = lambda shard, seq, payload, e=epoch: trained.append(
+            (e, shard, hashlib.blake2b(payload).hexdigest()))
+        pipe = StagingPipeline(src, device=dev)
+        t0, r0, wall0, steps = time.perf_counter(), recv(), time.time(), 0
+        for batch in pipe:
+            t1 = time.perf_counter()
+            losses.append(float(model.sgd_step(batch, lr=lr)))
+            sync()
+            step_s.append(time.perf_counter() - t1)
+            rest = pace - (time.perf_counter() - t1)
+            if rest > 0:
+                time.sleep(rest)
+            steps += 1
+            if not joined and steps == 16:
+                w.start()
+                joined = True
+            now = time.monotonic()
+            if joined and now - last_hb > 0.2:
+                w.heartbeat()
+                last_hb = now
+        secs = time.perf_counter() - t0
+        stats = src.io_stats()
+        drain_close(pipe, src)
+        epochs.append({{"phase": phase, "epoch": epoch, "steps": steps, "secs": secs,
+                       "start_wall": wall0, "end_wall": time.time(),
+                       "recv_wait_s": recv() - r0, "shards_recorded": stats["shards_recorded"]}})
+        epoch += 1
+launches = dict(_build.launches)
+w.heartbeat()
+np.savez(out + ".npz", **{{n: p.detach().cpu().numpy() for n, p in model.params().items()}})
+with open(out + ".json", "w") as f:
+    json.dump({{"launches": launches, "losses": losses, "step_s": step_s, "epochs": epochs,
+               "trained": trained}}, f)
+w.shutdown()
+"""
+
+
+def autoscale_job(rec: str, dev, tmp: str, tag: str, fleet, fault: str,
+                  n_cheap: int = AUTOSCALE_CHEAP, n_slow: int = AUTOSCALE_EXPENSIVE):
+    """One trainer launched by ``submit`` (``fleet``: its tier flags) over
+    ``dsserve://``: ``n_cheap`` epochs over the plain file, then
+    ``n_slow`` over ``fault://<fault>``. Returns the trainer's record, the
+    end-of-job report, the tracker's ``dmlc:autoscale_decision`` instants
+    and the job's wall seconds."""
+    import glob
+    import signal
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "autoscale_worker.py")
+    with open(script, "w") as f:
+        f.write(AUTOSCALE_WORKER.format(repo=repo, d=D, e=E, b=B, k=K))
+    query = f"?index={rec}.idx&shuffle=record&seed=3"
+    cheap, slow = rec + query, f"fault://{fault}{rec}{query}"
+    prefix = os.path.join(tmp, f"autoscale_{tag}")
+    trace_dir = prefix + ".trace"
+    env = dict(os.environ, PYTHONPATH=repo, DMLC_METRICS_REPORT=prefix + ".report.json",
+               **AUTOSCALE_KNOBS)
+    for k in ("DMLC_TRACKER_URI", "DMLC_TRACKER_PORT", "DMLC_SHARD_RANK", "DMLC_TASK_ID",
+              "DMLC_DSSERVE", "DMLC_DSSERVE_FILE", "DMLC_AUTOSCALE"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit", "--cluster", "local",
+         "--host-ip", "127.0.0.1", "--num-workers", "1", *fleet,
+         "--shard-oversplit", str(AUTOSCALE_OVERSPLIT), "--trace-dir", trace_dir,
+         # the backend runs the command through bash: quote the URIs' "&"
+         sys.executable, script, shlex.quote(cheap), shlex.quote(slow), prefix,
+         str(SHARD_LR), str(n_cheap), str(n_slow), str(AUTOSCALE_PACE_MS), dev.type],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=repo,
+        start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=JOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        fail(f"autoscale {tag}: the job did not end in {JOB_TIMEOUT} s\n{stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"autoscale {tag} exited {proc.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    with open(prefix + ".json") as f:
+        res = json.load(f)
+    with open(prefix + ".report.json") as f:
+        report = json.load(f)
+    instants = []
+    for path in glob.glob(os.path.join(trace_dir, "dmlc-trace-tracker-*.json")):
+        with open(path) as f:
+            events = json.load(f)
+        events = events.get("traceEvents", events) if isinstance(events, dict) else events
+        instants += [{"wall": ev["ts"] / 1e6, **(ev.get("args") or {})} for ev in events
+                     if ev.get("name") == "dmlc:autoscale_decision"]
+    instants.sort(key=lambda ev: ev["wall"])
+    return res, report, instants, wall, prefix + ".report.json"
+
+
+def local_epoch_digests(rec: str, spec, n_epochs: int, m: int, keep: dict):
+    """Each (epoch, micro-shard) of the autoscale phase's read as the
+    local producer gives it: part ``i`` of ``m`` of ``shuffle=record``
+    with the epoch on the URI, as a dsserve server builds it; each batch
+    kept in ``keep`` under its digest."""
+    from dmlc_core_tpu_torch.staging.batcher import alloc_ell_slot, ell_batch
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    out = {}
+    for epoch in range(n_epochs):
+        uri = f"{rec}?index={rec}.idx&shuffle=record&seed=3" + (f"&epoch={epoch}" if epoch else "")
+        for i in range(m):
+            src = ell_batches(uri, spec, part_index=i, num_parts=m)
+            part = []
+            for b in src:
+                h = hashlib.blake2b(b.packed).hexdigest()
+                part.append(h)
+                packed, views = alloc_ell_slot(spec)
+                np.copyto(packed, b.packed)
+                keep[h] = ell_batch(packed, views, b.n_valid)
+            src.close()
+            out[(epoch, i)] = part
+    return out
+
+
+def autoscale_run(tag: str, res, report, instants, wall, local, batches, dev):
+    """Gates of one run (each (epoch, micro-shard) trained once, equal to
+    the local producer's; no duplicate; K1-K4 once a step; the params
+    within PARAM_REL of a one-process replay of the batches trained) and
+    its numbers."""
+    from collections import defaultdict
+
+    by_shard = defaultdict(list)
+    for epoch, shard, h in res["trained"]:
+        by_shard[(epoch, shard)].append(h)
+    if dict(by_shard) != local:
+        bad = sorted(k for k in set(by_shard) | set(local) if by_shard.get(k) != local.get(k))
+        fail(f"autoscale {tag}: (epoch, micro-shard) batches differ from the local "
+             f"producer's: {bad[:8]}")
+    ledger = report.get("shards") or {}
+    if ledger.get("duplicates", 0) != 0:
+        fail(f"autoscale {tag}: duplicates in the ledger: {ledger}")
+    if any(ep["shards_recorded"] != AUTOSCALE_OVERSPLIT for ep in res["epochs"]):
+        fail(f"autoscale {tag}: an epoch did not record each micro-shard once: "
+             f"{res['epochs']}")
+    n = len(res["losses"])
+    if any(res["launches"][k] != n for k in KERNEL_NAMES):
+        fail(f"autoscale {tag}: {n} steps, launches {res['launches']}")
+    if not np.mean(res["losses"][-4:]) < np.mean(res["losses"][:4]):
+        fail(f"autoscale {tag}: the loss did not fall")
+    params = dict(np.load(res["npz"]))
+    want, rounds, replay_s = shard_replay(dev, batches, [[h for _e, _s, h in res["trained"]]])
+    gap = param_gap(params, want)
+    check_gap(gap, f"autoscale {tag} against the one-process replay")
+    phases = {}
+    for ph in ("cheap", "expensive"):
+        eps = [ep for ep in res["epochs"] if ep["phase"] == ph]
+        secs = sum(ep["secs"] for ep in eps)
+        phases[ph] = {"epoch_secs": [ep["secs"] for ep in eps], "makespan_s": secs,
+                      "recv_wait_share": sum(ep["recv_wait_s"] for ep in eps) / secs,
+                      "start_wall": eps[0]["start_wall"], "end_wall": eps[-1]["end_wall"]}
+    return {"wall_s": wall, "steps": n, "step_ms": statistics.median(res["step_s"]) * 1e3,
+            "phases": phases, "ledger": ledger, "autoscale": report.get("autoscale"),
+            "replay_gap": gap, "replay_rounds": rounds, "replay_s": replay_s,
+            "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
+            "actions": [ev for ev in instants if ev.get("kind") != "hold"],
+            "holds": {r: sum(1 for ev in instants if ev.get("kind") == "hold"
+                             and ev.get("reason") == r)
+                      for r in sorted({ev.get("reason") for ev in instants
+                                       if ev.get("kind") == "hold"})}}
+
+
+def autoscale_replay(report_path: str, cfg_args):
+    """``python -m dmlc_core_tpu_torch.tools autoscale replay`` over an
+    end-of-job report: its decisions, each with its wall time (the
+    replay's ``t`` counts from the report's first sample)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tools", "autoscale", "replay",
+         report_path, *cfg_args, "--json"],
+        capture_output=True, text=True, timeout=120, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo))
+    if proc.returncode != 0:
+        fail(f"tools autoscale replay exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(report_path) as f:
+        series = json.load(f)["timeseries"]["per_rank"]
+    t0 = min(s["t"] for rank in series.values() for s in rank)
+    return [{**d, "wall": t0 + d["t"]} for d in json.loads(proc.stdout)]
+
+
+def autoscale_phase(dev, card: str):
+    """``bench.py``'s autoscale_phase_shift with the card's FM as the
+    trainer: one worker, launched by the port's ``submit``, drains the
+    shuffle phase's 2^18 indexed rows through ``dsserve://``
+    (``shuffle=record``, AUTOSCALE_OVERSPLIT micro-shards an epoch):
+    AUTOSCALE_CHEAP epochs over the plain file, then AUTOSCALE_EXPENSIVE
+    over ``fault://AUTOSCALE_FAULT``. Two runs: fixed (``--dsserve 2``)
+    and autoscaled (``--autoscale 1:2``). Gates: the autoscaled run makes
+    a ``scale_up``, its first in the expensive phase (the tracker's
+    ``dmlc:autoscale_decision`` instants) and at most 2 direction
+    changes; ``tools autoscale replay`` of its report also scales up
+    first in the expensive phase; both runs' (epoch, micro-shard)
+    batches equal the local producer's, no duplicate, and the params
+    within PARAM_REL of a one-process replay. Returns the
+    ``{"autoscale": ...}`` line and the launches of both trainers."""
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    out = {"card": card, "rows": PRODUCER_ROWS, "fault": AUTOSCALE_FAULT,
+           "pace_ms": AUTOSCALE_PACE_MS, "knobs": AUTOSCALE_KNOBS,
+           "oversplit": AUTOSCALE_OVERSPLIT, "epochs": [AUTOSCALE_CHEAP, AUTOSCALE_EXPENSIVE]}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"),
+                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
+        batches = {}
+        local = local_epoch_digests(rec, spec, AUTOSCALE_CHEAP + AUTOSCALE_EXPENSIVE,
+                                    AUTOSCALE_OVERSPLIT, batches)
+        for tag, fleet in (("fixed", ["--dsserve", "2"]),
+                           ("autoscaled", ["--autoscale", "1:2"])):
+            res, report, instants, wall, report_path = autoscale_job(
+                rec, dev, tmp, tag, fleet, AUTOSCALE_FAULT)
+            res["npz"] = os.path.join(tmp, f"autoscale_{tag}.npz")
+            out[tag] = autoscale_run(tag, res, report, instants, wall, local, batches, dev)
+            for k in KERNEL_NAMES:
+                launches[k] += res["launches"][k]
+            if tag == "autoscaled":
+                out["replay"] = autoscale_replay(report_path, [
+                    "--fleet", "1:2", "--interval", AUTOSCALE_KNOBS["DMLC_AUTOSCALE_INTERVAL"],
+                    "--window", AUTOSCALE_KNOBS["DMLC_AUTOSCALE_WINDOW"],
+                    "--dwell", AUTOSCALE_KNOBS["DMLC_AUTOSCALE_DWELL"]])
+        del batches
+    auto = out["autoscaled"]
+    status = auto["autoscale"] or {}
+    start = auto["phases"]["expensive"]["start_wall"]
+    ups = [ev for ev in auto["actions"] if ev.get("kind") == "scale_up"]
+    if not (status.get("decisions", {}).get("scale_up", 0) >= 1 and ups):
+        fail(f"autoscale: no scale_up: {status}, actions {auto['actions']}")
+    if not ups[0]["wall"] >= start:
+        fail(f"autoscale: the first scale_up ({ups[0]}) came before the expensive phase "
+             f"began ({start})")
+    if status.get("direction_changes", 0) > 2:
+        fail(f"autoscale: {status['direction_changes']} direction changes")
+    replay_ups = [d for d in out["replay"] if d["kind"] == "scale_up"]
+    if not (replay_ups and replay_ups[0]["wall"] >= start):
+        fail(f"autoscale: the replay's first scale_up {replay_ups[:1]} is not in the "
+             f"expensive phase (from {start})")
+    fixed_ms = out["fixed"]["phases"]["expensive"]["makespan_s"]
+    auto_ms = auto["phases"]["expensive"]["makespan_s"]
+    out["summary"] = {
+        "expensive_makespan_fixed_s": fixed_ms, "expensive_makespan_autoscaled_s": auto_ms,
+        "makespan_ratio": auto_ms / fixed_ms, "bench_expectation": "<= 1.25",
+        "held": auto_ms / fixed_ms <= 1.25,
+        "first_scale_up_after_expensive_start_s": ups[0]["wall"] - start,
+        "replay_first_scale_up_after_expensive_start_s": replay_ups[0]["wall"] - start,
+        "cost_spent": status.get("cost_spent"),
+        "recv_wait_share": {tag: {ph: out[tag]["phases"][ph]["recv_wait_share"]
+                                  for ph in ("cheap", "expensive")}
+                            for tag in ("fixed", "autoscaled")},
+    }
+    out["replay"] = [d for d in out["replay"] if d["kind"] != "hold"]
+    return out, launches
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -2874,6 +3354,8 @@ def main() -> None:
     telemetry, tele_launches = telemetry_phase(dev, kernels)
     shards, shard_launches = shards_phase(dev)
     dsserve, dsserve_launches = dsserve_phase(dev, smi_line)
+    faults, fault_launches = faults_phase(dev, smi_line)
+    autoscale, autoscale_launches = autoscale_phase(dev, smi_line)
     entry_phase(dev)
     torch.cuda.synchronize()
 
@@ -2882,7 +3364,8 @@ def main() -> None:
         # the full-width collective workers count in their own processes
         n = (sum(s["launches"][row["name"]] for s in main_runs)
              + coll_launches[row["name"]] + tele_launches[row["name"]]
-             + shard_launches[row["name"]] + dsserve_launches[row["name"]])
+             + shard_launches[row["name"]] + dsserve_launches[row["name"]]
+             + fault_launches[row["name"]] + autoscale_launches[row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -2904,6 +3387,8 @@ def main() -> None:
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"shards": shards}))
     print(json.dumps({"dsserve": dsserve}))
+    print(json.dumps({"faults": faults}))
+    print(json.dumps({"autoscale": autoscale}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -36,7 +36,7 @@ import torch
 from .io import serializer
 from .io.filesystem import FileSystem
 from .io.stream import Stream
-from .utils.logging import check
+from .utils.logging import Error, check
 
 __all__ = ["AsyncSave", "Checkpointer", "load_pytree", "save_pytree"]
 
@@ -105,10 +105,22 @@ def load_pytree(uri_or_stream) -> Any:
             stream.close()
 
 
+def _as_local(uri: str) -> Optional[str]:
+    """The path of a local URI, or None for another filesystem's."""
+    if uri.startswith("file://"):
+        return uri[len("file://"):]
+    return None if "://" in uri else uri
+
+
 def _local(uri: str) -> str:
     """The path of a local URI; other schemes raise."""
-    FileSystem.get_instance(uri)
-    return uri[len("file://"):] if uri.startswith("file://") else uri
+    FileSystem.get_instance(uri)  # the unported schemes raise here
+    path = _as_local(uri)
+    if path is None:
+        raise Error(f"checkpoint base {uri!r}: a Checkpointer over a "
+                    "non-local filesystem is not ported (ROADMAP.md §1 "
+                    "item 8b)")
+    return path
 
 
 def _remove(path: str, tree_ok: bool = False) -> None:
@@ -122,13 +134,59 @@ def _remove(path: str, tree_ok: bool = False) -> None:
         pass
 
 
-def _write_atomic(path: str, tree: Any) -> None:
-    """``save_pytree`` to ``path + '.tmp'``, then ``os.replace``: the
-    final path is absent or whole, never torn."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    save_pytree(tmp, tree)
-    os.replace(tmp, path)
+class _CountingStream(Stream):
+    """Pass-through write stream that counts bytes, so an atomic write
+    over another filesystem can verify the stored length before it
+    commits."""
+
+    def __init__(self, inner: Stream) -> None:
+        self._inner = inner
+        self.nbytes = 0
+
+    def read(self, n: int = -1) -> bytes:
+        raise Error("_CountingStream is write-only")
+
+    def write(self, data) -> int:
+        out = self._inner.write(data)
+        self.nbytes += len(data)
+        return out
+
+    def flush(self) -> None:
+        self._inner.flush()
+
+    def close(self) -> None:
+        self._inner.close()
+
+
+def _write_atomic(uri: str, tree: Any) -> None:
+    """``save_pytree`` with a write-then-commit discipline: the final
+    ``uri`` is absent or whole, never torn.
+
+    - a local path: a ``.tmp`` file, then ``os.replace``;
+    - another filesystem (``fault://``, ``mem://``): the tree is written
+      to ``uri + '.tmp'``, its stored length is checked against the bytes
+      written (a truncated write fails here), then ``FileSystem.rename``
+      commits it.
+    """
+    local = _as_local(uri)
+    if local is not None:
+        os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
+        tmp = local + ".tmp"
+        save_pytree(tmp, tree)
+        os.replace(tmp, local)
+        return
+    fs = FileSystem.get_instance(uri)
+    tmp = uri + ".tmp"
+    counter = _CountingStream(fs.open(tmp, "w"))
+    try:
+        save_pytree(counter, tree)
+    finally:
+        counter.close()
+    stored = fs.get_path_info(tmp).size
+    check(stored == counter.nbytes,
+          f"atomic write of {uri}: tmp key holds {stored} bytes, expected "
+          f"{counter.nbytes}; refusing to commit a torn object")
+    fs.rename(tmp, uri)
 
 
 class AsyncSave:

@@ -475,7 +475,7 @@ class DecodeContext:
                  shared: object = None) -> None:
         if shared is not None:
             raise Error("DecodeContext(shared=...): the host-shared block cache "
-                        "is not ported (ROADMAP.md §1 item 8)")
+                        "is not ported (ROADMAP.md §1 item 8b)")
         self._cache = cache
 
     def cache(self) -> DecodedBlockCache:

@@ -1,22 +1,33 @@
-"""The local filesystem behind the port's streams and checkpoints (the
-port of ``dmlc_core_tpu/io/filesystem.py``; reference dmlc::FileSystem,
-include/dmlc/io.h:582-631, and src/io/local_filesys.cc).
+"""Filesystems by URI protocol (the port of
+``dmlc_core_tpu/io/filesystem.py``; reference dmlc::FileSystem,
+include/dmlc/io.h:582-631, FileSystem::GetInstance, src/io.cc:30-71, and
+src/io/local_filesys.cc).
 
-``FileSystem.get_instance`` answers bare paths and ``file://`` URIs with
-the one ``LocalFileSystem``; any other scheme raises (remote filesystems
-are ``ROADMAP.md`` §1 item 8).
+Backends register in ``FS_REGISTRY`` by protocol:
+
+- ``file://`` and bare paths → ``LocalFileSystem``;
+- ``mem://`` → ``MemoryFileSystem``, a process-global in-memory store
+  (the hermetic stand-in for an object store);
+- ``fault://`` → ``io.faults.FaultInjectingFileSystem``, registered when
+  ``io/faults.py`` is imported (``get_instance`` imports it on a miss).
+
+The remote filesystems (``s3://``, ``gs://``, ``http(s)://``,
+``hdfs://``, ``azure://``) are not ported: ``get_instance`` raises on
+them (``ROADMAP.md`` §1 item 8b).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import List, NamedTuple
+from typing import Callable, Dict, List, NamedTuple
 
 from ..utils.logging import Error
-from .stream import FileStream, Stream
+from .stream import FileStream, MemoryStream, Stream
+from .uri import URI
 
-__all__ = ["FileInfo", "FileSystem", "LocalFileSystem"]
+__all__ = ["FS_REGISTRY", "FileInfo", "FileSystem", "LocalFileSystem",
+           "MemoryFileSystem"]
 
 
 class FileInfo(NamedTuple):
@@ -29,9 +40,8 @@ class FileInfo(NamedTuple):
     etag: str = ""
 
 
-def _scheme(uri: str) -> str:
-    pos = uri.find("://")
-    return "" if pos < 0 else uri[: pos + 3]
+#: protocol → filesystem factory (the JAX package's ``Registry("filesystem")``)
+FS_REGISTRY: Dict[str, Callable[[], "FileSystem"]] = {}
 
 
 class FileSystem:
@@ -56,10 +66,7 @@ class FileSystem:
 
     def delete(self, uri: str, recursive: bool = False) -> None:
         """Remove a file; with ``recursive``, a directory tree."""
-        raise NotImplementedError
-
-    def rename(self, src_uri: str, dst_uri: str) -> None:
-        raise NotImplementedError
+        raise Error(f"{type(self).__name__} does not support delete")
 
     def copy(self, src_uri: str, dst_uri: str) -> None:
         """Copy one file through this process."""
@@ -70,17 +77,31 @@ class FileSystem:
                     break
                 dst.write(chunk)
 
+    def rename(self, src_uri: str, dst_uri: str) -> None:
+        """Move a file: copy, then delete. Not atomic, but a crash leaves
+        no destination or a whole one, never a torn one; a backend with
+        a real rename overrides this."""
+        self.copy(src_uri, dst_uri)
+        self.delete(src_uri)
+
     @staticmethod
     def get_instance(uri: str) -> "FileSystem":
-        """The filesystem of ``uri`` (reference FileSystem::GetInstance,
-        src/io.cc:30-71): local paths and ``file://`` only."""
-        scheme = _scheme(uri)
-        if scheme not in ("", "file://"):
+        """The filesystem of ``uri`` by its protocol (reference
+        FileSystem::GetInstance, src/io.cc:30-71)."""
+        proto = URI(uri).protocol or "file://"
+        entry = FS_REGISTRY.get(proto)
+        if entry is None:
+            # a miss loads the fault:// wrapper once, so io/faults.py
+            # stays the one place that registers it
+            from . import faults  # noqa: F401
+
+            entry = FS_REGISTRY.get(proto)
+        if entry is None:
             raise Error(
-                f"unknown filesystem protocol {scheme!r} in {uri!r}: the "
-                "port reads local files; remote filesystems are "
-                "ROADMAP.md §1 item 8")
-        return LocalFileSystem.instance()
+                f"unknown filesystem protocol {proto!r} in {uri!r} "
+                f"(registered: {sorted(FS_REGISTRY)}): the remote "
+                "filesystems are not ported (ROADMAP.md §1 item 8b)")
+        return entry()
 
 
 class LocalFileSystem(FileSystem):
@@ -131,3 +152,83 @@ class LocalFileSystem(FileSystem):
     def rename(self, src_uri: str, dst_uri: str) -> None:
         """``os.replace``: atomic within one filesystem."""
         os.replace(self._path(src_uri), self._path(dst_uri))
+
+
+class MemoryFileSystem(FileSystem):
+    """Process-global in-memory store under ``mem://``: the hermetic
+    stand-in for an object store (no reference analogue)."""
+
+    _store: Dict[str, bytes] = {}
+
+    class _WriteBack(MemoryStream):
+        def __init__(self, store: Dict[str, bytes], key: str, init: bytes = b"") -> None:
+            super().__init__()
+            if init:
+                self.write(init)
+            self._store, self._key = store, key
+            self._closed = False
+
+        def flush(self) -> None:
+            if not self._closed:
+                self._store[self._key] = self.getvalue()
+
+        def close(self) -> None:
+            if self._closed:
+                return
+            self.flush()
+            self._closed = True
+            super().close()
+
+    def open(self, uri: str, mode: str = "r") -> Stream:
+        if mode == "r":
+            if uri not in self._store:
+                raise Error(f"mem:// key not found: {uri}")
+            return MemoryStream(self._store[uri])
+        if mode == "w":
+            return self._WriteBack(self._store, uri)
+        if mode == "a":
+            return self._WriteBack(self._store, uri, self._store.get(uri, b""))
+        raise Error(f"invalid mode {mode!r}")
+
+    def get_path_info(self, uri: str) -> FileInfo:
+        if uri in self._store:
+            return FileInfo(path=uri, size=len(self._store[uri]), type="file")
+        prefix = uri.rstrip("/") + "/"
+        if any(k.startswith(prefix) for k in self._store):
+            return FileInfo(path=uri, size=0, type="directory")
+        raise Error(f"mem:// key not found: {uri}")
+
+    def list_directory(self, uri: str) -> List[FileInfo]:
+        prefix = uri.rstrip("/") + "/"
+        seen: Dict[str, FileInfo] = {}
+        for key, data in sorted(self._store.items()):
+            if not key.startswith(prefix):
+                continue
+            rest = key[len(prefix):]
+            full = prefix + rest.split("/", 1)[0]
+            if "/" in rest:
+                seen.setdefault(full, FileInfo(path=full, size=0, type="directory"))
+            else:
+                seen[full] = FileInfo(path=full, size=len(data), type="file")
+        return list(seen.values())
+
+    def delete(self, uri: str, recursive: bool = False) -> None:
+        if uri in self._store:
+            del self._store[uri]
+            return
+        prefix = uri.rstrip("/") + "/"
+        keys = [k for k in self._store if k.startswith(prefix)]
+        if not keys:
+            raise Error(f"mem:// key not found: {uri}")
+        if not recursive:
+            raise Error(f"mem:// {uri} is a prefix; pass recursive=True")
+        for k in keys:
+            del self._store[k]
+
+    @classmethod
+    def reset(cls) -> None:
+        cls._store.clear()
+
+
+FS_REGISTRY["file://"] = LocalFileSystem.instance
+FS_REGISTRY["mem://"] = MemoryFileSystem

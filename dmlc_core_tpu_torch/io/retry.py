@@ -1,5 +1,5 @@
-"""Transient-failure classification and backoff (the port of the half of
-``dmlc_core_tpu/io/retry.py`` the tracker needs).
+"""Transient-failure classification, backoff and the retrying read
+stream (the port of ``dmlc_core_tpu/io/retry.py``).
 
 - ``is_transient``: would a retry plausibly succeed? HTTP 408/429/5xx,
   socket-caused URLErrors, connection resets, refusals, aborts, timeouts
@@ -18,8 +18,10 @@
   urlopen site (``tools top`` polls the tracker's endpoint through it);
   HTTP errors raise ``HttpError`` with the status and headers.
 
-``RetryingReadStream`` comes with the remote filesystems (``ROADMAP.md``
-§1 item 8).
+- ``RetryingReadStream``: reopen-and-seek read wrapper over any seekable
+  stream. ``fault://`` wraps its injected streams in one, and the span
+  fetcher one per pooled connection, so chaos runs exercise exactly
+  this path.
 
 Env knobs (read at policy construction): DMLC_RETRY_ATTEMPTS (4),
 DMLC_RETRY_BASE_SECS (0.1), DMLC_RETRY_CAP_SECS (5.0),
@@ -41,10 +43,12 @@ from typing import Callable, Dict, Optional
 from ..telemetry import default_registry as _default_registry
 from ..telemetry import tracing as _tracing
 from ..utils.logging import Error
+from .stream import SeekStream
 
 __all__ = [
     "HttpError",
     "RetryPolicy",
+    "RetryingReadStream",
     "count_fault_injected",
     "is_transient",
     "request",
@@ -280,3 +284,101 @@ def request(
         ) from e
     except urllib.error.URLError as e:
         raise Error(f"{method} {url} failed: {e.reason}") from e
+
+
+class RetryingReadStream(SeekStream):
+    """Reopen-and-seek retry wrapper over any seekable read stream.
+
+    ``open_fn`` returns a FRESH inner SeekStream; each call is one open
+    attempt, itself retried under the policy, so N consecutive 5xx at
+    open before a success are invisible. A transient error mid-read
+    drops the inner stream, backs off, reopens and seeks to the exact
+    resume offset: the caller never sees the fault. Progress resets the
+    consecutive-failure count, so the attempt cap bounds *stuck*
+    retries, not the faults healed; the policy's cumulative budget
+    bounds the total backoff either way.
+    """
+
+    def __init__(
+        self,
+        open_fn: Callable[[], SeekStream],
+        policy: Optional[RetryPolicy] = None,
+    ) -> None:
+        self._open_fn = open_fn
+        self._policy = policy or RetryPolicy()
+        self._inner: Optional[SeekStream] = None
+        self._pos = 0
+        self._stalls = 0
+
+    def _drop(self) -> None:
+        if self._inner is not None:
+            try:
+                self._inner.close()
+            except (OSError, Error):
+                pass
+            self._inner = None
+
+    def _ensure(self) -> SeekStream:
+        if self._inner is None:
+            self._inner = self._policy.run(self._open_fn, what="open")
+            if self._pos:
+                self._inner.seek(self._pos)
+        return self._inner
+
+    def _read_once(self, n: int) -> Optional[bytes]:
+        """One guarded inner read; None means 'faulted, retry'."""
+        try:
+            out = self._ensure().read(n)
+        except Exception as exc:
+            if not is_transient(exc):
+                raise
+            self._drop()
+            self._stalls += 1
+            if self._stalls >= self._policy.max_attempts:
+                raise
+            self._policy.pause(cause=exc, what=f"read at {self._pos}")
+            return None
+        self._stalls = 0
+        if out:
+            self._pos += len(out)
+        return out
+
+    def read(self, n: int = -1) -> bytes:
+        if n == 0:
+            return b""
+        if n < 0:
+            # read-to-EOF must not stop short at a healed fault: gather
+            # until the inner stream reports a true EOF
+            parts = []
+            while True:
+                out = self._read_once(1 << 20)
+                if out is None:
+                    continue
+                if not out:
+                    return b"".join(parts)
+                parts.append(out)
+        while True:
+            out = self._read_once(n)
+            if out is not None:
+                return out
+
+    def seek(self, pos: int) -> None:
+        if pos == self._pos:
+            return
+        self._pos = pos
+        if self._inner is not None:
+            try:
+                self._inner.seek(pos)
+            except Exception as exc:
+                if not is_transient(exc):
+                    raise
+                self._drop()  # reopened at _pos by the next read
+
+    def tell(self) -> int:
+        return self._pos
+
+    def write(self, data) -> int:
+        raise Error("RetryingReadStream is read-only")
+
+    def close(self) -> None:
+        self._drop()

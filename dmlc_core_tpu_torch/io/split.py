@@ -1,6 +1,7 @@
-"""Record-aligned splits of a set of local files: text lines or RecordIO
-records, by byte range or through an index, in file order or shuffled
-(the port of ``dmlc_core_tpu/io/split.py`` for local files).
+"""Record-aligned splits of a file set: text lines or RecordIO records,
+by byte range or through an index, in file order or shuffled (the port
+of ``dmlc_core_tpu/io/split.py`` over the ported filesystems: local
+files, ``mem://`` and ``fault://``).
 
 A URI names one file, a ``;``-separated list, a directory or a regex over
 a directory's file names (reference ConvertToURIs,
@@ -21,8 +22,14 @@ replays a ``#cachefile`` after the first epoch. ``DynamicShardSource``
 (``&dynamic_shards=1`` on the URI given to ``create``) leases
 micro-shards from the tracker's shard service instead of a fixed part:
 micro-shard ``i`` of ``M`` is part ``(i, M)`` of the same splitter.
-Remote filesystems and the stream sources are not ported: ``create``
-refuses them.
+
+Local files are read through zero-copy ``mmap`` views; a file behind any
+other filesystem (``fault://``, ``mem://``) is read through retrying
+streams, and a shuffled window's spans over such files go through the
+concurrent span fetcher (``io/spanfetch.py``). ``io_stats()`` carries the
+split's ``retries``, ``backoff_secs``, ``faults_injected`` and
+``reopens`` since its construction. The remote filesystems and the
+stream sources are not ported: ``create`` refuses them.
 """
 
 from __future__ import annotations
@@ -47,7 +54,10 @@ from ..utils.logging import Error, check, check_eq
 from ..utils.prefetch import Prefetcher
 from ..utils.profiler import annotate
 from . import codec as _codec
+from . import retry as _retry
 from . import serializer
+from . import spanfetch as _spanfetch
+from .faults import unwrap_uri
 from .filesystem import FileInfo, FileSystem
 from .recordio import (
     RecordIOChunkReader,
@@ -201,6 +211,11 @@ class InputSplitBase:
 
     def __init__(self, uri: str, part_index: int = 0, num_parts: int = 1,
                  recurse_directories: bool = False) -> None:
+        self.filesys = FileSystem.get_instance(uri.split(";")[0])
+        # the retry, fault and reopen counters are process-global: the
+        # snapshots make io_stats() report this split's delta
+        self._retry_snap = _retry.stats()
+        self._reopen_snap = _spanfetch.reopens_total()
         self.files = expand_files(uri, recurse_directories)
         offsets = [0]
         for f in self.files:
@@ -354,7 +369,15 @@ class InputSplitBase:
         return _next_record(self, self._next_chunk_ex)
 
     def io_stats(self) -> Dict[str, object]:
-        return {"mode": "sequential"}
+        """``retries`` healed, ``backoff_secs`` slept, ``faults_injected``
+        by a ``fault://`` source and ``reopens`` of remote streams, since
+        construction. The counters are process-global deltas: exact when
+        one split is active, overlapping otherwise."""
+        return {"mode": "sequential", **self._robust_stats()}
+
+    def _robust_stats(self) -> Dict[str, object]:
+        return {"reopens": _spanfetch.reopens_total() - self._reopen_snap,
+                **_retry.stats_delta(self._retry_snap)}
 
     def close(self) -> None:
         self._close_fs()
@@ -682,69 +705,102 @@ def _parse_compressed_index(vals: List[str], keys: np.ndarray, total: int,
             "block_offs": boffs, "block_sizes": block_sizes, "keys": keys[order]}
 
 
+def _is_local(path: str) -> bool:
+    return path.startswith("file://") or "://" not in path
+
+
 class _SpanReader:
     """Positioned reads of a file set by dataset offset (a span may
-    cross file ends): zero-copy ``mmap`` views (no seek, no shared
-    cursor, so the window read-ahead thread and the consumer never race),
-    or ``os.pread`` for a file that does not map. Views stay valid until
-    ``close()``, which leaves the unmap to the collector while a view is
-    still exported."""
+    cross file ends; the walk is ``spanfetch.iter_file_segments``): for
+    local files zero-copy ``mmap`` views (no seek, no shared cursor, so
+    the window read-ahead thread and the consumer never race), or
+    ``os.pread`` for a file that does not map; a file behind any other
+    filesystem gets one private seekable stream (seek + read, counted in
+    ``seeks``). Views stay valid until ``close()``, which leaves the
+    unmap to the collector while a view is still exported."""
 
-    def __init__(self, files: List[FileInfo], file_offset: List[int]) -> None:
+    def __init__(self, files: List[FileInfo], file_offset: List[int],
+                 filesys: FileSystem) -> None:
         self._files = files
         self._file_offset = file_offset
+        self._filesys = filesys
         self._fds: Dict[int, int] = {}
         self._mmaps: Dict[int, mmap.mmap] = {}
+        self._streams: Dict[int, SeekStream] = {}
+        self.seeks = 0
 
     def _read_in_file(self, fp: int, rel: int, size: int):
         mm = self._mmaps.get(fp)
-        if mm is None and fp not in self._fds:
-            fd = os.open(_local(self._files[fp].path), os.O_RDONLY)
-            try:
-                mm = self._mmaps[fp] = mmap.mmap(fd, 0, access=mmap.ACCESS_READ)
-            except (OSError, ValueError):
-                self._fds[fp] = fd  # unmappable: pread
+        if mm is None and fp not in self._fds and fp not in self._streams:
+            path = self._files[fp].path
+            if _is_local(path):
+                fd = os.open(_local(path), os.O_RDONLY)
+                try:
+                    mm = self._mmaps[fp] = mmap.mmap(fd, 0, access=mmap.ACCESS_READ)
+                except (OSError, ValueError):
+                    self._fds[fp] = fd  # unmappable: pread
+                else:
+                    os.close(fd)
             else:
-                os.close(fd)
+                stream = self._filesys.open(path, "r")
+                check(isinstance(stream, SeekStream), "input files must be seekable")
+                self._streams[fp] = stream
         if mm is not None:
             return memoryview(mm)[rel:rel + size]
         out: List[bytes] = []
-        while size > 0:
-            data = os.pread(self._fds[fp], size, rel)
-            if not data:
-                break
-            out.append(data)
-            rel += len(data)
-            size -= len(data)
+        fd = self._fds.get(fp)
+        if fd is not None:
+            while size > 0:
+                data = os.pread(fd, size, rel)
+                if not data:
+                    break
+                out.append(data)
+                rel += len(data)
+                size -= len(data)
+        else:
+            stream = self._streams[fp]
+            stream.seek(rel)
+            self.seeks += 1
+            _SEEKS.inc()
+            while size > 0:
+                data = stream.read(size)
+                if not data:
+                    break
+                out.append(data)
+                size -= len(data)
         return out[0] if len(out) == 1 else b"".join(out)
-
-    def _segments(self, offset: int, size: int):
-        """``(file, offset in it, bytes, base in the span)`` of each file
-        the span covers."""
-        written = 0
-        while written < size:
-            fp = bisect.bisect_right(self._file_offset, offset) - 1
-            if fp >= len(self._files):
-                return
-            take = min(size - written, self._file_offset[fp + 1] - offset)
-            if take <= 0:
-                return
-            yield fp, offset - self._file_offset[fp], take, written
-            written += take
-            offset += take
 
     def read(self, offset: int, size: int):
         """``size`` bytes at dataset ``offset``: a memoryview of the
-        mapping when one file covers them, else joined bytes."""
+        mapping when one mapped file covers them, else joined bytes."""
         out = []
-        for fp, rel, take, _base in self._segments(offset, size):
+        for fp, rel, take, _base in _spanfetch.iter_file_segments(
+                self._file_offset, len(self._files), offset, size):
             data = self._read_in_file(fp, rel, take)
+            if not data:
+                break
             out.append(data)
             if len(data) < take:
                 break
         if len(out) == 1:
             return out[0]
         return b"".join(out)
+
+    def readinto(self, offset: int, out: memoryview) -> int:
+        """Fill ``out`` with the span at dataset ``offset``; the bytes
+        written. The mapped path copies straight from the page cache
+        into the caller's buffer."""
+        written = 0
+        for fp, rel, take, base in _spanfetch.iter_file_segments(
+                self._file_offset, len(self._files), offset, len(out)):
+            data = self._read_in_file(fp, rel, take)
+            if not data:
+                break
+            out[base:base + len(data)] = data
+            written = base + len(data)
+            if len(data) < take:
+                break
+        return written
 
     def close(self) -> None:
         for fd in self._fds.values():
@@ -759,6 +815,9 @@ class _SpanReader:
             except BufferError:
                 pass  # a handed-out view is still alive; GC unmaps
         self._mmaps.clear()
+        for stream in self._streams.values():
+            stream.close()
+        self._streams.clear()
 
 
 class IndexedRecordIOSplitter(RecordIOSplitter):
@@ -843,6 +902,8 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         self._win_start = 0
         self._win_skip = 0
         self._span_reader: Optional[_SpanReader] = None
+        self._span_fetcher: Optional[_spanfetch.SpanFetcher] = None
+        self._all_local: Optional[bool] = None
         # I/O-shape counters, cumulative across epochs (io_stats)
         self.spans_read = 0
         self.seek_calls = 0
@@ -1034,15 +1095,33 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
     def _block_key(self, bid: int) -> object:
         return (self._cache_key, int(self._block_offs[bid]))
 
+    def _files_all_local(self) -> bool:
+        if self._all_local is None:
+            self._all_local = all(_is_local(f.path) for f in self.files)
+        return self._all_local
+
+    def _get_fetcher(self) -> Optional[_spanfetch.SpanFetcher]:
+        """The concurrent ranged-read engine for non-local files, or
+        None: local files keep the zero-copy ``_SpanReader``, and
+        ``DMLC_FETCH_THREADS=1`` pins the serial baseline."""
+        if self._files_all_local() or _spanfetch.fetch_threads() <= 1:
+            return None
+        if self._span_fetcher is None:
+            self._span_fetcher = _spanfetch.SpanFetcher(
+                self.files, self.file_offset, self.filesys)
+        return self._span_fetcher
+
     def _get_span_reader(self) -> _SpanReader:
         if self._span_reader is None:
-            self._span_reader = _SpanReader(self.files, self.file_offset)
+            self._span_reader = _SpanReader(self.files, self.file_offset, self.filesys)
         return self._span_reader
 
     def _fetch_blocks(self, missing: List[int]) -> Dict[int, bytes]:
         """Read, decode and cache the blocks ``missing`` (ids): their file
         ranges coalesce into spans (``merge_gap``), each span's blocks go
-        to the decode pool as the span is read."""
+        to the decode pool as the span lands. Non-local files read the
+        spans through the span fetcher, in completion order; local ones
+        off the mapped span reader."""
         ctx = self._decode_ctx
         marr = np.asarray(missing, dtype=np.int64)
         offs = self._block_offs[marr]
@@ -1051,10 +1130,11 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         span_begin = offs[order][starts]
         run_end = np.maximum.accumulate(offs[order] + sizes[order])
         span_len = run_end[ends - 1] - span_begin
-        reader = self._get_span_reader()
+        spans = list(zip(span_begin.tolist(), span_len.tolist()))
         pending = []  # (block id, decode Future)
-        for si, (begin, nbytes) in enumerate(zip(span_begin.tolist(), span_len.tolist())):
-            data = reader.read(begin, nbytes)
+
+        def on_span(si: int, data) -> None:
+            begin, nbytes = spans[si]
             check_eq(len(data), nbytes, "span read truncated")
             self.spans_read += 1
             self.bytes_read += nbytes
@@ -1065,6 +1145,15 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
                 rel = int(offs[k]) - begin
                 blob, _end = scan_compressed_blob(mv[rel:rel + int(sizes[k])], 0)
                 pending.append((int(marr[k]), ctx.submit_decode(blob)))
+
+        fetcher = self._get_fetcher() if len(spans) > 1 else None
+        if fetcher is not None:
+            for si, data in fetcher.fetch_iter(spans):
+                on_span(si, data)
+        else:
+            reader = self._get_span_reader()
+            for si, (begin, nbytes) in enumerate(spans):
+                on_span(si, reader.read(begin, nbytes))
         out: Dict[int, bytes] = {}
         for bid, fut in pending:
             raw, _n = fut.result()
@@ -1147,12 +1236,16 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         return self.windowed
 
     def _eff_window(self) -> int:
-        """Records per window: record mode over an uncompressed file is
-        one window over the whole part (a zero-copy mapping); batch and
-        window modes, and record mode over compressed blocks, use
-        ``window``."""
-        if self.shuffle_mode == "record" and not self._compressed:
-            return max(1, len(self._permutation))
+        """Records per window: record mode over uncompressed local files
+        is one window over the whole part (a zero-copy mapping); batch
+        and window modes, and record mode over compressed blocks or
+        non-local files (where a whole-part window would hold the part
+        in memory), use ``window``. The order is the same for any
+        window size: windows only cut the permutation."""
+        if self.shuffle_mode == "record":
+            if not self._compressed and self._files_all_local():
+                return max(1, len(self._permutation))
+            return max(1, self.window)
         return self.window
 
     def _n_windows(self) -> int:
@@ -1169,14 +1262,21 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
 
     def _read_spans(self, span_begin: np.ndarray, span_len: np.ndarray) -> np.ndarray:
         """A window's spans as one uint8 buffer, spans back to back: one
-        span is a zero-copy view of the mapping, several are copied into
-        one buffer."""
+        span is a zero-copy view of the span reader's (a mapping on a
+        local file); several fill one preallocated buffer in place,
+        through the span fetcher's parallel reads on non-local files."""
         spans = list(zip(span_begin.tolist(), span_len.tolist()))
         total = int(span_len.sum())
         self.spans_read += len(spans)
         self.bytes_read += total
         _SPANS.inc(len(spans))
         _BYTES_READ.inc(total)
+        fetcher = self._get_fetcher() if len(spans) > 1 else None
+        if fetcher is not None:
+            buf = np.empty(total, dtype=np.uint8)
+            bases = np.concatenate(([0], np.cumsum(span_len)[:-1]))
+            fetcher.fetch_into(spans, memoryview(buf), bases.tolist())
+            return buf
         reader = self._get_span_reader()
         if len(spans) == 1:
             begin, nbytes = spans[0]
@@ -1184,11 +1284,11 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
             check_eq(len(data), nbytes, "span read truncated")
             return np.frombuffer(data, dtype=np.uint8)
         buf = np.empty(total, dtype=np.uint8)
+        mv = memoryview(buf)
         base = 0
         for begin, nbytes in spans:
-            data = reader.read(begin, nbytes)
-            check_eq(len(data), nbytes, "span read truncated")
-            buf[base:base + nbytes] = np.frombuffer(data, dtype=np.uint8)
+            check_eq(reader.readinto(begin, mv[base:base + nbytes]), nbytes,
+                     "span read truncated")
             base += nbytes
         return buf
 
@@ -1334,20 +1434,35 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
 
     def io_stats(self) -> Dict[str, object]:
         """I/O-shape counters since construction: ``spans`` positioned
-        reads, ``seeks`` seek calls, ``bytes_read`` and ``records``
-        emitted (skipped records excluded); on the window path also
+        reads, ``seeks`` seek calls (0 on mapped local files),
+        ``bytes_read`` and ``records`` emitted (skipped records
+        excluded), and the retry counters of ``InputSplitBase``; with
+        the span fetcher ``fetch_spans``, ``fetch_bytes`` and
+        ``fetch_concurrency_peak``; on the window path also
         ``gather_batches``, ``gather_bytes`` and
         ``gather_fallback_batches`` (emissions copied into framed
         bytes); over compressed blocks ``decode_cache_hits`` and
         ``decode_cache_misses`` (blocks found in the decoded-block cache,
         and blocks read and decoded)."""
+        seeks = self.seek_calls
+        if self._span_reader is not None:
+            seeks += self._span_reader.seeks
+        if self._span_fetcher is not None:
+            seeks += self._span_fetcher.seeks
         out: Dict[str, object] = {
             "mode": self.shuffle_mode or "sequential",
             "records": self.records_emitted,
             "spans": self.spans_read,
-            "seeks": self.seek_calls,
+            "seeks": seeks,
             "bytes_read": self.bytes_read,
+            **self._robust_stats(),
         }
+        if self._span_fetcher is not None:
+            # fetch_spans == spans with a peak of 1: the ramp never
+            # engaged (a contiguous plan)
+            out["fetch_spans"] = self._span_fetcher.spans
+            out["fetch_bytes"] = self._span_fetcher.bytes
+            out["fetch_concurrency_peak"] = self._span_fetcher.concurrency_peak
         if self.windowed:
             out["gather_batches"] = self.gather_batches
             out["gather_bytes"] = self.gather_bytes
@@ -1418,6 +1533,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         if self._span_reader is not None:
             self._span_reader.close()
             self._span_reader = None
+        if self._span_fetcher is not None:
+            self._span_fetcher.close()
+            self._span_fetcher = None
         super().close()
 
 
@@ -1998,23 +2116,6 @@ class DynamicShardSource:
             self._probe = None
 
 
-def _unwrap_fault_uri(uri: str) -> str:
-    """The inner URI of a host-form ``fault://`` wrapper (the JAX
-    package's ``io/faults.unwrap_uri``), unchanged for every other
-    scheme: a chaos-wrapped worker reads the same data set as its clean
-    peers."""
-    if not uri.startswith("fault://"):
-        return uri
-    rest = uri[len("fault://"):]
-    slash = rest.find("/")
-    if slash < 0:
-        return uri
-    spec_seg, path = rest[:slash], rest[slash:]
-    args = dict(kv.split("=", 1) for kv in spec_seg.split(",") if "=" in kv)
-    inner = args.get("inner", "file")
-    return path if inner == "file" else f"{inner}://{path.lstrip('/')}"
-
-
 def fileset_signature(data_uri: str, index_uri: Optional[str] = None,
                       type: str = "recordio") -> str:
     """The data set's identity in the shard-lease protocol: workers that
@@ -2024,7 +2125,7 @@ def fileset_signature(data_uri: str, index_uri: Optional[str] = None,
     does, so both packages sign the same data alike."""
 
     def _sig_norm(u: str) -> str:
-        u = _unwrap_fault_uri(u)
+        u = unwrap_uri(u)
         if u.startswith("file://"):
             u = u[len("file://"):]
         if u and "://" not in u and not u.startswith("/"):

@@ -3,9 +3,10 @@
 include/dmlc/io.h:30-129, and the local FileStream of
 src/io/local_filesys.cc:27-67).
 
-``Stream.create(uri, mode)`` opens a local path or a ``file://`` URI;
-every other scheme raises (remote filesystems are ``ROADMAP.md`` §1
-item 8).
+``Stream.create(uri, mode)`` opens a URI through the filesystem its
+protocol names (``io/filesystem.FS_REGISTRY``: local paths, ``file://``,
+``mem://``, ``fault://``); the remote schemes raise (``ROADMAP.md`` §1
+item 8b).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Dataset URIs: a local path with ``?k=v&...`` options and an optional
-``#cachefile`` hint (the port of ``dmlc_core_tpu/io/uri.py``; reference
-src/io/uri_spec.h:21-75)::
+"""Dataset URIs: a path with ``?k=v&...`` options and an optional
+``#cachefile`` hint, and the protocol/host/path split of a URI (the port
+of ``dmlc_core_tpu/io/uri.py``; reference src/io/uri_spec.h:21-75)::
 
     /data/train.csv?format=csv&label_column=0
 """
@@ -11,7 +11,7 @@ from typing import Dict, Mapping, Optional
 
 from ..utils.logging import Error
 
-__all__ = ["URISpec", "rejoin_query", "uri_int"]
+__all__ = ["URI", "URISpec", "rejoin_query", "uri_int"]
 
 
 def uri_int(
@@ -68,3 +68,38 @@ class URISpec:
 
     def __repr__(self) -> str:
         return f"URISpec(uri={self.uri!r}, args={self.args}, cache={self.cache_file!r})"
+
+
+class URI:
+    """protocol/host/path decomposition (reference io.h:525-559).
+
+    ``file:///a/b`` → protocol='file://', host='', path='/a/b'
+    ``/a/b``        → protocol='', host='', path='/a/b'
+    ``gs://b/k``    → protocol='gs://', host='b', path='/k'
+    """
+
+    __slots__ = ("protocol", "host", "path")
+
+    def __init__(self, uri: str) -> None:
+        pos = uri.find("://")
+        if pos < 0:
+            self.protocol, rest = "", uri
+        else:
+            self.protocol, rest = uri[:pos + 3], uri[pos + 3:]
+        if self.protocol in ("", "file://"):
+            # a local path keeps everything as its path
+            self.host, self.path = "", rest
+        else:
+            slash = rest.find("/")
+            if slash < 0:
+                self.host, self.path = rest, ""
+            else:
+                self.host, self.path = rest[:slash], rest[slash:]
+
+    @property
+    def name(self) -> str:
+        """Canonical string form (reference URI::name)."""
+        return f"{self.protocol}{self.host}{self.path}"
+
+    def __repr__(self) -> str:
+        return f"URI({self.name!r})"

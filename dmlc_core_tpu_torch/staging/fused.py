@@ -67,6 +67,7 @@ from ..io.recordio import (
     decode_length,
     scan_compressed_blob,
 )
+from ..io.stream import Stream
 from ..io.uri import URISpec, rejoin_query, uri_int
 from ..telemetry import default_registry as _default_registry
 from ..utils.logging import Error, check
@@ -313,8 +314,8 @@ def _check_ell_spec(spec: BatchSpec) -> None:
 def _one_local_file(uri: str) -> Optional[str]:
     """The path when ``uri`` (options and fragment taken off) names one
     existing local file; None for a file set (a ``;`` list, a directory,
-    a regex) or a remote URI, which ``io.split.create`` reads or
-    refuses."""
+    a regex) or another filesystem's URI (``fault://``, ``mem://``),
+    which ``io.split.create`` reads, or refuses when it is not ported."""
     path = uri[len("file://"):] if uri.startswith("file://") else uri
     if ";" in path or "://" in path:
         return None
@@ -324,7 +325,7 @@ def _one_local_file(uri: str) -> Optional[str]:
 def _uri_head(uri: str) -> bytes:
     """The head of the first file of ``uri``: every part of a file set
     resolves an auto setting from the same bytes."""
-    with open(io_split.expand_files(uri)[0].path, "rb") as f:
+    with Stream.create(io_split.expand_files(uri)[0].path, "r") as f:
         return f.read(_PROBE_BYTES)
 
 

@@ -15,11 +15,13 @@ arguments and output:
   record.
 - ``dsserve serve``: one dsserve preprocessing worker in the foreground
   (what ``submit --dsserve N`` launches N of).
+- ``autoscale replay``: the autoscale controller's decisions replayed
+  over an end-of-job report's time series.
 
 The other subcommands (``ls``, ``cat``, ``cp``, ``split``, ``recordio``,
 ``rowrec``, ``recompress``, ``dump``, ``ckpt``) wait for ``ROADMAP.md``
-§1 item 9b; ``serve`` for item 7d, ``autoscale`` for item 7b and
-``cached`` for item 8. Importing this module loads no torch.
+§1 item 9b; ``serve`` for item 7d and ``cached`` for item 8b. Importing
+this module loads no torch.
 """
 
 from __future__ import annotations
@@ -473,6 +475,74 @@ def _cmd_top(args) -> int:
         return 0
 
 
+def _cmd_cached(args) -> int:
+    """The host block-cache daemon is not ported."""
+    raise Error("tools cached: the host-shared block-cache daemon "
+                "(io/blockcache.py) is not ported (ROADMAP.md §1 item 8b)")
+
+
+def _cmd_autoscale(args) -> int:
+    """Offline surface of the elastic controller (tracker/autoscale.py):
+
+    - ``replay <metrics-report.json>``: run the pure decision function
+      over the time series recorded in an end-of-job report
+      (``DMLC_METRICS_REPORT``) and print the decisions it would have
+      made: deterministic and offline, so thresholds, dwell and ceiling
+      can be tuned against a finished job. The simulated fleet tracks
+      the decisions, so the printed cost is the plan's worker×seconds.
+    """
+    import json as _json
+
+    from ..tracker import autoscale as _as
+
+    with open(args.report) as f:
+        report = _json.load(f)
+    ts = report.get("timeseries")
+    if not isinstance(ts, dict) or not ts.get("per_rank"):
+        print(
+            "error: report has no retained time series — need the "
+            "end-of-job DMLC_METRICS_REPORT shape (a run with DMLC_TS "
+            "sampling on)",
+            file=sys.stderr,
+        )
+        return 1
+    lo, sep, hi = str(args.fleet).partition(":")
+    try:
+        cfg = _as.AutoscaleConfig(
+            min_workers=int(lo),
+            max_workers=int(hi if sep else lo),
+            up_threshold=args.up,
+            down_threshold=args.down,
+            dwell_secs=args.dwell,
+            cost_ceiling=args.cost_ceiling,
+            interval=max(0.1, args.interval),
+            window=max(0.5, args.window),
+        )
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    decisions = _as.replay(ts, cfg, include_holds=not args.actions_only)
+    if args.json:
+        print(_json.dumps(decisions, indent=1))
+        return 0
+    for d in decisions:
+        print(
+            f"t+{d['t']:8.1f}s  {d['kind']:<10} {d['reason']:<14} "
+            f"target={d['target']}  input {d.get('input_stall', 0.0):.2f}  "
+            f"compute {d.get('compute_stall', 0.0):.2f}  "
+            f"queue {d.get('queue_depth', 0.0):g}  "
+            f"cost {d['cost_spent']:.0f}ws"
+        )
+    kinds = {}
+    for d in decisions:
+        kinds[d["kind"]] = kinds.get(d["kind"], 0) + 1
+    total = decisions[-1]["cost_spent"] if decisions else 0.0
+    print(
+        f"# {len(decisions)} decisions "
+        f"({', '.join(f'{k} {n}' for k, n in sorted(kinds.items()))}); "
+        f"plan cost {total:.0f} worker-seconds"
+    )
+    return 0
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -557,6 +627,58 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="with --once: print the derived model as JSON",
     )
     top.set_defaults(fn=_cmd_top)
+
+    asc = sub.add_parser(
+        "autoscale",
+        help="offline elastic-controller tools (replay recorded runs)",
+    )
+    asc.add_argument("action", choices=["replay"])
+    asc.add_argument(
+        "report",
+        help="end-of-job metrics report JSON (DMLC_METRICS_REPORT)",
+    )
+    asc.add_argument(
+        "--fleet", default="1:4", metavar="MIN:MAX",
+        help="fleet bounds to simulate (default 1:4)",
+    )
+    asc.add_argument(
+        "--up", default=0.40, type=float,
+        help="input-stall fraction that triggers scale-up (default 0.40)",
+    )
+    asc.add_argument(
+        "--down", default=0.10, type=float,
+        help="input-stall fraction that triggers retire (default 0.10)",
+    )
+    asc.add_argument(
+        "--dwell", default=10.0, type=float,
+        help="minimum seconds between scale actions (default 10)",
+    )
+    asc.add_argument(
+        "--cost-ceiling", default=0.0, type=float,
+        help="worker-seconds budget (0 = unlimited)",
+    )
+    asc.add_argument(
+        "--interval", default=2.0, type=float,
+        help="controller tick to simulate (default 2)",
+    )
+    asc.add_argument(
+        "--window", default=10.0, type=float,
+        help="windowed-view width per decision (default 10)",
+    )
+    asc.add_argument(
+        "--actions-only", action="store_true",
+        help="print only scale actions, not holds",
+    )
+    asc.add_argument(
+        "--json", action="store_true",
+        help="emit the decision list as JSON",
+    )
+    asc.set_defaults(fn=_cmd_autoscale)
+
+    cached = sub.add_parser(
+        "cached", help="host block-cache daemon (not ported; raises)")
+    cached.add_argument("rest", nargs=argparse.REMAINDER)
+    cached.set_defaults(fn=_cmd_cached)
 
     ds = sub.add_parser(
         "dsserve", help="disaggregated preprocessing worker (dsserve://)"

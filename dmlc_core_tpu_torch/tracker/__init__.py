@@ -12,10 +12,10 @@ Ported: ``protocol``, ``topology``, ``supervisor``, ``client``
 ``submit``), ``collective``, ``shardsvc`` (the dynamic shard service and
 ``ShardLeaseClient``), ``journal`` (the control-plane journal behind the
 supervised tracker), ``opts``, ``launcher``, ``submit`` and the ``local``
-backend with ``TrackerSupervisor`` and the dsserve tier (``DsServeTier``,
-``--dsserve``). Not ported: the autoscale controller, which scales the
-dsserve tier (``ROADMAP.md`` §1 item 7b); the other cluster backends
-come after §1 item 9.
+backend with ``TrackerSupervisor``, the dsserve tier (``DsServeTier``,
+``--dsserve``) and its ``ElasticActuator``, and ``autoscale`` (the
+controller that scales that tier, ``--autoscale``). Not ported: the other
+cluster backends (``ROADMAP.md`` §1 item 9b).
 """
 
 from .topology import get_link_map, get_ring, get_tree

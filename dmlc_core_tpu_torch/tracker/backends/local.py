@@ -22,10 +22,14 @@ the tracker, each leasing micro-shards from the job's shard service and
 streaming packed slots; their endpoints reach every task as
 ``DMLC_DSSERVE``.
 
-Left out, each refused by ``refuse_unported`` with the ``ROADMAP.md``
-item that brings it: the block-cache daemon (``--block-cache``, §1 item
-8), and the autoscale controller with its elastic actuator
-(``--autoscale*``, §1 item 7b). ``--trace-dir`` (exported
+``--autoscale MIN:MAX`` sizes that tier's first fleet within the bounds,
+hands every task the tier's endpoints file (``DMLC_DSSERVE_FILE``) and
+registers an ``ElasticActuator`` over it, through which the tracker's
+autoscale controller adds and retires servers while the job runs.
+
+Left out, refused by ``refuse_unported`` with the ``ROADMAP.md`` item
+that brings it: the block-cache daemon (``--block-cache``, §1 item 8b).
+``--trace-dir`` (exported
 by ``submit``) reaches every task through the inherited environment; a
 task the supervisor SIGKILLs leaves no trace file, since no exit hook
 runs.
@@ -46,6 +50,7 @@ import time
 from typing import Dict, List, Optional
 
 from ...utils.logging import Error
+from .. import autoscale as _autoscale
 from .. import collective, shardsvc
 from .. import tracker as _tracker
 from ..supervisor import RendezvousNeverCompleted, Supervisor, default_max_attempt
@@ -55,13 +60,8 @@ logger = logging.getLogger("dmlc_core_tpu_torch.tracker")
 
 #: (option attribute, flag, ROADMAP.md item) of every unported feature
 _UNPORTED = (
-    ("block_cache", "--block-cache", "§1 item 8"),
-    ("block_cache_mb", "--block-cache-mb", "§1 item 8"),
-    # the controller scales the dsserve tier through its elastic
-    # actuator, which comes with it
-    ("autoscale", "--autoscale", "§1 item 7b"),
-    ("autoscale_cost_ceiling", "--autoscale-cost-ceiling", "§1 item 7b"),
-    ("autoscale_dwell", "--autoscale-dwell", "§1 item 7b"),
+    ("block_cache", "--block-cache", "§1 item 8b"),
+    ("block_cache_mb", "--block-cache-mb", "§1 item 8b"),
 )
 
 
@@ -104,8 +104,7 @@ class DsServeTier:
     The live membership is mirrored into ``endpoints_file`` — an
     atomically rewritten JSON the clients poll via ``DMLC_DSSERVE_FILE``
     so a mid-epoch spawn gets dialed without waiting for the next epoch.
-    The autoscale controller that calls them is ``ROADMAP.md`` §1 item
-    7b."""
+    The autoscale controller calls them through ``ElasticActuator``."""
 
     def __init__(
         self, n: int, envs: Dict[str, object], host: str = "127.0.0.1"
@@ -346,6 +345,26 @@ class TrackerSupervisor:
         shutil.rmtree(self._dir, ignore_errors=True)
 
 
+class ElasticActuator:
+    """The local backend's arm of the autoscale loop: the controller's
+    fleet verbs mapped onto the tier (registered through
+    ``autoscale.set_actuator``, so the controller needs no backend
+    import). The bounds live in the controller; this only actuates."""
+
+    def __init__(self, tier: DsServeTier, retire_grace: float = 30.0) -> None:
+        self.tier = tier
+        self.retire_grace = retire_grace
+
+    def actual(self) -> int:
+        return self.tier.n_live()
+
+    def add_task(self) -> bool:
+        return bool(self.tier.add_worker())
+
+    def retire_task(self) -> bool:
+        return self.tier.retire_worker(self.retire_grace) is not None
+
+
 def _supervised_submit(args, launch_all, checks: List) -> None:
     """The ``--tracker-journal`` form of the submit wait loop: the
     tracker in a supervised subprocess instead of in this process, so a
@@ -416,11 +435,23 @@ def submit(args) -> None:
                 print(f"[dry-run] local task {i} role={role}: "
                       f"{' '.join(args.command)}")
             return
+        # --autoscale min:max sizes the first fleet here and registers
+        # the actuator; the tracker's controller reads the same bounds
+        # from DMLC_AUTOSCALE, which submit exported before the tracker
+        # started
+        as_bounds = None
+        if getattr(args, "autoscale", ""):
+            lo, sep, hi = str(args.autoscale).partition(":")
+            as_bounds = (int(lo), int(hi if sep else lo))
+            n_ds = max(as_bounds[0], min(as_bounds[1], n_ds or as_bounds[0]))
         if n_ds > 0:
             dsserve = DsServeTier(n_ds, envs,
                                   host=getattr(args, "dsserve_host", "127.0.0.1"))
             envs = dict(envs)
             envs["DMLC_DSSERVE"] = dsserve.endpoints
+            if as_bounds is not None:
+                envs["DMLC_DSSERVE_FILE"] = dsserve.endpoints_file
+                _autoscale.set_actuator(ElasticActuator(dsserve))
         # --local-num-attempt retries == max_attempt total runs - 1
         # (reference local.py retry budget); DMLC_MAX_ATTEMPT wins if set.
         # localhost is one shared host, not a failure domain — per-task
@@ -455,5 +486,6 @@ def submit(args) -> None:
                 abort_check=lambda: checks[0]() if checks else None,
             )
     finally:
+        _autoscale.set_actuator(None)
         if dsserve is not None:
             dsserve.stop()

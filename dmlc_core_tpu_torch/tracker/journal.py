@@ -31,9 +31,8 @@ Record kinds: ``shard_grant`` / ``shard_done`` / ``shard_release`` /
 recovery a granted-but-not-done shard is expired back to the queue front
 with its grant history kept), ``rank_assign`` (jobid → rank, world size
 and topology epoch, so a relaunched tracker re-answers ``recover``) and
-``autoscale`` (the controller's budget; the port has no controller,
-``ROADMAP.md`` §1 item 7b, but folds the record so it reads a JAX journal
-whole). Unknown kinds are skipped.
+``autoscale`` (the controller's budget, ``autoscale.py``: target, cost
+spent, dwell elapsed, direction and flaps). Unknown kinds are skipped.
 
 ``DMLC_TRACKER_JOURNAL_SYNC``: ``always`` (the default: fsync after
 every append), ``interval`` (every ``SYNC_INTERVAL_RECORDS`` appends and

@@ -6,9 +6,11 @@ takes the same arguments as ``dmlc_core_tpu.tracker.submit``. Only the
 ``local`` cluster is ported (``backends.get_backend`` raises on the
 others), and the local backend refuses the flags of unported features
 (``backends.local.refuse_unported``). ``--shard-oversplit``,
-``--shard-lease-ttl`` and ``--tracker-journal`` export their env
-(``DMLC_SHARD_OVERSPLIT``, ``DMLC_SHARD_LEASE_TTL``,
-``DMLC_TRACKER_JOURNAL``) to the tracker and the workers.
+``--shard-lease-ttl``, ``--tracker-journal`` and ``--autoscale*``
+export their env (``DMLC_SHARD_OVERSPLIT``, ``DMLC_SHARD_LEASE_TTL``,
+``DMLC_TRACKER_JOURNAL``, ``DMLC_AUTOSCALE``,
+``DMLC_AUTOSCALE_COST_CEILING``, ``DMLC_AUTOSCALE_DWELL``) to the
+tracker and the workers.
 """
 
 from __future__ import annotations
@@ -48,6 +50,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         os.environ["DMLC_SHARD_OVERSPLIT"] = str(args.shard_oversplit)
     if getattr(args, "shard_lease_ttl", 0.0):
         os.environ["DMLC_SHARD_LEASE_TTL"] = str(args.shard_lease_ttl)
+    if getattr(args, "autoscale", ""):
+        # the tracker (this process) reads DMLC_AUTOSCALE when it starts
+        # its controller thread; the backend sizes the first dsserve
+        # fleet from the same bounds
+        os.environ["DMLC_AUTOSCALE"] = str(args.autoscale)
+        if getattr(args, "autoscale_cost_ceiling", 0.0):
+            os.environ["DMLC_AUTOSCALE_COST_CEILING"] = str(
+                args.autoscale_cost_ceiling)
+        if getattr(args, "autoscale_dwell", 0.0):
+            os.environ["DMLC_AUTOSCALE_DWELL"] = str(args.autoscale_dwell)
     if getattr(args, "tracker_journal", None):
         # the tracker (in this process, or the supervised subprocess of
         # backends/local.py) reads DMLC_TRACKER_JOURNAL when it opens its

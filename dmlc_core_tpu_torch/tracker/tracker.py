@@ -25,9 +25,11 @@ rendezvous. With a journal directory (``--journal`` /
 ``DMLC_TRACKER_JOURNAL``, ``journal.py``) the ledger's transitions and
 the rank assignments are written ahead of each answer, and a tracker
 started on the same directory replays them: leases expire
-conservatively, completions and ranks survive. Left out: the autoscale
-controller (``DMLC_AUTOSCALE`` raises), ``ROADMAP.md`` §1 item 7b, which
-scales the dsserve tier.
+conservatively, completions and ranks survive. With ``DMLC_AUTOSCALE=
+min:max`` (``submit --autoscale``) the tracker runs the autoscale
+controller (``autoscale.py``) over its windowed cluster view, publishes
+its status as the report's ``autoscale`` section and journals its
+budget, which a relaunched tracker hands back to its controller.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..telemetry import ClusterAggregator, serve_metrics
 from ..telemetry import timeseries as _timeseries
 from ..telemetry import tracing as _tracing
 from ..utils.logging import Error
+from . import autoscale as _autoscale
 from . import collective as _collective
 from . import journal as _journal
 from . import shardsvc as _shardsvc
@@ -328,14 +331,6 @@ class _BrokerPool:
         self._events.put(("assigned", entry, rank, None))
 
 
-def refuse_unported_env() -> None:
-    """Raise on the tracker features the port lacks, naming the
-    ``ROADMAP.md`` item that brings each."""
-    if os.environ.get("DMLC_AUTOSCALE"):
-        raise Error("the autoscale controller (DMLC_AUTOSCALE) is not ported: "
-                    "it scales the dsserve tier (ROADMAP.md §1 item 7b)")
-
-
 class RabitTracker:
     """Rendezvous server (reference RabitTracker, tracker.py:137-334).
 
@@ -358,7 +353,6 @@ class RabitTracker:
         client_timeout: float = 60.0,
         journal_dir: Optional[str] = None,
     ) -> None:
-        refuse_unported_env()
         #: per-socket recv/send deadline: a stalling (slow-loris) client
         #: must not wedge the accept loop. Timeouts raise socket.timeout
         #: (an OSError), which the handshake treats like any dead
@@ -400,6 +394,7 @@ class RabitTracker:
             journal_dir = os.environ.get("DMLC_TRACKER_JOURNAL") or None
         self._journal: Optional[_journal.Journal] = None
         self._recovered_ranks: Dict[str, int] = {}
+        self._recovered_autoscale: Optional[Dict[str, object]] = None
         self.recovery_summary: Optional[Dict[str, object]] = None
         #: bumped per tracker generation: journal records tell pre-crash
         #: from post-relaunch assignments by this number
@@ -421,6 +416,7 @@ class RabitTracker:
             }
             for jobid, rank in self._recovered_ranks.items():
                 self.shards.note_task_rank(jobid, rank)
+            self._recovered_autoscale = state.get("autoscale")
             self._topo_epoch = 1 + max(
                 (int(r.get("topo_epoch", 0))
                  for r in (state.get("ranks") or {}).values()),
@@ -443,6 +439,9 @@ class RabitTracker:
         # list can name collective.notify_task_failure without wiring.
         self.watch = _collective.DeathWatch()
         _collective.set_active_watch(self.watch)
+        # the elastic autoscale controller (autoscale.py): built in
+        # start() from DMLC_AUTOSCALE; None is a fixed fleet
+        self.autoscaler: Optional[_autoscale.AutoscaleController] = None
         logger.info("start listen on %s:%d", host_ip, self.port)
 
     def worker_envs(self) -> Dict[str, object]:
@@ -868,6 +867,26 @@ class RabitTracker:
                 logger.warning("telemetry endpoint disabled: %s", e)
         if _timeseries.sampling_enabled():
             self._ts_ring.start()
+        # closed-loop autoscale (DMLC_AUTOSCALE=min:max, submit
+        # --autoscale): the controller reads the windowed cluster view
+        # this aggregator keeps and publishes its status as the report's
+        # "autoscale" section. A malformed spec leaves a fixed fleet,
+        # never a dead tracker.
+        try:
+            as_cfg = _autoscale.AutoscaleConfig.from_env()
+        except ValueError as e:
+            logger.warning("autoscale disabled: %s", e)
+            as_cfg = None
+        if as_cfg is not None:
+            if not _timeseries.sampling_enabled():
+                logger.warning(
+                    "autoscale needs time-series sampling (DMLC_TS is "
+                    "off): the controller will hold on no_signal")
+            self.autoscaler = _autoscale.AutoscaleController(
+                self.metrics, as_cfg, journal=self._journal,
+                recovered=self._recovered_autoscale,
+            ).start()
+            self.metrics.extra_sections["autoscale"] = self.autoscaler.status
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="rabit-accept",
         )
@@ -907,6 +926,9 @@ class RabitTracker:
             pass
         if self._accept_thread is not None:
             self._accept_thread.join(5)
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+            self.autoscaler = None
         self._ts_ring.stop()
         if self._metrics_server is not None:
             self._metrics_server.shutdown()

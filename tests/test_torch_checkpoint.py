@@ -198,8 +198,9 @@ def test_sharded_layout_raises_and_is_replaced_like_jax(tmp_path):
 
 
 def test_remote_and_empty_bases(tmp_path):
-    with pytest.raises(Error, match="ROADMAP.md §1 item 8"):
-        Checkpointer("s3://bucket/ckpts")
+    for base in ("s3://bucket/ckpts", "mem://b/ckpts", f"fault://seed=1{tmp_path}"):
+        with pytest.raises(Error, match=r"ROADMAP.md §1 item 8b\b"):
+            Checkpointer(base)
     ck = Checkpointer(str(tmp_path / "none"))
     assert ck.steps() == [] and ck.latest_step() is None
     with pytest.raises(Error, match="no checkpoints"):

@@ -3,8 +3,8 @@ CPU: the codec registry, the block header and crc, the writers' bytes,
 every read path over every codec this host has, the compressed index in
 every shuffle mode at 1 and 3 parts, the decoded-block cache, and the
 golden artifact ``tests/data/golden_zlib.rec``. The cases of
-tests/test_codec.py (without the ``fault://`` and telemetry ones, which
-wait for the remote filesystems and the telemetry port) and
+tests/test_codec.py (its ``fault://`` chaos over compressed spans
+included, since slice 12; without the telemetry ones) and
 tests/test_golden_codec.py run on both packages; files, records and
 errors must be identical (bit for bit, no tolerance).
 """
@@ -378,8 +378,48 @@ def test_corrupt_block_surfaces_checked_error(tmp_path, damage):
             drain(jax_split.create(uri, type="recordio", threaded=False))
 
 
+# -- fault-injection chaos over compressed spans ------------------------------------
+@pytest.mark.parametrize("shuffle", ("0", "window"))
+def test_fault_injected_reads_heal_byte_identical(shuffle, tmp_path, monkeypatch):
+    """fault:// resets, short reads and a 5xx over a zlib file heal to
+    the clean records, with retries counted, in file order and windowed;
+    the JAX package's split over the same chaos URI reads the same."""
+    from dmlc_core_tpu_torch.io.faults import wrap_uri
+
+    monkeypatch.setenv("DMLC_RETRY_BASE_SECS", "0.001")
+    monkeypatch.setenv("DMLC_RETRY_CAP_SECS", "0.01")
+    rec, idx = write(tmp_path, "zlib")
+    sugar = f"?index={idx}&shuffle={shuffle}&seed=2&window=64"
+
+    def run(uri):
+        codec.default_decode_cache().clear()
+        sp = io_split.create(uri + sugar, 0, 1, type="recordio", threaded=False)
+        stats = {}
+        try:
+            out = drain_keep_open(sp)
+            stats = sp.io_stats()
+        finally:
+            sp.close()
+        return out, stats
+
+    clean, _ = run(rec)
+    chaos_uri = wrap_uri(rec, "resets=2,short=2,errors=1,seed=7")
+    chaos, stats = run(chaos_uri)
+    assert chaos == clean and sorted(clean) == sorted(RECORDS)
+    assert stats["faults_injected"] > 0 and stats["retries"] > 0
+    jax_codec.default_decode_cache().clear()
+    assert drain(jax_split.create(chaos_uri + sugar, type="recordio", threaded=False)) == clean
+
+
+def drain_keep_open(s):
+    out = []
+    while (rec := s.next_record()) is not None:
+        out.append(bytes(rec))
+    return out
+
+
 def test_decode_context_has_no_shared_tier():
-    with pytest.raises(Error, match="not ported"):
+    with pytest.raises(Error, match=r"not ported \(ROADMAP.md §1 item 8b\)"):
         DecodeContext(shared=object())
     ctx = DecodeContext(cache=DecodedBlockCache(1 << 20))
     blob = encode_block(b"r" * 100, 1, "gzip")

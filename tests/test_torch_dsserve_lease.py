@@ -429,15 +429,32 @@ def test_sigterm_graceful_retire_releases_leases_promptly(corpus, tmp_path, monk
     30 s TTL. The servers' egress is paced (``DMLC_DSSERVE_WIRE_BPS``) so
     the signal lands mid-stream with leases held; the bytes are
     untouched."""
-    tr = start_tracker("port", monkeypatch, ttl="30.0")
     rec, idx = corpus
-    uri = uri_of(rec, idx)
+    run_sigterm_retire(rec, idx, uri_of(rec, idx), tmp_path, monkeypatch,
+                       {"DMLC_DSSERVE_WIRE_BPS": "200000"})
+
+
+def test_sigterm_graceful_retire_under_fault_latency(corpus, tmp_path, monkeypatch):
+    """The same retire with the servers slowed as the JAX test slows
+    them: ``fault://latency_ms`` on every read of the shard (latency
+    only: the bytes, and so the static parts' digests, are the clean
+    file's)."""
+    rec, idx = corpus
+    slow = uri_of(f"fault://latency_ms=30,spikes=200,cap=4096,seed=5{rec}", idx)
+    run_sigterm_retire(rec, idx, slow, tmp_path, monkeypatch, {})
+
+
+def run_sigterm_retire(rec, idx, uri, tmp_path, monkeypatch, pace):
+    """Drain ``uri`` from two leasing servers, SIGTERM one after the
+    third slot, and hold the shards to the clean file's static parts."""
+    tr = start_tracker("port", monkeypatch, ttl="30.0")
     base = {"DMLC_TRACKER_URI": "127.0.0.1", "DMLC_TRACKER_PORT": str(tr.port),
-            "DMLC_DSSERVE_WIRE_BPS": "200000", "DMLC_DSSERVE_SHM": "off"}
+            "DMLC_DSSERVE_SHM": "off", **pace}
     retiree, ep0 = spawn_server(tmp_path, 0, base)
     survivor, ep1 = spawn_server(tmp_path, 1, base)
     try:
-        c = DsServeBatches(f"dsserve://{ep0},{ep1}{uri}", spec_of(), mode="lease")
+        c = DsServeBatches(f"dsserve://{ep0},{ep1}/{uri.lstrip('/')}", spec_of(),
+                           mode="lease")
         shas, seen = {}, []
         record = hashing(shas)
 
@@ -461,7 +478,8 @@ def test_sigterm_graceful_retire_releases_leases_promptly(corpus, tmp_path, monk
     m = summary["n_shards"]
     assert rows == N_ROWS
     assert summary["completed"] == m and summary["duplicates"] == 0
-    assert [shas[i].hexdigest() for i in range(m)] == static_part_shas(uri, spec_of(), m)
+    assert [shas[i].hexdigest() for i in range(m)] == static_part_shas(uri_of(rec, idx),
+                                                                       spec_of(), m)
 
 
 def test_inprocess_retire_mid_drain_exactly_once(corpus, tracker):

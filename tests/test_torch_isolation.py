@@ -80,11 +80,19 @@ TRACKER_MODULES = [
     "dmlc_core_tpu_torch.io.shm",
     "dmlc_core_tpu_torch.staging.batcher",
     "dmlc_core_tpu_torch.staging.fused",
+    # the autoscale controller in the tracker, and the retry, fault and
+    # span-fetch layers a dsserve server reads fault:// data through
+    "dmlc_core_tpu_torch.tracker.autoscale",
+    "dmlc_core_tpu_torch.io.filesystem",
+    "dmlc_core_tpu_torch.io.retry",
+    "dmlc_core_tpu_torch.io.faults",
+    "dmlc_core_tpu_torch.io.spanfetch",
+    "dmlc_core_tpu_torch.io.split",
 ]
 
 # the modules of the indexed, shuffled path, the checkpoints, the example
-# ports, the codec layer, the tracker and dsserve: each must be among
-# those imported
+# ports, the codec layer, the tracker, dsserve, autoscale and the fault
+# layer: each must be among those imported
 NEW_MODULES = {
     "dmlc_core_tpu_torch.checkpoint",
     "dmlc_core_tpu_torch.io.stream",

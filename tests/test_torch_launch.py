@@ -415,16 +415,42 @@ def test_dry_run_does_not_block(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--block-cache"], "8"), (["--block-cache-mb", "64"], "8"),
-    (["--dsserve", "2", "--autoscale", "1:2"], "7b"),
-    (["--autoscale", "1:2"], "7b"), (["--autoscale-cost-ceiling", "10"], "7b"),
-    (["--autoscale-dwell", "3"], "7b"),
+    (["--block-cache"], "8b"), (["--block-cache-mb", "64"], "8b"),
 ])
 def test_unported_flags_raise_naming_the_roadmap_item(flag, item):
     with pytest.raises(Error, match=rf"ROADMAP.md §1 item {item}\b"):
         submit.main(["--cluster", "local", "--num-workers", "1", "--host-ip", "127.0.0.1",
                      *flag, "true"])
     assert not os.path.exists("/nonexistent")
+
+
+@pytest.mark.parametrize("flag,env", [
+    (["--dsserve", "2", "--autoscale", "1:2"], {"DMLC_AUTOSCALE": "1:2"}),
+    (["--autoscale", "1:2"], {"DMLC_AUTOSCALE": "1:2"}),
+    (["--autoscale", "1:3", "--autoscale-cost-ceiling", "10"],
+     {"DMLC_AUTOSCALE": "1:3", "DMLC_AUTOSCALE_COST_CEILING": "10.0"}),
+    (["--autoscale", "2:2", "--autoscale-dwell", "3"],
+     {"DMLC_AUTOSCALE": "2:2", "DMLC_AUTOSCALE_DWELL": "3.0"}),
+])
+def test_autoscale_flags_export_env_as_jax(monkeypatch, capsys, flag, env):
+    """The autoscale flags, refused until ROADMAP.md §1 item 7b was
+    ported, export the env the tracker's controller reads, as the JAX
+    submit does (a dry run: no process starts)."""
+    jax_submit = importlib.import_module("dmlc_core_tpu.tracker.submit")
+    keys = ("DMLC_AUTOSCALE", "DMLC_AUTOSCALE_COST_CEILING", "DMLC_AUTOSCALE_DWELL",
+            "DMLC_TRACE_ID")
+    argv = ["--cluster", "local", "--num-workers", "1", "--host-ip", "127.0.0.1",
+            "--dry-run", *flag, "true"]
+    seen = []
+    for main in (submit.main, jax_submit.main):
+        for k in keys:
+            monkeypatch.setenv(k, "")  # recorded, so the exports are undone
+            monkeypatch.delenv(k)
+        main(argv)
+        seen.append({k: os.environ.get(k) for k in keys[:-1]})
+    want = {k: env.get(k) for k in keys[:-1]}
+    assert seen == [want, want]
+    assert capsys.readouterr().out.count("[dry-run] local task 0") == 2
 
 
 @pytest.mark.parametrize("cluster", ["ssh", "mpi", "slurm", "tpu-pod"])

@@ -849,11 +849,25 @@ def test_chaos_kill_mid_lease_exactly_once(corpus, tmp_path, monkeypatch):
     epoch, every micro-shard is committed exactly once and equals the
     static part shard for shard."""
     rec, idx = corpus
+    run_kill_mid_lease(rec, f"{rec}?index={idx}&shuffle=record&seed=4&dynamic_shards=1",
+                       idx, tmp_path, monkeypatch)
+
+
+def test_chaos_kill_mid_lease_exactly_once_under_fault_chaos(corpus, tmp_path, monkeypatch):
+    """The same drill with ``fault://`` chaos on the data path, as the
+    JAX test runs it: seeded resets, healed by the retry layer, while
+    leases move around. The committed shards equal the clean static
+    parts."""
+    rec, idx = corpus
+    uri = f"fault://resets=1,seed=11{rec}?index={idx}&shuffle=record&seed=4&dynamic_shards=1"
+    run_kill_mid_lease(rec, uri, idx, tmp_path, monkeypatch)
+
+
+def run_kill_mid_lease(rec, uri, idx, tmp_path, monkeypatch):
     monkeypatch.setenv("DMLC_SHARD_LEASE_TTL", "2.0")
     t = start_tracker("port", 3, monkeypatch)
     out = tmp_path / "out"
     out.mkdir()
-    uri = f"{rec}?index={idx}&shuffle=record&seed=4&dynamic_shards=1"
     script = tmp_path / "worker.py"
     script.write_text(CHAOS_WORKER.format(repo=str(REPO), out=str(out), uri=uri))
 

@@ -269,6 +269,80 @@ def test_gather_views_frame_the_records_in_order(indexed):
     seq.close()
 
 
+def port_drain_gather(s, n=13):
+    """Records through the zero-copy emission, in emission order (each
+    view's frame parsed back out)."""
+    from dmlc_core_tpu_torch.io.recordio import RecordIOChunkReader
+
+    out = []
+    while (g := s.next_gather_batch(n)) is not None:
+        buf, starts, sizes = g
+        for a, z in zip(starts.tolist(), sizes.tolist()):
+            recs = [bytes(r) for r in RecordIOChunkReader(buf[a:a + z].tobytes())]
+            assert len(recs) == 1  # each slice is one whole record
+            out.append(recs[0])
+    return out
+
+
+@pytest.mark.parametrize("codec", (None, "zlib"))
+@pytest.mark.parametrize("mode", ("record", "batch", "window"))
+def test_parallel_fetch_order_identical_to_serial(mode, codec, tmp_path, monkeypatch):
+    """The concurrent span fetcher on a fault:// source emits the local
+    serial path's order and bytes through the gather views, for every
+    shuffle mode on both containers (tests/test_split_gather.py)."""
+    from test_split_gather import make_indexed_rec
+    from test_split_gather import records_of as gather_records
+
+    monkeypatch.setenv("DMLC_FETCH_THREADS", "4")
+    p, idx = make_indexed_rec(str(tmp_path), gather_records(130, tag="pl"), codec=codec)
+    kw = dict(batch_size=9, shuffle=mode, seed=7, window=28, merge_gap=0)
+    ref = split.IndexedRecordIOSplitter(p, idx, 0, 1, **kw)
+    want = port_drain_gather(ref)
+    ref.close()
+    s = split.IndexedRecordIOSplitter(f"fault://seed=5{p}", idx, 0, 1, **kw)
+    got = port_drain_gather(s)
+    stats = s.io_stats()
+    s.close()
+    assert got == want, (mode, codec)
+    assert stats["gather_batches"] > 0
+    if codec is None:
+        # v1 windows plan scattered spans: the fetcher carried them
+        assert stats["fetch_spans"] > 0, mode
+
+
+def test_chaos_gather_identical_to_clean(tmp_path, monkeypatch):
+    """fault:// chaos with retries > 0: the gather emission heals to the
+    clean order and bytes in record and window modes, and equals the
+    JAX package's split over the same chaos URI."""
+    from test_split_gather import drain_gather as jax_drain_gather
+    from test_split_gather import make_indexed_rec
+    from test_split_gather import records_of as gather_records
+
+    from dmlc_core_tpu_torch.io.faults import wrap_uri
+
+    monkeypatch.setenv("DMLC_RETRY_BASE_SECS", "0.001")
+    monkeypatch.setenv("DMLC_RETRY_CAP_SECS", "0.01")
+    p, idx = make_indexed_rec(str(tmp_path), gather_records(90, tag="f"))
+    for mode in ("record", "window"):
+        clean = split.create(f"{p}?index={idx}&shuffle={mode}&seed=6&window=32",
+                             type="recordio")
+        want = port_drain_gather(clean)
+        clean.close()
+        uri = wrap_uri(p, "resets=2,short=1,errors=1,seed=11")
+        chaotic = split.create(f"{uri}?index={idx}&shuffle={mode}&seed=6&window=32",
+                               type="recordio")
+        got = port_drain_gather(chaotic)
+        stats = chaotic.io_stats()
+        chaotic.close()
+        assert got == want, mode
+        assert stats["faults_injected"] > 0, mode
+        assert stats["retries"] > 0, mode
+        j = jax_split.create(f"{uri}?index={idx}&shuffle={mode}&seed=6&window=32",
+                             type="recordio")
+        assert jax_drain_gather(j) == want, mode
+        j.close()
+
+
 def test_empty_part_and_reset_partition(indexed):
     p, idx, records = indexed
     for mod in (split, jax_split):

@@ -627,9 +627,9 @@ def test_retry_stats_view_matches_registry_counters():
 
 
 def test_split_io_stats_golden_keys(tmp_path):
-    """InputSplitBase.io_stats() on a clean local read: the JAX split adds
-    the retry-delta keys and ``reopens`` of its remote streams; the port
-    reads only local files and reports ``mode`` alone (ROADMAP.md §3)."""
+    """InputSplitBase.io_stats() on a clean local read: mode, the three
+    retry-delta keys and ``reopens``, zero, as in the JAX package (the
+    retry layer is ported since slice 12)."""
     from dmlc_core_tpu_torch.io import split as io_split
 
     p = tmp_path / "x.txt"
@@ -639,7 +639,8 @@ def test_split_io_stats_golden_keys(tmp_path):
         pass
     stats = s.io_stats()
     s.close()
-    assert stats == {"mode": "sequential"}
+    assert stats == {"mode": "sequential", "reopens": 0, "retries": 0,
+                     "backoff_secs": 0.0, "faults_injected": 0}
 
 
 def test_wrapper_splits_io_stats_always_dict(tmp_path):

@@ -84,6 +84,15 @@ def test_info_with_a_shard_uri_names_the_roadmap_item(capsys):
     assert "ROADMAP.md §1 item 7" in err
 
 
+@pytest.mark.parametrize("argv", [["cached"], ["cached", "serve", "--mb", "64"]])
+def test_cached_names_the_roadmap_item(capsys, argv):
+    """``tools cached`` (the host block-cache daemon) is not ported: it
+    fails with ROADMAP.md §1 item 8b, not argparse's unknown-command."""
+    rc, _, err = run_cli(argv, capsys)
+    assert rc == 1
+    assert "ROADMAP.md §1 item 8b" in err
+
+
 def test_trace_report_prints_the_stall_attribution(tmp_path, capsys):
     tracing.reset()
     tracing.set_enabled(True)

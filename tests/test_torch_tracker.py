@@ -192,10 +192,29 @@ def test_unknown_cluster_raises():
     ({"DMLC_AUTOSCALE": "1:4"}, "7b"),
 ])
 def test_tracker_refuses_unported_features(monkeypatch, env, item):
+    """The tracker refused ``DMLC_AUTOSCALE`` until ROADMAP.md §1 item
+    7b was ported: now it starts the autoscale controller from it (no
+    tracker feature is refused any more), and a malformed spec leaves a
+    fixed fleet instead of a dead tracker."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(Error, match=rf"ROADMAP.md §1 item {item}\b"):
-        RabitTracker("127.0.0.1", 1)
+    monkeypatch.setenv("DMLC_AUTOSCALE_INTERVAL", "60")
+    tr = RabitTracker("127.0.0.1", 1)
+    try:
+        tr.start(1)
+        assert tr.autoscaler is not None
+        assert tr.metrics.report()["autoscale"]["max_workers"] == 4
+    finally:
+        tr.close()
+        assert tr.join(timeout=10)
+    monkeypatch.setenv("DMLC_AUTOSCALE", "banana")
+    tr = RabitTracker("127.0.0.1", 1)
+    try:
+        tr.start(1)
+        assert tr.autoscaler is None and "autoscale" not in tr.metrics.report()
+    finally:
+        tr.close()
+        assert tr.join(timeout=10)
 
 
 # -- rendezvous over real sockets, across the two packages ----------------------
