@@ -186,7 +186,27 @@ Phases (any failure exits non-zero and prints no result line):
    K1-K4 once a step, the params within ``PARAM_REL`` of a one-process
    replay. It prints both runs' expensive-phase makespans and their
    ratio, the recv wait share per phase and the controller's spend;
-15. the ``entry()`` forward on the card against the CPU.
+15. the remote filesystems and the host block cache at the Criteo width
+   over the shuffle phase's 2^18 indexed rows: (a) a fake S3 of this
+   script's own (``FAKE_S3``: ranged GET, HEAD with an ETag, PUT,
+   multipart, copy, ListObjectsV2, DELETE; a process of its own on the
+   loopback, not a real bucket) takes the file and its index through the
+   port's multipart upload; FM SGD for 128 steps over ``s3://`` and over
+   ``fault://inner=s3`` chaos (FAULT_CHAOS), each batch's digest equal
+   to the local file's pass and the params within ``PARAM_REL`` of it,
+   ``reopens`` > 0 and, under chaos, retries > 0; a pass saving to
+   ``Checkpointer("s3://bkt/ckpt")`` every 16 steps stops at step 64 and
+   a fresh Checkpointer's restore resumes it with ``skip_records``, its
+   batches those of the uninterrupted ``s3://`` pass; (b) decode once a
+   host over the rows' zlib copy (1 MiB blocks): a ``tools cached serve``
+   daemon, a publisher, then a second reader and a control
+   (``DMLC_BLOCK_CACHE=off``) in turns, twice each, each an FM trainer of
+   its own process on the card: the second reader decodes no block at a
+   daemon hit rate of 1.0, the batches are equal across the three and
+   the params within ``PARAM_REL``; then ``submit --block-cache`` with
+   two colocated trainers (rank 1 starting at rank 0's step 8) decodes
+   fewer than twice the file's blocks and leaves no socket directory;
+16. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -196,8 +216,9 @@ shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
 ``{"slice": {...}}``, a ``{"shuffle": {...}}``, a ``{"codec": {...}}``,
 an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
 ``{"telemetry": {...}}``, a ``{"shards": {...}}``, a ``{"dsserve":
-{...}}``, a ``{"faults": {...}}`` and an ``{"autoscale": {...}}`` line,
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+{...}}``, a ``{"faults": {...}}``, an ``{"autoscale": {...}}``, a
+``{"remote": {...}}`` and a ``{"phase_seconds": {...}}`` line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2989,6 +3010,594 @@ def faults_phase(dev, card: str):
                       "clean": ref_out, "arms": arms, "summary": summary}}, launches
 
 
+# -- the remote phase: the FM from an object store, and decode once per host -----------
+# a small S3 of this script's own, run as a process of its own on the loopback
+# (so its handler threads do not share the trainer's interpreter): path-style
+# /bucket/key, ranged GET, HEAD with an ETag, PUT, multipart upload, server-side
+# copy, ListObjectsV2 with paging, DELETE and DeleteObjects; every request must
+# carry a SigV4 Authorization header. GET /?fake-stats answers its request counts.
+FAKE_S3 = r'''
+import base64, hashlib, json, os, sys, threading, urllib.parse
+import xml.etree.ElementTree as ET
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from xml.sax.saxutils import escape
+
+STORE, ETAGS, UPLOADS, COUNTS = {}, {}, {}, {}
+LOCK = threading.Lock()
+MAX_KEYS = 1000
+
+
+class Handler(BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+
+    def reply(self, code, body=b"", headers=()):
+        self.send_response(code)
+        for k, v in headers:
+            self.send_header(k, v)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        if body and self.command != "HEAD":
+            self.wfile.write(body)
+
+    def parse(self):
+        with LOCK:
+            COUNTS[self.command] = COUNTS.get(self.command, 0) + 1
+        u = urllib.parse.urlsplit(self.path)
+        q = urllib.parse.parse_qs(u.query, keep_blank_values=True)
+        if "fake-stats" in q:
+            return None, q
+        if not self.headers.get("Authorization", "").startswith("AWS4-HMAC-SHA256 Credential="):
+            self.reply(403, b"<Error><Code>AccessDenied</Code></Error>")
+            return False, q
+        return urllib.parse.unquote(u.path).lstrip("/"), q
+
+    def body(self):
+        return self.rfile.read(int(self.headers.get("Content-Length") or 0))
+
+    def put_object(self, key, data):
+        with LOCK:
+            STORE[key] = data
+            ETAGS[key] = '"%s"' % hashlib.md5(data).hexdigest()
+            return ETAGS[key]
+
+    def do_HEAD(self):
+        key, _ = self.parse()
+        if key is False:
+            return
+        data = STORE.get(key)
+        if data is None:
+            return self.reply(404)
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.send_header("ETag", ETAGS[key])
+        self.end_headers()
+
+    def do_GET(self):
+        key, q = self.parse()
+        if key is None:
+            with LOCK:
+                return self.reply(200, json.dumps(COUNTS).encode())
+        if key is False:
+            return
+        if "list-type" in q:
+            return self.list_objects(key.rstrip("/"), q)
+        data = STORE.get(key)
+        if data is None:
+            return self.reply(404)
+        start, end, code = 0, len(data), 200
+        rng = self.headers.get("Range")
+        if rng:
+            a, _, b = rng.split("=", 1)[1].partition("-")
+            start, end, code = int(a), min(int(b) + 1 if b else len(data), len(data)), 206
+            if start >= len(data):
+                return self.reply(416)
+        self.send_response(code)
+        if code == 206:
+            self.send_header("Content-Range", "bytes %d-%d/%d" % (start, end - 1, len(data)))
+        self.send_header("Content-Length", str(end - start))
+        self.send_header("ETag", ETAGS[key])
+        self.end_headers()
+        view = memoryview(data)
+        try:  # a reader that seeks away closes the connection mid-body
+            for at in range(start, end, 1 << 20):
+                self.wfile.write(view[at:min(at + (1 << 20), end)])
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+
+    def list_objects(self, bucket, q):
+        prefix = q.get("prefix", [""])[0]
+        delim = q.get("delimiter", [""])[0]
+        after = q.get("continuation-token", [""])[0]
+        with LOCK:
+            keys = sorted(k[len(bucket) + 1:] for k in STORE
+                          if k.startswith(bucket + "/" + prefix))
+        entries = []
+        for k in keys:
+            tail = k[len(prefix):]
+            name = prefix + tail.split(delim, 1)[0] + delim if delim and delim in tail else k
+            if name > after and (not entries or entries[-1] != name):
+                entries.append(name)
+        page, more = entries[:MAX_KEYS], len(entries) > MAX_KEYS
+        parts = ["<ListBucketResult><IsTruncated>%s</IsTruncated>" % ("true" if more else "false")]
+        if more:
+            parts.append("<NextContinuationToken>%s</NextContinuationToken>" % escape(page[-1]))
+        for name in page:
+            if delim and name.endswith(delim) and name not in keys:
+                parts.append("<CommonPrefixes><Prefix>%s</Prefix></CommonPrefixes>" % escape(name))
+            else:
+                full = bucket + "/" + name
+                parts.append("<Contents><Key>%s</Key><Size>%d</Size><ETag>%s</ETag></Contents>"
+                             % (escape(name), len(STORE[full]), escape(ETAGS[full])))
+        self.reply(200, ("".join(parts) + "</ListBucketResult>").encode())
+
+    def do_PUT(self):
+        key, q = self.parse()
+        if key is False:
+            return
+        data = self.body()
+        if "partNumber" in q:
+            with LOCK:
+                UPLOADS[q["uploadId"][0]][int(q["partNumber"][0])] = data
+            return self.reply(200, headers=[("ETag", '"%s"' % hashlib.md5(data).hexdigest())])
+        src = self.headers.get("x-amz-copy-source")
+        if src:
+            src = urllib.parse.unquote(src).lstrip("/")
+            if src not in STORE:
+                return self.reply(404)
+            etag = self.put_object(key, STORE[src])
+            return self.reply(200, ("<CopyObjectResult><ETag>%s</ETag></CopyObjectResult>"
+                                    % escape(etag)).encode())
+        self.reply(200, headers=[("ETag", self.put_object(key, data))])
+
+    def do_DELETE(self):
+        key, _ = self.parse()
+        if key is False:
+            return
+        with LOCK:
+            STORE.pop(key, None)
+            ETAGS.pop(key, None)
+        self.reply(204)
+
+    def do_POST(self):
+        key, q = self.parse()
+        if key is False:
+            return
+        data = self.body()
+        if "delete" in q:
+            want = base64.b64encode(hashlib.md5(data).digest()).decode()
+            if self.headers.get("Content-MD5") != want:
+                return self.reply(400, b"<Error><Code>InvalidDigest</Code></Error>")
+            bucket = key.split("/", 1)[0]
+            with LOCK:
+                for obj in ET.fromstring(data).iter("Object"):
+                    full = bucket + "/" + (obj.findtext("Key") or "")
+                    STORE.pop(full, None)
+                    ETAGS.pop(full, None)
+            return self.reply(200, b"<DeleteResult/>")
+        if "uploads" in q:
+            with LOCK:
+                uid = "upload-%d" % len(UPLOADS)
+                UPLOADS[uid] = {}
+            return self.reply(200, ("<InitiateMultipartUploadResult><UploadId>%s</UploadId>"
+                                    "</InitiateMultipartUploadResult>" % uid).encode())
+        with LOCK:
+            parts = UPLOADS.pop(q["uploadId"][0])
+        self.put_object(key, b"".join(parts[n] for n in sorted(parts)))
+        self.reply(200, b"<CompleteMultipartUploadResult/>")
+
+
+class Server(ThreadingHTTPServer):
+    daemon_threads = True
+
+    def handle_error(self, request, client_address):
+        pass  # a client gone mid-request is the client's business
+
+
+srv = Server(("127.0.0.1", 0), Handler)
+with open(sys.argv[1] + ".tmp", "w") as f:
+    json.dump({"port": srv.server_address[1], "pid": os.getpid()}, f)
+os.replace(sys.argv[1] + ".tmp", sys.argv[1])
+srv.serve_forever()
+'''
+
+# an FM trainer of its own process over a compressed file (the decode-once
+# arms and the --block-cache job): the JSON config names the URI, the card,
+# the widths and, in a job, the flag file rank 1 waits for; it writes its
+# pass's stats, its codec and block-cache counters and its params
+REMOTE_TRAINER = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import chip_smoke as cs
+from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+from dmlc_core_tpu_torch.staging.fused import ell_batches
+from dmlc_core_tpu_torch.telemetry import default_registry
+
+with open(sys.argv[1]) as f:
+    cfg = json.load(f)
+dev = torch.device(cfg["dev"])
+out = cfg["out"]
+worker = None
+if cfg.get("rabit"):
+    from dmlc_core_tpu_torch.tracker.client import RabitWorker
+    worker = RabitWorker()
+    rank = worker.start()
+    out += str(rank)
+    if rank == 1:  # the second colocated reader starts behind the first
+        end = time.monotonic() + 300
+        while not os.path.exists(cfg["flag"]):
+            if time.monotonic() > end:
+                sys.exit("rank 0 never reached its flag step")
+            time.sleep(0.02)
+model = FactorizationMachine(cfg["d"], cfg["e"], device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+spec = BatchSpec(batch_size=cfg["b"], max_nnz=cfg["k"], value_dtype=np.float32)
+reg = default_registry()
+
+
+def flag(step, _batch):
+    if cfg.get("flag") and step == cfg["flag_step"] and not os.path.exists(cfg["flag"]):
+        open(cfg["flag"], "w").close()
+
+
+stats, _, _ = cs.drive(cfg["name"], model, ell_batches(cfg["uri"], spec), dev, cfg["lr"],
+                       digests=True, on_step=flag)
+stats.update(
+    decodes=reg.histogram("io.codec.decode_seconds").snapshot()["count"],
+    blockcache_hits=sum(reg.counter_values("io.blockcache.hits").values()),
+    blockcache_misses=sum(reg.counter_values("io.blockcache.misses").values()),
+    blockcache_publishes=sum(reg.counter_values("io.blockcache.publishes").values()),
+    sock=os.environ.get("DMLC_BLOCK_CACHE_SOCK", ""),
+    block_cache_env=os.environ.get("DMLC_BLOCK_CACHE", ""))
+np.savez(out + ".npz", **{{n: p.detach().cpu().numpy() for n, p in model.params().items()}})
+with open(out + ".json.tmp", "w") as f:
+    json.dump(stats, f)
+os.replace(out + ".json.tmp", out + ".json")
+if worker is not None:
+    worker.shutdown()
+"""
+
+REMOTE_CKPT_EVERY = 16  # the head pass saves to s3:// every this many steps
+REMOTE_FLAG_STEP = 8    # in the --block-cache job rank 1 starts at rank 0's step 8
+
+
+def fake_s3(tmp: str):
+    """The FAKE_S3 process: (process, endpoint URL)."""
+    pf = os.path.join(tmp, "fake_s3.json")
+    proc = subprocess.Popen([sys.executable, "-c", FAKE_S3, pf])
+    deadline = time.monotonic() + 60
+    while not os.path.exists(pf):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            fail("the fake S3 did not start")
+        time.sleep(0.05)
+    with open(pf) as f:
+        return proc, f"http://127.0.0.1:{json.load(f)['port']}"
+
+
+def fake_s3_counts(endpoint: str) -> dict:
+    from dmlc_core_tpu_torch.io import retry
+
+    with retry.request(f"{endpoint}/?fake-stats", timeout=30.0) as resp:
+        return json.loads(resp.read().decode())
+
+
+def upload(src: str, uri: str) -> None:
+    """A local file to ``uri`` through the port's filesystems (a
+    multipart upload past 16 MiB)."""
+    from dmlc_core_tpu_torch.io.stream import Stream
+
+    with open(src, "rb") as f, Stream.create(uri, "w") as w:
+        while chunk := f.read(4 << 20):
+            w.write(chunk)
+
+
+def fm_params(m):
+    return {k: p.detach().cpu().numpy() for k, p in m.params().items()}
+
+
+def count_blocks(path: str) -> int:
+    from dmlc_core_tpu_torch.io.recordio import scan_compressed_blob
+
+    with open(path, "rb") as f:
+        view = memoryview(f.read())
+    n = pos = 0
+    while pos < len(view):
+        _, pos = scan_compressed_blob(view, pos)
+        n += 1
+    return n
+
+
+def remote_object_store(rec: str, spec, dev, make, tmp: str, endpoint: str):
+    """(a): the FM from ``s3://`` (clean, then through fault:// chaos)
+    beside the local file's pass, and a pass checkpointed to ``s3://``
+    every REMOTE_CKPT_EVERY steps, stopped halfway and resumed."""
+    from dmlc_core_tpu_torch.checkpoint import Checkpointer
+    from dmlc_core_tpu_torch.convert import params_from_jax
+    from dmlc_core_tpu_torch.io.filesystem import FileSystem
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    pick = ("steps", "step_ms", "staged_rows_per_sec", "wait_share", "wall_s")
+    query = f"shuffle=batch&batch_size={B}&seed=1&epoch=0"
+    t0 = time.perf_counter()
+    upload(rec, "s3://bkt/shuffle.rec")
+    upload(rec + ".idx", "s3://bkt/shuffle.idx")
+    upload_s = time.perf_counter() - t0
+    info = FileSystem.get_instance("s3://bkt/shuffle.rec").get_path_info("s3://bkt/shuffle.rec")
+    if info.size != os.path.getsize(rec) or not info.etag:
+        fail(f"s3://bkt/shuffle.rec: stat {info} for a {os.path.getsize(rec)}-byte file")
+    s3_uri = f"s3://bkt/shuffle.rec?index=s3://bkt/shuffle.idx&{query}"
+    chaos_uri = f"fault://inner=s3,{FAULT_CHAOS}/bkt/shuffle.rec?index=s3://bkt/shuffle.idx&{query}"
+    arms, models, io, runs = {}, {}, {}, []
+    for arm, uri in (("local", f"{rec}?index={rec}.idx&{query}"), ("s3", s3_uri),
+                     ("chaos", chaos_uri)):
+        old = {k: os.environ.get(k) for k in FAULT_RETRY}
+        if arm == "chaos":
+            os.environ.update(FAULT_RETRY)
+        wait0 = stall_seconds("fetch_wait")
+        try:
+            models[arm] = make()
+            src = ell_batches(uri, spec)
+            run, _, _ = drive(f"remote_{arm}", models[arm], src, dev, SHARD_LR, digests=True)
+        finally:
+            restore_env(old)
+        io[arm] = src.io_stats()
+        run["fetch_wait_s"] = stall_seconds("fetch_wait") - wait0
+        arms[arm] = run
+        runs.append(run)
+    for arm in ("s3", "chaos"):
+        if arms[arm]["digests"] != arms["local"]["digests"]:
+            diff = sum(a != b for a, b in zip(arms[arm]["digests"], arms["local"]["digests"]))
+            fail(f"remote {arm}: {diff} of {arms['local']['steps']} batches differ from the "
+                 f"local file's ({arms[arm]['steps']} steps)")
+    if not io["s3"].get("reopens", 0) > 0:
+        fail(f"remote s3: no stream was reopened by a seek: {io['s3']}")
+    if not (io["chaos"].get("faults_injected", 0) > 0 and io["chaos"].get("retries", 0) > 0):
+        fail(f"remote chaos: no fault fired or healed: {io['chaos']}")
+    gaps = {arm: param_gap(fm_params(models[arm]), fm_params(models["local"]))
+            for arm in ("s3", "chaos")}
+    for arm, gap in gaps.items():
+        check_gap(gap, f"remote {arm} against the local pass")
+
+    # a pass that checkpoints to s3:// and stops halfway, then a fresh
+    # Checkpointer restores it and a new pipeline resumes with skip_records
+    full = arms["s3"]
+    stop = full["steps"] // 2
+    ck = Checkpointer("s3://bkt/ckpt", keep=2)
+    model = make()
+    saves = []
+
+    def save(step, _batch):
+        if step % REMOTE_CKPT_EVERY == 0 and step <= stop:
+            t = time.perf_counter()
+            ck.save(step, model.params(), meta={"epoch": 0, "records": step * B})
+            saves.append(time.perf_counter() - t)
+
+    head, _, _ = drive("remote_head", model, ell_batches(s3_uri, spec), dev, SHARD_LR,
+                       stop_after=stop, on_step=save, digests=True)
+    saved = fm_params(model)
+    t = time.perf_counter()
+    fresh = Checkpointer("s3://bkt/ckpt", keep=2)
+    step, tree = fresh.restore()
+    meta = fresh.restore_meta()
+    restore_s = time.perf_counter() - t
+    want_steps = [s for s in range(REMOTE_CKPT_EVERY, stop + 1, REMOTE_CKPT_EVERY)][-2:]
+    if step != stop or meta != {"epoch": 0, "records": stop * B} or fresh.steps() != want_steps:
+        fail(f"s3 checkpoint: restored step {step} meta {meta} steps {fresh.steps()}, "
+             f"saved up to step {stop}")
+    for k, v in saved.items():
+        if not np.array_equal(tree[k], v):
+            fail(f"s3 checkpoint: restored param {k} differs from the saved one")
+    resumed = make()
+    resumed.load_state_dict(params_from_jax(tree, dev))
+    tail, _, _ = drive("remote_tail", resumed,
+                       ell_batches(f"{s3_uri}&skip_records={meta['records']}", spec), dev,
+                       SHARD_LR, min_steps=1, digests=True, must_fall=False)
+    if head["digests"] != full["digests"][:stop] or tail["digests"] != full["digests"][stop:]:
+        fail("s3 resume: the interrupted and resumed passes read other batches than the "
+             "uninterrupted one")
+    gaps["resumed"] = param_gap(fm_params(resumed), fm_params(models["s3"]))
+    check_gap(gaps["resumed"], "the resumed s3 pass against the uninterrupted one")
+    runs += [head, tail]
+    keys = sorted(FileSystem.get_instance("s3://bkt/ckpt").list_directory("s3://bkt/ckpt"))
+    return {
+        "data_bytes": os.path.getsize(rec), "upload_s": upload_s, "etag": info.etag,
+        "uri": s3_uri, "chaos_uri": chaos_uri, "retry_env": FAULT_RETRY,
+        "arms": {arm: {**{k: r[k] for k in pick}, "fetch_wait_s": r["fetch_wait_s"],
+                       "io_stats": io[arm]} for arm, r in arms.items()},
+        "param_gap": gaps,
+        "resume": {"stop": stop, "saves": len(saves), "save_s": saves, "restore_s": restore_s,
+                   "steps_kept": fresh.steps(), "objects": [i.path for i in keys],
+                   "head": {k: head[k] for k in pick}, "tail": {k: tail[k] for k in pick}},
+    }, runs
+
+
+def trainer(tmp: str, name: str, uri: str, dev, env: dict, timeout: float = JOB_TIMEOUT):
+    """One REMOTE_TRAINER process over ``uri`` with ``env``; its stats."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "remote_trainer.py")
+    if not os.path.exists(script):
+        with open(script, "w") as f:
+            f.write(REMOTE_TRAINER.format(repo=repo))
+    out = os.path.join(tmp, name)
+    cfg = {"name": name, "uri": uri, "out": out, "dev": str(dev), "d": D, "e": E, "b": B,
+           "k": K, "lr": SHARD_LR}
+    with open(out + ".cfg", "w") as f:
+        json.dump(cfg, f)
+    full = dict(os.environ, PYTHONPATH=repo, **env)
+    proc = subprocess.run([sys.executable, script, out + ".cfg"], env=full, cwd=repo,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"remote trainer {name} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    with open(out + ".json") as f:
+        stats = json.load(f)
+    stats["params"] = dict(np.load(out + ".npz"))
+    return stats
+
+
+def remote_decode_once(dev, tmp: str, zrec: str, blocks: int):
+    """(b): ``bench.py``'s _shared_cache_bench with FM trainers on the
+    card: a ``tools cached serve`` daemon, a publisher, then a second
+    reader and a control (``DMLC_BLOCK_CACHE=off``) in turns, twice each;
+    then a ``submit --block-cache`` job of two colocated trainers."""
+    from dmlc_core_tpu_torch.io.blockcache import BlockCacheClient
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sock = os.path.join(tmp, "blockcache.sock")
+    daemon = subprocess.Popen([sys.executable, "-m", "dmlc_core_tpu_torch.tools", "cached",
+                               "serve", "--socket", sock, "--budget-mb", "2048"],
+                              env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
+    uri = f"{zrec}?index={zrec}.idx&shuffle=batch&batch_size={B}&seed=1&epoch=0"
+    pick = ("steps", "step_ms", "staged_rows_per_sec", "wait_share", "wall_s", "decodes",
+            "blockcache_hits", "blockcache_misses", "blockcache_publishes")
+    try:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(sock):
+            if daemon.poll() is not None or time.monotonic() > deadline:
+                fail("the block-cache daemon did not start")
+            time.sleep(0.05)
+        query = BlockCacheClient(sock, tenant="smoke")
+        on = {"DMLC_BLOCK_CACHE_SOCK": sock, "DMLC_BLOCK_CACHE": "auto"}
+        runs = {"publisher": [trainer(tmp, "publisher", uri, dev,
+                                      {**on, "DMLC_BLOCK_CACHE_TENANT": "publisher"})],
+                "second_reader": [], "control": []}
+        after_publish = query.stats()
+        for rep in range(2):
+            for arm, env in (("second_reader", {**on, "DMLC_BLOCK_CACHE_TENANT": "reader"}),
+                             ("control", {"DMLC_BLOCK_CACHE": "off"})):
+                before = query.stats()
+                run = trainer(tmp, f"{arm}_{rep}", uri, dev, env)
+                after = query.stats()
+                dh, dm = after["hits"] - before["hits"], after["misses"] - before["misses"]
+                run["daemon_hit_rate"] = dh / (dh + dm) if dh + dm else None
+                runs[arm].append(run)
+        daemon_stats = query.stats()
+        query.close()
+    finally:
+        stop_process(daemon, "the block-cache daemon")
+    pub = runs["publisher"][0]
+    if pub["decodes"] != blocks or pub["blockcache_publishes"] != blocks:
+        fail(f"decode once: the publisher decoded {pub['decodes']} and published "
+             f"{pub['blockcache_publishes']} of {blocks} blocks")
+    for run in runs["second_reader"]:
+        if run["decodes"] != 0 or run["daemon_hit_rate"] != 1.0:
+            fail(f"decode once: a second reader decoded {run['decodes']} blocks at a daemon "
+                 f"hit rate of {run['daemon_hit_rate']}")
+    for run in runs["control"]:
+        if run["decodes"] != blocks or run["blockcache_hits"] or run["daemon_hit_rate"] is not None:
+            fail(f"decode once: the control decoded {run['decodes']} of {blocks} blocks with "
+                 f"{run['blockcache_hits']} daemon hits")
+    every = [r for rs in runs.values() for r in rs]
+    for run in every:
+        if run["digests"] != pub["digests"]:
+            fail("decode once: the trainers took different batches")
+        check_gap(param_gap(run["params"], pub["params"]), "decode once against the publisher")
+    job = remote_cache_job(dev, tmp, uri, blocks)
+    med = lambda rs, k: statistics.median(r[k] for r in rs)  # noqa: E731
+    summary = {arm: {k: [r[k] for r in rs] for k in pick} for arm, rs in runs.items()}
+    for arm, rs in runs.items():
+        for r in rs:
+            summary[arm].setdefault("daemon_hit_rate", []).append(r.get("daemon_hit_rate"))
+    return {
+        "blocks": blocks, "uri": uri, "daemon": {k: daemon_stats[k] for k in (
+            "entries", "bytes", "hits", "misses", "publishes", "evictions", "rejected")},
+        "after_publish_entries": after_publish["entries"],
+        "arms": summary,
+        "shared_cache_speedup": med(runs["control"], "wall_s") / med(runs["second_reader"],
+                                                                       "wall_s"),
+        "job": job,
+    }, every + job.pop("runs")
+
+
+def remote_cache_job(dev, tmp: str, uri: str, blocks: int):
+    """``submit --block-cache`` with two colocated FM trainers over the
+    zlib file, rank 1 starting at rank 0's step REMOTE_FLAG_STEP: their
+    decodes, and the daemon's socket directory gone after the job."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "remote_trainer.py")
+    out = os.path.join(tmp, "job_rank")
+    cfg = {"name": "job", "uri": uri, "out": out, "dev": str(dev), "d": D, "e": E, "b": B,
+           "k": K, "lr": SHARD_LR, "rabit": True, "flag": out + ".flag",
+           "flag_step": REMOTE_FLAG_STEP}
+    with open(out + ".cfg", "w") as f:
+        json.dump(cfg, f)
+    _, wall = submit_job(["--num-workers", "2", "--block-cache", "--block-cache-mb", "2048",
+                          sys.executable, script, out + ".cfg"])
+    ranks = []
+    for r in range(2):
+        with open(f"{out}{r}.json") as f:
+            ranks.append(json.load(f))
+        ranks[-1]["params"] = dict(np.load(f"{out}{r}.npz"))
+    sock = ranks[0]["sock"]
+    if not sock or sock != ranks[1]["sock"] or os.path.exists(os.path.dirname(sock)):
+        fail(f"--block-cache job: socket {sock!r} / {ranks[1]['sock']!r}, its directory still "
+             f"there: {os.path.exists(os.path.dirname(sock or '/nonexistent'))}")
+    decodes = [r["decodes"] for r in ranks]
+    if not sum(decodes) < 2 * blocks:
+        fail(f"--block-cache job: the two trainers decoded {decodes} of {blocks} blocks each")
+    if ranks[1]["digests"] != ranks[0]["digests"]:
+        fail("--block-cache job: the two trainers took different batches")
+    check_gap(param_gap(ranks[1]["params"], ranks[0]["params"]), "--block-cache job ranks")
+    return {"wall_s": wall, "decodes": decodes, "blocks": blocks,
+            "hits": [r["blockcache_hits"] for r in ranks],
+            "misses": [r["blockcache_misses"] for r in ranks],
+            "staged_rows_per_sec": [r["staged_rows_per_sec"] for r in ranks],
+            "wait_share": [r["wait_share"] for r in ranks],
+            "socket_dir_removed": True, "runs": ranks}
+
+
+def remote_phase(dev, card: str):
+    """The FM at the Criteo width on the shuffle phase's 2^18 indexed rows
+    (a) from a fake S3 on the loopback (a process of this script's own,
+    not a real bucket): ``s3://`` and ``fault://inner=s3`` chaos beside the
+    local file, checkpointed to ``s3://`` and resumed; (b) decode once per
+    host over the rows' zlib copy (1 MiB blocks): a publisher, a second
+    reader and a control in processes of their own, and a ``submit
+    --block-cache`` job. Returns the ``{"remote": ...}`` line and the
+    launches of every pass."""
+    from dmlc_core_tpu_torch.io import cloudfs
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    def make():
+        return FactorizationMachine(D, E, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"),
+                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
+        store, endpoint = fake_s3(tmp)
+        env = {"S3_ENDPOINT": endpoint, "AWS_ACCESS_KEY_ID": "AKIDSMOKE",
+               "AWS_SECRET_ACCESS_KEY": "smoke-secret", "AWS_REGION": "us-east-1"}
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        cloudfs.reset_singletons()
+        try:
+            store_out, runs = remote_object_store(rec, spec, dev, make, tmp, endpoint)
+            store_out["requests"] = fake_s3_counts(endpoint)
+        finally:
+            restore_env(old)
+            cloudfs.reset_singletons()
+            stop_process(store, "the fake S3")
+        zrec = write_compressed(rec, os.path.join(tmp, "criteo.zlib.rec"), "zlib", CODEC_BLOCK)
+        once, trainer_runs = remote_decode_once(dev, tmp, zrec, count_blocks(zrec))
+    for run in runs + trainer_runs:
+        for k in KERNEL_NAMES:
+            launches[k] += run["launches"][k]
+            if run["launches"][k] != run["steps"]:
+                fail(f"remote phase: launches {run['launches']} for {run['steps']} steps")
+    return {"card": card, "rows": PRODUCER_ROWS,
+            "store": "a fake S3 in a process of its own on the loopback, not a real bucket",
+            "object_store": store_out, "decode_once": once,
+            "seconds": time.perf_counter() - t_phase}, launches
+
+
 # -- the autoscale phase: submit --autoscale over a phase-shifting input --------------
 # bench.py's autoscale_phase_shift knobs (bench.py:1615-1627)
 AUTOSCALE_KNOBS = {"DMLC_AUTOSCALE_INTERVAL": "0.25", "DMLC_AUTOSCALE_WINDOW": "1.5",
@@ -3342,22 +3951,33 @@ def main() -> None:
     if spills:
         fail(f"kernel instances spill registers: {spills}")
 
+    seconds = {"builds": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    kernels = kernel_phase(dev, flush)
+    kernels = timed("kernels", kernel_phase, dev, flush)
     del flush
-    producers = producer_phase()
-    slice_stats = slice_phase(dev)
-    shuffle = shuffle_phase(dev, slice_stats["fm"])
-    codec = codec_phase(dev, slice_stats["fm"])
-    examples = examples_phase(dev)
-    collective, coll_launches = collective_phase(dev)
-    telemetry, tele_launches = telemetry_phase(dev, kernels)
-    shards, shard_launches = shards_phase(dev)
-    dsserve, dsserve_launches = dsserve_phase(dev, smi_line)
-    faults, fault_launches = faults_phase(dev, smi_line)
-    autoscale, autoscale_launches = autoscale_phase(dev, smi_line)
-    entry_phase(dev)
+    producers = timed("producers", producer_phase)
+    slice_stats = timed("slice", slice_phase, dev)
+    shuffle = timed("shuffle", shuffle_phase, dev, slice_stats["fm"])
+    codec = timed("codec", codec_phase, dev, slice_stats["fm"])
+    examples = timed("examples", examples_phase, dev)
+    collective, coll_launches = timed("collective", collective_phase, dev)
+    telemetry, tele_launches = timed("telemetry", telemetry_phase, dev, kernels)
+    shards, shard_launches = timed("shards", shards_phase, dev)
+    dsserve, dsserve_launches = timed("dsserve", dsserve_phase, dev, smi_line)
+    faults, fault_launches = timed("faults", faults_phase, dev, smi_line)
+    autoscale, autoscale_launches = timed("autoscale", autoscale_phase, dev, smi_line)
+    remote, remote_launches = timed("remote", remote_phase, dev, smi_line)
+    timed("entry", entry_phase, dev)
     torch.cuda.synchronize()
+    seconds["total"] = time.perf_counter() - t0
 
     main_runs = [*slice_stats.values(), shuffle["fm"]["timed"], codec["fm"]["zlib"]]
     for row in kernels:
@@ -3365,7 +3985,8 @@ def main() -> None:
         n = (sum(s["launches"][row["name"]] for s in main_runs)
              + coll_launches[row["name"]] + tele_launches[row["name"]]
              + shard_launches[row["name"]] + dsserve_launches[row["name"]]
-             + fault_launches[row["name"]] + autoscale_launches[row["name"]])
+             + fault_launches[row["name"]] + autoscale_launches[row["name"]]
+             + remote_launches[row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -3389,6 +4010,8 @@ def main() -> None:
     print(json.dumps({"dsserve": dsserve}))
     print(json.dumps({"faults": faults}))
     print(json.dumps({"autoscale": autoscale}))
+    print(json.dumps({"remote": remote}))
+    print(json.dumps({"phase_seconds": seconds}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

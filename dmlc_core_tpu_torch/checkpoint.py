@@ -6,11 +6,14 @@ single-process half of ``dmlc_core_tpu/checkpoint.py``).
   bytes as the JAX package writes for the same numpy tree. Tensors are
   saved as numpy arrays; loads return numpy trees (put them on the
   device with ``convert.params_from_jax``).
-- ``Checkpointer``: step-numbered ``ckpt-<step>.bin`` files under a
-  local base directory, written through a temp file and ``os.replace``,
-  with an optional ``meta`` dict (the data position of a mid-epoch
-  save) in a ``.meta.bin`` sidecar, ``keep`` retention and a background
-  ``save_async``.
+- ``Checkpointer``: step-numbered ``ckpt-<step>.bin`` files under a base
+  on any registered filesystem (a local directory, ``s3://``, ``gs://``,
+  ``hdfs://``, ``mem://``, ``fault://``, ...), each written to a
+  ``.tmp`` name, its stored length checked, then renamed into place,
+  with an optional ``meta`` dict (the data position of a mid-epoch save)
+  in a ``.meta.bin`` sidecar, ``keep`` retention and a background
+  ``save_async``. Steps are found by listing the base, and retention and
+  debris removal go through ``FileSystem.delete``.
 
 Under the launcher, ``Checkpointer(process_index=rank)`` writes the
 ``.bin`` layout from rank 0 alone, as the JAX ``_is_writer`` decides;
@@ -26,7 +29,6 @@ from __future__ import annotations
 import logging
 import os
 import re
-import shutil
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from .io import serializer
-from .io.filesystem import FileSystem
+from .io.filesystem import FileInfo, FileSystem
 from .io.stream import Stream
 from .utils.logging import Error, check
 
@@ -77,7 +79,7 @@ def _tree_map(fn, tree):
 
 def save_pytree(uri_or_stream, tree: Any) -> None:
     """Serialize a nested dict/list/tuple of tensors, arrays and scalars
-    to a local URI or an open Stream."""
+    to a URI on any registered filesystem or an open Stream."""
     if isinstance(uri_or_stream, Stream):
         stream, own = uri_or_stream, False
     else:
@@ -112,26 +114,24 @@ def _as_local(uri: str) -> Optional[str]:
     return None if "://" in uri else uri
 
 
-def _local(uri: str) -> str:
-    """The path of a local URI; other schemes raise."""
-    FileSystem.get_instance(uri)  # the unported schemes raise here
-    path = _as_local(uri)
-    if path is None:
-        raise Error(f"checkpoint base {uri!r}: a Checkpointer over a "
-                    "non-local filesystem is not ported (ROADMAP.md §1 "
-                    "item 8b)")
-    return path
-
-
-def _remove(path: str, tree_ok: bool = False) -> None:
-    """Best-effort removal (retention and debris: nothing depends on it)."""
+def _remove(uri: str, tree_ok: bool = False) -> None:
+    """Best-effort removal on any filesystem (retention and debris:
+    nothing depends on it)."""
     try:
-        if tree_ok and os.path.isdir(path):
-            shutil.rmtree(path)
-        else:
-            os.remove(path)
-    except OSError:
+        FileSystem.get_instance(uri).delete(uri, recursive=tree_ok)
+    except (OSError, Error):
         pass
+
+
+def _clear_manifest(dir_uri: str) -> None:
+    """Remove a sharded checkpoint's manifest if it is there, so the
+    directory is torn (invisible) before anything else changes; unlike
+    ``_remove`` a failure raises, since a stale manifest left behind
+    would shadow the new save."""
+    uri = f"{dir_uri}/{_MANIFEST}"
+    fs = FileSystem.get_instance(uri)
+    if fs.exists(uri):
+        fs.delete(uri)
 
 
 class _CountingStream(Stream):
@@ -163,10 +163,12 @@ def _write_atomic(uri: str, tree: Any) -> None:
     ``uri`` is absent or whole, never torn.
 
     - a local path: a ``.tmp`` file, then ``os.replace``;
-    - another filesystem (``fault://``, ``mem://``): the tree is written
-      to ``uri + '.tmp'``, its stored length is checked against the bytes
-      written (a truncated write fails here), then ``FileSystem.rename``
-      commits it.
+    - another filesystem (``s3://``, ``hdfs://``, ``mem://``,
+      ``fault://``, ...): the tree is written to ``uri + '.tmp'``, its
+      stored length is checked against the bytes written (a truncated
+      upload fails here), then ``FileSystem.rename`` commits it: a real
+      rename where the backend has one (WebHDFS), else a server-side
+      copy and a delete, which never expose a partial final object.
     """
     local = _as_local(uri)
     if local is not None:
@@ -211,9 +213,9 @@ class AsyncSave:
 
 
 class Checkpointer:
-    """Step-numbered checkpoints ``{base}/ckpt-{step:010d}.bin`` in one
-    local directory, the newest ``keep`` of them kept (``keep`` <= 0
-    keeps all).
+    """Step-numbered checkpoints ``{base}/ckpt-{step:010d}.bin`` under a
+    base on any registered filesystem, the newest ``keep`` of them kept
+    (``keep`` <= 0 keeps all).
 
     A save with ``meta`` writes it to ``ckpt-{step:010d}.meta.bin``.
     The order of ``_write_single`` is: remove the step's old sidecar,
@@ -235,7 +237,7 @@ class Checkpointer:
         check(process_count is None,
               f"{_SHARDED}; process_count is its rank plumbing")
         self.base = base_uri.rstrip("/")
-        self._dir = _local(self.base)
+        FileSystem.get_instance(self.base)  # an unknown scheme raises here
         self.keep = keep
         self._proc = process_index
         self._inflight: Optional[AsyncSave] = None
@@ -243,37 +245,44 @@ class Checkpointer:
     def _is_writer(self) -> bool:
         return self._proc is None or self._proc == 0
 
+    def _fs(self) -> FileSystem:
+        return FileSystem.get_instance(self.base + "/x")
+
     def _path(self, step: int, sharded: bool = False) -> str:
-        return os.path.join(self._dir, f"ckpt-{step:010d}{'.d' if sharded else '.bin'}")
+        return f"{self.base}/ckpt-{step:010d}{'.d' if sharded else '.bin'}"
 
     def _meta_path(self, step: int) -> str:
         # the name does not match _PAT: sidecars are not steps
-        return os.path.join(self._dir, f"ckpt-{step:010d}.meta.bin")
+        return f"{self.base}/ckpt-{step:010d}.meta.bin"
 
-    @staticmethod
-    def _manifest_ok(dir_path: str) -> bool:
+    def _listing(self, uri: str) -> List[FileInfo]:
+        try:
+            return self._fs().list_directory(uri)
+        except (OSError, Error):
+            return []
+
+    def _manifest_ok(self, dir_uri: str) -> bool:
         """A sharded checkpoint is complete once its manifest landed."""
-        return os.path.isfile(os.path.join(dir_path, _MANIFEST))
+        return any(info.path.rstrip("/").endswith(_MANIFEST)
+                   for info in self._listing(dir_uri))
 
     def _scan_ex(self) -> Dict[int, Dict[str, Any]]:
-        """{step: {sharded, bytes}} from one listing of the base; a
-        sharded directory without its manifest is not a step."""
-        try:
-            names = os.listdir(self._dir)
-        except OSError:
-            return {}
+        """{step: {sharded, bytes}} from one listing of the base (and one
+        of each ``.d`` entry); a sharded directory without its manifest
+        is not a step."""
         out: Dict[int, Dict[str, Any]] = {}
-        for name in sorted(names):
-            m = self._PAT.search(name)
+        for info in self._listing(self.base):
+            m = self._PAT.search(info.path.rstrip("/"))
             if not m:
                 continue
-            step, full = int(m.group(1)), os.path.join(self._dir, name)
+            step = int(m.group(1))
             if m.group(2) == ".bin":
-                out.setdefault(step, {"sharded": False,
-                                      "bytes": os.path.getsize(full)})
-            elif self._manifest_ok(full):
-                out[step] = {"sharded": True, "bytes": sum(
-                    os.path.getsize(os.path.join(full, f)) for f in os.listdir(full))}
+                out.setdefault(step, {"sharded": False, "bytes": int(info.size)})
+                continue
+            entries = self._listing(self._path(step, sharded=True))
+            if any(e.path.rstrip("/").endswith(_MANIFEST) for e in entries):
+                out[step] = {"sharded": True,
+                             "bytes": sum(int(e.size) for e in entries)}
         return out
 
     def steps(self) -> List[int]:
@@ -359,7 +368,7 @@ class Checkpointer:
         sharded_path = self._path(step, sharded=True)
         had_shadow = self._manifest_ok(sharded_path)
         if had_shadow:
-            os.remove(os.path.join(sharded_path, _MANIFEST))
+            _clear_manifest(sharded_path)
         path = self._path(step)
         _remove(self._meta_path(step))
         _write_atomic(path, tree)
@@ -394,7 +403,7 @@ class Checkpointer:
         step, sharded = self._resolve(step)
         check(not sharded, _SHARDED)
         meta = self._meta_path(step)
-        return load_pytree(meta) if os.path.isfile(meta) else None
+        return load_pytree(meta) if self._fs().exists(meta) else None
 
     def _prune(self) -> None:
         steps = self.steps()
@@ -411,12 +420,9 @@ class Checkpointer:
         """Remove debris older than the newest complete step: ``.tmp``
         files and sharded directories without a manifest. Newer debris
         may be another writer's save in flight and stays."""
-        try:
-            names = os.listdir(self._dir)
-        except OSError:
-            return
-        for name in names:
-            full = os.path.join(self._dir, name)
+        for info in self._listing(self.base):
+            full = info.path.rstrip("/")
+            name = full.rsplit("/", 1)[-1]
             if name.endswith(".tmp"):
                 m = self._PAT.search(name[: -len(".tmp")])
                 if m and int(m.group(1)) < newest_complete:

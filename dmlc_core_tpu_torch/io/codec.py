@@ -28,13 +28,13 @@ default 256) and ``DMLC_DECODE_THREADS`` (the decode pool's size, default
 the usable-CPU count). Telemetry, under the JAX package's names: the
 ``io.codec.bytes_raw``/``bytes_compressed``/``cache_hits``/
 ``cache_misses`` counters, the ``io.codec.decode_seconds`` histogram and
-one ``dmlc:decode_block`` span per decode. ``DecodeContext`` has no
-shared host tier: that is the block-cache daemon of the remote
-filesystems, not ported.
+one ``dmlc:decode_block`` span per decode. ``DecodeContext`` puts the
+host's shared block-cache daemon (``io/blockcache.py``) behind the LRU.
 """
 
 from __future__ import annotations
 
+import hashlib
 import struct
 import threading
 import time as _time
@@ -67,6 +67,7 @@ __all__ = [
     "register_codec",
     "shutdown_decode_pool",
     "submit_decode",
+    "wire_block_key",
 ]
 
 # codec_id, version, reserved, n_records, raw_len, crc32
@@ -465,34 +466,86 @@ def default_decode_cache() -> DecodedBlockCache:
         return _CACHE
 
 
+def wire_block_key(key: object) -> str:
+    """A structured block identity flattened to the string the host
+    daemon keys on: the sha1 of its ``repr``. The identity is built from
+    plain strings, ints and tuples (the splitter's file-set signature,
+    layout digest and block offset), whose ``repr`` is the same in every
+    process and in both packages, where the seeded ``hash()`` is not."""
+    if isinstance(key, str):
+        return key
+    return hashlib.sha1(repr(key).encode()).hexdigest()
+
+
 class DecodeContext:
-    """The one seam every block decode goes through: the decoded-block
-    LRU (``cache``, default the process-global one) and the decode pool.
-    The JAX package's second tier, a block cache shared between the
-    processes of a host, is not ported: ``shared`` must stay None."""
+    """The one seam every block decode goes through: the in-process LRU
+    (L1, ``cache``, default the process-global one), then the host's
+    shared block-cache daemon (L2), then a decode on the pool.
+
+    ``shared="auto"`` (the default) resolves the process's daemon client
+    at first use (one connect attempt, a failure cached:
+    ``blockcache.default_client``); ``shared=None`` pins the context to
+    L1; any object with ``get``, ``get_many`` and ``publish`` is used as
+    given. L2 is best-effort: a dead or absent daemon is a miss, and the
+    block is decoded here."""
+
+    _AUTO = "auto"
 
     def __init__(self, cache: Optional[DecodedBlockCache] = None,
-                 shared: object = None) -> None:
-        if shared is not None:
-            raise Error("DecodeContext(shared=...): the host-shared block cache "
-                        "is not ported (ROADMAP.md §1 item 8b)")
+                 shared: object = "auto") -> None:
         self._cache = cache
+        self._shared = shared
 
     def cache(self) -> DecodedBlockCache:
         return self._cache if self._cache is not None else default_decode_cache()
 
+    def shared(self):
+        """The L2 client, or None (disabled, or no daemon)."""
+        if isinstance(self._shared, str) and self._shared == self._AUTO:
+            from .blockcache import default_client
+
+            return default_client()
+        return self._shared
+
+    def get_block(self, key: object) -> Optional[bytes]:
+        """L1, then L2; an L2 hit is kept in L1."""
+        return self.get_blocks([key]).get(key)
+
     def get_blocks(self, keys) -> Dict[object, bytes]:
-        """The cached blocks among ``keys``; the caller decodes the rest."""
+        """The cached blocks among ``keys``: L1 for each, then ONE L2
+        round trip for all the L1 misses; the caller decodes the rest."""
         cache = self.cache()
         out: Dict[object, bytes] = {}
+        missing = []
         for key in keys:
             data = cache.get(key)
             if data is not None:
                 out[key] = data
+            else:
+                missing.append(key)
+        shared = self.shared() if missing else None
+        if shared is not None:
+            by_wire = {wire_block_key(k): k for k in missing}
+            try:
+                got = shared.get_many(list(by_wire))
+            except Exception:  # the shared tier is best-effort
+                got = {}
+            for wire, data in got.items():
+                key = by_wire[wire]
+                cache.put(key, data)
+                out[key] = data
         return out
 
     def put_block(self, key: object, raw: bytes) -> None:
+        """Keep decoded bytes in L1 and offer them to L2 (a lost publish
+        race or an absent daemon is a silent no-op)."""
         self.cache().put(key, raw)
+        shared = self.shared()
+        if shared is not None:
+            try:
+                shared.publish(wire_block_key(key), raw)
+            except Exception:  # the shared tier is best-effort
+                pass
 
     def decode_blocks(self, blobs: List[bytes]) -> List[Tuple[bytes, int]]:
         return decode_blocks(blobs)
@@ -506,7 +559,8 @@ _CTX_LOCK = threading.Lock()
 
 
 def default_decode_context() -> DecodeContext:
-    """The process-global decode context (the default LRU and pool)."""
+    """The process-global decode context (L1 the default LRU, L2 the
+    host's daemon when one answers)."""
     global _CTX
     with _CTX_LOCK:
         if _CTX is None:

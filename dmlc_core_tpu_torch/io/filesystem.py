@@ -8,12 +8,13 @@ Backends register in ``FS_REGISTRY`` by protocol:
 - ``file://`` and bare paths → ``LocalFileSystem``;
 - ``mem://`` → ``MemoryFileSystem``, a process-global in-memory store
   (the hermetic stand-in for an object store);
-- ``fault://`` → ``io.faults.FaultInjectingFileSystem``, registered when
-  ``io/faults.py`` is imported (``get_instance`` imports it on a miss).
+- ``fault://`` → ``io.faults.FaultInjectingFileSystem``;
+- ``http://``, ``https://``, ``s3://``, ``gs://``, ``hdfs://``,
+  ``viewfs://`` and ``azure://`` → the remote filesystems of
+  ``io/cloudfs.py``.
 
-The remote filesystems (``s3://``, ``gs://``, ``http(s)://``,
-``hdfs://``, ``azure://``) are not ported: ``get_instance`` raises on
-them (``ROADMAP.md`` §1 item 8b).
+The last two modules register their protocols when they are imported;
+``get_instance`` imports both on a miss.
 """
 
 from __future__ import annotations
@@ -84,6 +85,19 @@ class FileSystem:
         self.copy(src_uri, dst_uri)
         self.delete(src_uri)
 
+    def list_directory_recursive(self, uri: str) -> List[FileInfo]:
+        """Every file under ``uri``, breadth first (reference
+        ListDirectoryRecursive, src/io/filesys.cc:9-25)."""
+        out: List[FileInfo] = []
+        queue = [uri]
+        while queue:
+            for info in self.list_directory(queue.pop(0)):
+                if info.type == "directory":
+                    queue.append(info.path)
+                else:
+                    out.append(info)
+        return out
+
     @staticmethod
     def get_instance(uri: str) -> "FileSystem":
         """The filesystem of ``uri`` by its protocol (reference
@@ -91,16 +105,15 @@ class FileSystem:
         proto = URI(uri).protocol or "file://"
         entry = FS_REGISTRY.get(proto)
         if entry is None:
-            # a miss loads the fault:// wrapper once, so io/faults.py
-            # stays the one place that registers it
-            from . import faults  # noqa: F401
+            # a miss loads the remote backends and the fault:// wrapper
+            # once, so cloudfs.py and faults.py stay the one place that
+            # registers each of their protocols
+            from . import cloudfs, faults  # noqa: F401
 
             entry = FS_REGISTRY.get(proto)
         if entry is None:
-            raise Error(
-                f"unknown filesystem protocol {proto!r} in {uri!r} "
-                f"(registered: {sorted(FS_REGISTRY)}): the remote "
-                "filesystems are not ported (ROADMAP.md §1 item 8b)")
+            raise Error(f"unknown filesystem protocol {proto!r} in {uri!r}; "
+                        f"registered: {sorted(FS_REGISTRY)}")
         return entry()
 
 

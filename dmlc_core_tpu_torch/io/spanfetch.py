@@ -95,9 +95,8 @@ _SEEKS = _REG.counter("io.split.seeks", help="stream seek() calls")
 def count_stream_reopen(n: int = 1) -> None:
     """Called by a remote stream when a ``seek()`` to a non-current
     offset drops a live connection (the next read re-establishes it), so
-    a seek storm shows as this counter racing ``io.split.seeks``. No
-    ported stream reconnects yet: the HTTP streams are ``ROADMAP.md`` §1
-    item 8b."""
+    a seek storm shows as this counter racing ``io.split.seeks``
+    (``cloudfs.HttpReadStream.seek`` calls it)."""
     _REOPENS.inc(n)
 
 

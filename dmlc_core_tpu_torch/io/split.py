@@ -1,7 +1,7 @@
 """Record-aligned splits of a file set: text lines or RecordIO records,
 by byte range or through an index, in file order or shuffled (the port
-of ``dmlc_core_tpu/io/split.py`` over the ported filesystems: local
-files, ``mem://`` and ``fault://``).
+of ``dmlc_core_tpu/io/split.py`` over every registered filesystem: local
+files, ``mem://``, ``fault://`` and the remote ones of ``io/cloudfs.py``).
 
 A URI names one file, a ``;``-separated list, a directory or a regex over
 a directory's file names (reference ConvertToURIs,
@@ -24,12 +24,13 @@ micro-shards from the tracker's shard service instead of a fixed part:
 micro-shard ``i`` of ``M`` is part ``(i, M)`` of the same splitter.
 
 Local files are read through zero-copy ``mmap`` views; a file behind any
-other filesystem (``fault://``, ``mem://``) is read through retrying
-streams, and a shuffled window's spans over such files go through the
-concurrent span fetcher (``io/spanfetch.py``). ``io_stats()`` carries the
-split's ``retries``, ``backoff_secs``, ``faults_injected`` and
-``reopens`` since its construction. The remote filesystems and the
-stream sources are not ported: ``create`` refuses them.
+other filesystem (``s3://``, ``http(s)://``, ``fault://``, ``mem://``,
+...) is read through retrying streams, and a shuffled window's spans over
+such files go through the concurrent span fetcher (``io/spanfetch.py``).
+The index of an indexed split may be remote too. ``io_stats()`` carries
+the split's ``retries``, ``backoff_secs``, ``faults_injected`` and
+``reopens`` since its construction. The stream sources are not ported:
+``create`` refuses them.
 """
 
 from __future__ import annotations
@@ -123,9 +124,8 @@ def local_path(uri: str) -> str:
     optional); raises ``Error`` on anything else."""
     check("?" not in uri and "#" not in uri,
           f"{uri!r}: URI options and #cachefile are resolved before the split")
-    FileSystem.get_instance(uri)  # raises on a remote scheme
     path = uri[7:] if uri.startswith("file://") else uri
-    if ";" in path or not os.path.isfile(path):
+    if ";" in path or "://" in path or not os.path.isfile(path):
         raise Error(f"{uri!r} is not one local file")
     return path
 

@@ -5,8 +5,7 @@ src/io/local_filesys.cc:27-67).
 
 ``Stream.create(uri, mode)`` opens a URI through the filesystem its
 protocol names (``io/filesystem.FS_REGISTRY``: local paths, ``file://``,
-``mem://``, ``fault://``); the remote schemes raise (``ROADMAP.md`` §1
-item 8b).
+``mem://``, ``fault://`` and the remote schemes of ``io/cloudfs.py``).
 """
 
 from __future__ import annotations

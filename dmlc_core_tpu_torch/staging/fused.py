@@ -314,8 +314,8 @@ def _check_ell_spec(spec: BatchSpec) -> None:
 def _one_local_file(uri: str) -> Optional[str]:
     """The path when ``uri`` (options and fragment taken off) names one
     existing local file; None for a file set (a ``;`` list, a directory,
-    a regex) or another filesystem's URI (``fault://``, ``mem://``),
-    which ``io.split.create`` reads, or refuses when it is not ported."""
+    a regex) or another filesystem's URI (``s3://``, ``fault://``,
+    ``mem://``, ...), which ``io.split.create`` reads."""
     path = uri[len("file://"):] if uri.startswith("file://") else uri
     if ";" in path or "://" in path:
         return None
@@ -1078,7 +1078,11 @@ def plain_batches(
     (``parse_block_plain``) rather than the native parse
     (``indexing_mode`` joins the URI unless it carries one). ``format``
     'auto' defaults to rowrec for the ELL layout and to libsvm for the
-    dense one."""
+    dense one. A ``dsserve://`` URI names the remote preprocessing tier,
+    whose plain version is that of its inner URI: it raises."""
+    check(not uri.startswith("dsserve://"),
+          f"plain batches read files; {uri!r} names the remote preprocessing "
+          "tier (its plain version is plain_batches of the inner URI)")
     fmt = _format(uri, format, "rowrec" if spec.layout == "ell" else "libsvm")
     if fmt == "rowrec":
         uspec = URISpec(uri, part_index, num_parts)

@@ -17,10 +17,13 @@ arguments and output:
   (what ``submit --dsserve N`` launches N of).
 - ``autoscale replay``: the autoscale controller's decisions replayed
   over an end-of-job report's time series.
+- ``cached serve|stats|flush``: the host-shared decoded-block cache
+  daemon (what ``submit --block-cache`` launches) and its operator
+  queries.
 
 The other subcommands (``ls``, ``cat``, ``cp``, ``split``, ``recordio``,
 ``rowrec``, ``recompress``, ``dump``, ``ckpt``) wait for ``ROADMAP.md``
-§1 item 9b; ``serve`` for item 7d and ``cached`` for item 8b. Importing
+§1 item 9b, and ``serve`` for item 7d. Importing
 this module loads no torch.
 """
 
@@ -476,9 +479,55 @@ def _cmd_top(args) -> int:
 
 
 def _cmd_cached(args) -> int:
-    """The host block-cache daemon is not ported."""
-    raise Error("tools cached: the host-shared block-cache daemon "
-                "(io/blockcache.py) is not ported (ROADMAP.md §1 item 8b)")
+    """Operator surface of the host-shared decoded-block cache
+    (``io/blockcache.py``):
+
+    - ``serve``: run the daemon in the foreground (what ``submit
+      --block-cache`` launches) until SIGINT or SIGTERM; the segments it
+      owns are unlinked on the way out;
+    - ``stats``: one JSON snapshot of the daemon's store: entries,
+      resident bytes, hits, misses, publishes, evictions, per tenant;
+    - ``flush``: evict every unleased block (a leased segment stays: a
+      mapped view is never unlinked under a reader).
+    """
+    import json
+    import signal
+
+    from ..io import blockcache
+    from ..telemetry import tracing
+
+    sock = args.socket or blockcache.default_sock_path()
+    if args.action == "serve":
+        # the serve process is the daemon: its row on the merged
+        # flight-recorder timeline sits beside the workers' and tracker's
+        tracing.set_process_label("blockcache-daemon")
+        daemon = blockcache.BlockCacheDaemon(
+            sock,
+            max_bytes=(args.budget_mb << 20) if args.budget_mb else None,
+            tenant_max_bytes=(args.tenant_mb << 20) if args.tenant_mb else None,
+            metrics_port=args.metrics_port,
+        )
+        daemon.start()
+        signal.signal(signal.SIGTERM, lambda *_a: daemon.close())
+        print(f"block-cache daemon pid {daemon.stats()['pid']} serving {sock} "
+              f"(budget {daemon.max_bytes >> 20} MB"
+              + (f", /metrics on 127.0.0.1:{args.metrics_port}"
+                 if args.metrics_port else "") + ")", file=sys.stderr)
+        try:
+            daemon.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            daemon.close()
+        return 0
+    client = blockcache.BlockCacheClient(sock)
+    out = client.stats() if args.action == "stats" else client.flush()
+    if out is None:
+        print(f"error: no block-cache daemon at {sock}", file=sys.stderr)
+        return 1
+    print(json.dumps(out, indent=2) if args.action == "stats"
+          else json.dumps({"evicted": out}))
+    return 0
 
 
 def _cmd_autoscale(args) -> int:
@@ -675,10 +724,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     asc.set_defaults(fn=_cmd_autoscale)
 
-    cached = sub.add_parser(
-        "cached", help="host block-cache daemon (not ported; raises)")
-    cached.add_argument("rest", nargs=argparse.REMAINDER)
-    cached.set_defaults(fn=_cmd_cached)
+    cd = sub.add_parser(
+        "cached", help="host-level shared decoded-block cache daemon"
+    )
+    cd.add_argument("action", choices=["serve", "stats", "flush"])
+    cd.add_argument(
+        "--socket", default="",
+        help="UNIX socket path (default: $DMLC_BLOCK_CACHE_SOCK or the "
+             "uid-scoped temp-dir path)",
+    )
+    cd.add_argument(
+        "--budget-mb", default=0, type=int,
+        help="serve: total resident budget (default "
+             "$DMLC_BLOCK_CACHE_MB or 1024)",
+    )
+    cd.add_argument(
+        "--tenant-mb", default=0, type=int,
+        help="serve: per-tenant byte quota (default the whole budget)",
+    )
+    cd.add_argument(
+        "--metrics-port", default=0, type=int,
+        help="serve: loopback /metrics port (0 = off)",
+    )
+    cd.set_defaults(fn=_cmd_cached)
 
     ds = sub.add_parser(
         "dsserve", help="disaggregated preprocessing worker (dsserve://)"

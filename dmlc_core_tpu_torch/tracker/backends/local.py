@@ -27,8 +27,12 @@ hands every task the tier's endpoints file (``DMLC_DSSERVE_FILE``) and
 registers an ``ElasticActuator`` over it, through which the tracker's
 autoscale controller adds and retires servers while the job runs.
 
-Left out, refused by ``refuse_unported`` with the ``ROADMAP.md`` item
-that brings it: the block-cache daemon (``--block-cache``, §1 item 8b).
+``--block-cache`` starts the host's shared decoded-block cache daemon
+(``HostBlockCache``: ``python -m dmlc_core_tpu_torch.tools cached serve``
+on a job-private socket, ``--block-cache-mb`` its budget) and hands every
+task its socket as ``DMLC_BLOCK_CACHE_SOCK``; the daemon and its socket
+directory go with the job.
+
 ``--trace-dir`` (exported
 by ``submit``) reaches every task through the inherited environment; a
 task the supervisor SIGKILLs leaves no trace file, since no exit hook
@@ -58,19 +62,41 @@ from . import run_tracker_submit
 
 logger = logging.getLogger("dmlc_core_tpu_torch.tracker")
 
-#: (option attribute, flag, ROADMAP.md item) of every unported feature
-_UNPORTED = (
-    ("block_cache", "--block-cache", "§1 item 8b"),
-    ("block_cache_mb", "--block-cache-mb", "§1 item 8b"),
-)
+class HostBlockCache:
+    """One shared decoded-block cache daemon for this host's tasks
+    (``submit --block-cache``): spawns ``tools cached serve`` on a
+    job-private socket, waits for the socket to appear, and hands its
+    path to every task as ``DMLC_BLOCK_CACHE_SOCK``, so colocated workers
+    over one compressed corpus decode each block once
+    (``io/blockcache.py``). ``stop()`` ends the daemon (which unlinks its
+    shared-memory segments) and removes the socket directory."""
 
+    def __init__(self, budget_mb: int = 0) -> None:
+        self._sock_dir = tempfile.mkdtemp(prefix="dmlc-blockcache-")
+        self.sock_path = os.path.join(self._sock_dir, "cache.sock")
+        cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.tools", "cached",
+               "serve", "--socket", self.sock_path]
+        if budget_mb:
+            cmd += ["--budget-mb", str(budget_mb)]
+        self._proc = subprocess.Popen(cmd)
+        deadline = time.monotonic() + 30.0
+        while not os.path.exists(self.sock_path):
+            if self._proc.poll() is not None or time.monotonic() > deadline:
+                self.stop()
+                raise Error("block-cache daemon failed to start "
+                            f"(socket {self.sock_path} never appeared)")
+            time.sleep(0.05)
+        logger.info("block-cache daemon serving %s", self.sock_path)
 
-def refuse_unported(args) -> None:
-    """Raise on a flag whose feature the port lacks (set to anything but
-    its default), naming the ``ROADMAP.md`` item that brings it."""
-    for attr, flag, item in _UNPORTED:
-        if getattr(args, attr, None):
-            raise Error(f"{flag} is not ported (ROADMAP.md {item})")
+    def stop(self) -> None:
+        if self._proc.poll() is None:
+            self._proc.terminate()
+            try:
+                self._proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait(timeout=5)
+        shutil.rmtree(self._sock_dir, ignore_errors=True)
 
 
 class _DsWorker:
@@ -419,14 +445,17 @@ def make_launcher(
 
 
 def submit(args) -> None:
-    refuse_unported(args)
     checks: List = []
+    cache: Optional[HostBlockCache] = None
     dsserve: Optional[DsServeTier] = None
 
     def launch_all(nworker: int, nserver: int, envs: Dict[str, object]) -> None:
-        nonlocal dsserve
+        nonlocal cache, dsserve
         n_ds = int(getattr(args, "dsserve", 0) or 0)
         if args.dry_run:
+            if getattr(args, "block_cache", False):
+                print("[dry-run] block-cache daemon: "
+                      "python -m dmlc_core_tpu_torch.tools cached serve")
             for i in range(n_ds):
                 print(f"[dry-run] dsserve worker {i}: "
                       "python -m dmlc_core_tpu_torch.tools dsserve serve")
@@ -435,6 +464,10 @@ def submit(args) -> None:
                 print(f"[dry-run] local task {i} role={role}: "
                       f"{' '.join(args.command)}")
             return
+        if getattr(args, "block_cache", False):
+            cache = HostBlockCache(getattr(args, "block_cache_mb", 0))
+            envs = dict(envs)
+            envs["DMLC_BLOCK_CACHE_SOCK"] = cache.sock_path
         # --autoscale min:max sizes the first fleet here and registers
         # the actuator; the tracker's controller reads the same bounds
         # from DMLC_AUTOSCALE, which submit exported before the tracker
@@ -489,3 +522,5 @@ def submit(args) -> None:
         _autoscale.set_actuator(None)
         if dsserve is not None:
             dsserve.stop()
+        if cache is not None:
+            cache.stop()

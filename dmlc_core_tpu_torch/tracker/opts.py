@@ -4,9 +4,8 @@
 Same surface as the reference CLI (tracker/dmlc_tracker/opts.py) plus the
 JAX package's ``tpu-pod`` cluster. Unknown trailing args join the
 command, and ``--cluster`` falls back to $DMLC_SUBMIT_CLUSTER. Every
-flag parses; the backends refuse the clusters and flags whose features
-the port lacks, naming the ``ROADMAP.md`` item that brings each
-(``backends.get_backend``, ``backends.local.refuse_unported``).
+flag parses; ``backends.get_backend`` refuses the clusters the port
+lacks, naming the ``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations

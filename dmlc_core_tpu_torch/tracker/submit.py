@@ -4,8 +4,8 @@
 ``python -m dmlc_core_tpu_torch.tracker.submit --cluster local -n 2 cmd ...``
 takes the same arguments as ``dmlc_core_tpu.tracker.submit``. Only the
 ``local`` cluster is ported (``backends.get_backend`` raises on the
-others), and the local backend refuses the flags of unported features
-(``backends.local.refuse_unported``). ``--shard-oversplit``,
+others); its backend takes every flag, ``--block-cache`` included.
+``--shard-oversplit``,
 ``--shard-lease-ttl``, ``--tracker-journal`` and ``--autoscale*``
 export their env (``DMLC_SHARD_OVERSPLIT``, ``DMLC_SHARD_LEASE_TTL``,
 ``DMLC_TRACKER_JOURNAL``, ``DMLC_AUTOSCALE``,

@@ -198,10 +198,93 @@ def test_sharded_layout_raises_and_is_replaced_like_jax(tmp_path):
 
 
 def test_remote_and_empty_bases(tmp_path):
-    for base in ("s3://bucket/ckpts", "mem://b/ckpts", f"fault://seed=1{tmp_path}"):
-        with pytest.raises(Error, match=r"ROADMAP.md §1 item 8b\b"):
-            Checkpointer(base)
+    """A base on another filesystem, refused until ROADMAP.md §1 item 8b
+    was ported, holds checkpoints (the bases over a fake server are in
+    ``test_checkpointer_on_a_remote_base``); an unknown scheme raises,
+    and an empty base has no step."""
+    for base in ("mem://b/ckpts", f"fault://seed=1{tmp_path}"):
+        ck = Checkpointer(base, keep=1)
+        ck.save(2, tree(), meta={"epoch": 0})
+        assert ck.steps() == [2] and ck.restore_meta() == {"epoch": 0}
+        same(ck.restore()[1], tree())
+    with pytest.raises(Error, match="unknown filesystem protocol"):
+        Checkpointer("nope://bucket/ckpts")
     ck = Checkpointer(str(tmp_path / "none"))
     assert ck.steps() == [] and ck.latest_step() is None
     with pytest.raises(Error, match="no checkpoints"):
         ck.restore()
+
+
+@pytest.fixture
+def remote_base(request, monkeypatch):
+    """(base URI, {object name: bytes}) of a checkpoint base on
+    ``request.param``: s3://, fault://inner=s3, hdfs:// (fake servers of
+    tests/test_cloudfs.py on the loopback) or mem://."""
+    from test_cloudfs import FakeS3Handler, FakeWebHdfsHandler
+    from test_torch_cloudfs import Served, reset_both, start_s3
+
+    kind = request.param
+    if kind == "mem":
+        from dmlc_core_tpu_torch.io.filesystem import MemoryFileSystem
+
+        store = MemoryFileSystem._store
+        for k in [k for k in store if k.startswith("mem://ckb/")]:
+            del store[k]
+        yield "mem://ckb/run", lambda: {k[len("mem://ckb/run/"):]: v for k, v in store.items()
+                                         if k.startswith("mem://ckb/run/")}
+        return
+    if kind == "hdfs":
+        FakeWebHdfsHandler.FILES = {}
+        srv = Served(FakeWebHdfsHandler)
+        monkeypatch.setenv("DMLC_WEBHDFS_PORT", str(srv.port))
+        reset_both()
+        files = lambda: {k[len("/ck/run/"):]: v for k, v in  # noqa: E731
+                         FakeWebHdfsHandler.FILES.items() if k.startswith("/ck/run/")}
+        base = "hdfs://127.0.0.1:8020/ck/run"
+    else:
+        srv = start_s3(monkeypatch)
+        files = lambda: {k[len("bkt/run/"):]: v for k, v in  # noqa: E731
+                         FakeS3Handler.STORE.items() if k.startswith("bkt/run/")}
+        base = ("s3://bkt/run" if kind == "s3" else
+                "fault://inner=s3,resets=1,short=1,seed=3/bkt/run")
+    monkeypatch.setenv("DMLC_RETRY_BASE_SECS", "0.001")
+    monkeypatch.setenv("DMLC_RETRY_CAP_SECS", "0.01")
+    try:
+        yield base, files
+    finally:
+        reset_both()
+        srv.stop()
+
+
+@pytest.mark.parametrize("remote_base", ["s3", "hdfs", "mem", "fault_s3"], indirect=True)
+def test_checkpointer_on_a_remote_base(remote_base):
+    """The port's Checkpointer on s3://, hdfs://, mem:// and
+    fault://inner=s3: each save lands through the verify-then-rename
+    write (no ``.tmp`` left), steps are found by listing the base,
+    retention and a same-step re-save go through ``FileSystem.delete``,
+    the sidecar follows its step, older debris is removed and newer
+    debris kept, and a fresh Checkpointer restores the newest step."""
+    base, files = remote_base
+    from dmlc_core_tpu_torch.io.filesystem import FileSystem
+
+    ck = Checkpointer(base, keep=2)
+    for step in (1, 2, 3):
+        ck.save(step, tree(step), meta={"epoch": step})
+    assert ck.steps() == [2, 3] and ck.latest_step() == 3
+    assert sorted(files()) == ["ckpt-0000000002.bin", "ckpt-0000000002.meta.bin",
+                               "ckpt-0000000003.bin", "ckpt-0000000003.meta.bin"]
+    fs = FileSystem.get_instance(base)
+    for name in ("ckpt-0000000001.bin.tmp", "ckpt-0000000009.bin.tmp"):
+        with fs.open(f"{base}/{name}", "w") as w:
+            w.write(b"torn")
+    ck.save(3, tree(7))  # a same-step re-save without meta drops the sidecar
+    assert sorted(files()) == ["ckpt-0000000002.bin", "ckpt-0000000002.meta.bin",
+                               "ckpt-0000000003.bin", "ckpt-0000000009.bin.tmp"]
+    fresh = Checkpointer(base)
+    step, got = fresh.restore()
+    assert step == 3 and fresh.restore_meta() is None and fresh.restore_meta(2) == {"epoch": 2}
+    same(got, tree(7))
+    assert [i["bytes"] for i in fresh.steps_info()] == [
+        len(files()["ckpt-0000000002.bin"]), len(files()["ckpt-0000000003.bin"])]
+    assert fresh.prune(keep=1) == [2]
+    assert fresh.steps() == [3]

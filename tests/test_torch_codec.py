@@ -419,12 +419,49 @@ def drain_keep_open(s):
 
 
 def test_decode_context_has_no_shared_tier():
-    with pytest.raises(Error, match=r"not ported \(ROADMAP.md §1 item 8b\)"):
-        DecodeContext(shared=object())
-    ctx = DecodeContext(cache=DecodedBlockCache(1 << 20))
+    """``shared=None`` pins a context to its LRU (the shared host tier,
+    refused until ROADMAP.md §1 item 8b was ported, is off there); the
+    default is ``"auto"``, as in the JAX package, and a client-shaped
+    object is used as given: one ``get_many`` for the L1 misses, a
+    ``publish`` a decoded block, a failing client is a miss."""
+    ctx = DecodeContext(cache=DecodedBlockCache(1 << 20), shared=None)
+    assert ctx.shared() is None
     blob = encode_block(b"r" * 100, 1, "gzip")
     assert ctx.decode_blocks([blob, blob]) == [(b"r" * 100, 1)] * 2
     assert ctx.submit_decode(blob).result(timeout=30) == (b"r" * 100, 1)
+    assert DecodeContext()._shared == jax_codec.DecodeContext()._shared == "auto"
+
+    class Fake:
+        def __init__(self):
+            self.store, self.asked = {}, []
+
+        def get_many(self, keys):
+            self.asked.append(list(keys))
+            return {k: self.store[k] for k in keys if k in self.store}
+
+        def publish(self, key, data):
+            self.store[key] = bytes(data)
+            return True
+
+    fake = Fake()
+    ctx = DecodeContext(cache=DecodedBlockCache(1 << 20), shared=fake)
+    ctx.put_block(("f", 1), b"one")
+    assert fake.store == {codec.wire_block_key(("f", 1)): b"one"}
+    other = DecodeContext(cache=DecodedBlockCache(1 << 20), shared=fake)
+    assert other.get_blocks([("f", 1), ("f", 2)]) == {("f", 1): b"one"}
+    assert fake.asked == [[codec.wire_block_key(("f", 1)), codec.wire_block_key(("f", 2))]]
+    assert other.get_block(("f", 1)) == b"one" and len(fake.asked) == 1  # now in L1
+
+    class Broken:
+        def get_many(self, keys):
+            raise ConnectionError("daemon gone")
+
+        def publish(self, key, data):
+            raise ConnectionError("daemon gone")
+
+    broken = DecodeContext(cache=DecodedBlockCache(1 << 20), shared=Broken())
+    broken.put_block("k", b"x")
+    assert broken.get_blocks(["k", "j"]) == {"k": b"x"}
 
 
 # -- the decoded-block cache ----------------------------------------------------

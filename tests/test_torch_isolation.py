@@ -88,11 +88,16 @@ TRACKER_MODULES = [
     "dmlc_core_tpu_torch.io.faults",
     "dmlc_core_tpu_torch.io.spanfetch",
     "dmlc_core_tpu_torch.io.split",
+    # the remote filesystems and the host-shared block cache (its daemon
+    # is a tools process)
+    "dmlc_core_tpu_torch.io.cloudfs",
+    "dmlc_core_tpu_torch.io.blockcache",
 ]
 
 # the modules of the indexed, shuffled path, the checkpoints, the example
-# ports, the codec layer, the tracker, dsserve, autoscale and the fault
-# layer: each must be among those imported
+# ports, the codec layer, the tracker, dsserve, autoscale, the fault layer,
+# the remote filesystems and the block cache: each must be among those
+# imported
 NEW_MODULES = {
     "dmlc_core_tpu_torch.checkpoint",
     "dmlc_core_tpu_torch.io.stream",
@@ -145,6 +150,32 @@ def test_tracker_modules_load_neither_torch_nor_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_cryptography_is_imported_lazily():
+    """The card's host has no ``cryptography``: no port module, nor
+    chip_smoke, imports it at import time (``cloudfs`` imports it only
+    to mint a service-account token), and the registry resolves every
+    remote scheme without it."""
+    probe = _PROBE + """
+from dmlc_core_tpu_torch.io.filesystem import FileSystem
+for u in ("http://h/x", "https://h/x", "s3://b/k", "gs://b/k", "hdfs://n/x",
+          "viewfs://n/x", "azure://c/b"):
+    print("FS", u, type(FileSystem.get_instance(u)).__name__)
+print("CRYPTO", [n for n in sys.modules if n.split(".")[0] == "cryptography"])
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", probe.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=120, cwd=str(REPO), env=_clean_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "CRYPTO []" in proc.stdout.splitlines()
+    got = {line.split()[1]: line.split()[2] for line in proc.stdout.splitlines()
+           if line.startswith("FS ")}
+    assert got == {"http://h/x": "HttpFileSystem", "https://h/x": "HttpFileSystem",
+                   "s3://b/k": "S3FileSystem", "gs://b/k": "GCSFileSystem",
+                   "hdfs://n/x": "WebHdfsFileSystem", "viewfs://n/x": "WebHdfsFileSystem",
+                   "azure://c/b": "AzureBlobFileSystem"}
 
 
 def test_default_device_entry_points_raise_without_a_card(monkeypatch):

@@ -417,11 +417,100 @@ def test_dry_run_does_not_block(capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--block-cache"], "8b"), (["--block-cache-mb", "64"], "8b"),
 ])
-def test_unported_flags_raise_naming_the_roadmap_item(flag, item):
-    with pytest.raises(Error, match=rf"ROADMAP.md §1 item {item}\b"):
-        submit.main(["--cluster", "local", "--num-workers", "1", "--host-ip", "127.0.0.1",
-                     *flag, "true"])
-    assert not os.path.exists("/nonexistent")
+def test_unported_flags_raise_naming_the_roadmap_item(capsys, flag, item):
+    """The block-cache flags, refused until ROADMAP.md §1 item 8b was
+    ported, plan the JAX submit's dry run: the daemon's line when
+    ``--block-cache`` is given (naming the port's tools), then the tasks;
+    no process starts."""
+    jax_submit = importlib.import_module("dmlc_core_tpu.tracker.submit")
+    argv = ["--cluster", "local", "--num-workers", "2", "--host-ip", "127.0.0.1",
+            "--dry-run", *flag, "true"]
+    outs = []
+    for main in (submit.main, jax_submit.main):
+        main(argv)
+        outs.append([line for line in capsys.readouterr().out.splitlines()
+                     if line.startswith("[dry-run]")])
+    port, jax = outs
+    assert port == [line.replace("dmlc_core_tpu.tools", "dmlc_core_tpu_torch.tools")
+                    for line in jax]
+    daemon = "[dry-run] block-cache daemon: python -m dmlc_core_tpu_torch.tools cached serve"
+    assert port[0] == daemon if "--block-cache" in flag else daemon not in port
+    assert sum(line.startswith("[dry-run] local task") for line in port) == 2
+
+
+CACHE_WORKER = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+from dmlc_core_tpu_torch.io import split as io_split
+from dmlc_core_tpu_torch.telemetry import default_registry
+from dmlc_core_tpu_torch.tracker.client import RabitWorker
+
+w = RabitWorker()
+rank = w.start()
+task = os.environ["DMLC_TASK_ID"]
+if rank == 1:  # the second reader starts once the first has published
+    end = time.monotonic() + 60
+    while not os.path.exists({out!r} + "0"):
+        assert time.monotonic() < end, "rank 0 never finished"
+        time.sleep(0.05)
+sp = io_split.IndexedRecordIOSplitter({rec!r}, {idx!r}, 0, 1, shuffle="window", window=200,
+                                      seed=5)
+n = 0
+while (c := sp.next_batch_ex(256)) is not None:
+    n += len(c)
+sp.close()
+reg = default_registry()
+out = {{"rank": rank, "bytes": n, "sock": os.environ.get("DMLC_BLOCK_CACHE_SOCK", ""),
+       "decodes": reg.histogram("io.codec.decode_seconds").snapshot()["count"],
+       "hits": sum(reg.counter_values("io.blockcache.hits").values())}}
+with open({out!r} + str(rank) + ".tmp", "w") as f:
+    json.dump(out, f)
+os.replace({out!r} + str(rank) + ".tmp", {out!r} + str(rank))
+w.shutdown()
+"""
+
+
+def test_block_cache_job_decodes_each_block_once(tmp_path):
+    """``submit --block-cache`` with 2 CPU workers over one zlib file:
+    each task gets the daemon's socket, the second reader decodes
+    nothing (every block from the daemon), so the two decode fewer than
+    2 x the file's blocks, and the socket directory goes with the job."""
+    from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_core_tpu_torch.io.stream import FileStream
+
+    rec, idx = str(tmp_path / "c.rec"), str(tmp_path / "c.idx")
+    with FileStream(rec, "w") as f, FileStream(idx, "w") as fi:
+        w = IndexedRecordIOWriter(f, fi, codec="zlib", block_bytes=1 << 12)
+        for i in range(2400):
+            w.write_record(b"B" + (b"%06d" % i) * 18)
+        w.flush_block()
+    blocks = len(split_blocks(rec, idx))
+    out = str(tmp_path / "rank")
+    script = tmp_path / "cache_worker.py"
+    script.write_text(CACHE_WORKER.format(repo=str(REPO), rec=rec, idx=idx, out=out))
+    proc = run_submit("dmlc_core_tpu_torch", [
+        "--cluster", "local", "--num-workers", "2", "--host-ip", "127.0.0.1",
+        "--block-cache", "--block-cache-mb", "64", sys.executable, str(script)])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ranks = [json.load(open(out + str(r))) for r in range(2)]
+    sock = ranks[0]["sock"]
+    assert sock and sock == ranks[1]["sock"]
+    assert not os.path.exists(os.path.dirname(sock))  # torn down with the job
+    assert ranks[0]["bytes"] == ranks[1]["bytes"] > 0
+    assert ranks[0]["decodes"] == blocks and ranks[0]["hits"] == 0
+    assert ranks[1]["decodes"] == 0 and ranks[1]["hits"] > 0
+    assert ranks[0]["decodes"] + ranks[1]["decodes"] < 2 * blocks
+
+
+def split_blocks(rec, idx):
+    from dmlc_core_tpu_torch.io import split as io_split
+
+    sp = io_split.IndexedRecordIOSplitter(rec, idx)
+    sp.before_first()
+    try:
+        return list(sp._block_offs)
+    finally:
+        sp.close()
 
 
 @pytest.mark.parametrize("flag,env", [

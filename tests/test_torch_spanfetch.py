@@ -9,10 +9,10 @@ throttles, contiguous plans collapse to one connection, and the splitter
 engages the fetcher for non-local sources only (``DMLC_FETCH_THREADS=1``
 pins the serial baseline).
 
-The JAX case ``test_http_seek_counts_reopen`` drives ``cloudfs``'s
-``HttpReadStream``, which is not ported (``ROADMAP.md`` §1 item 8b); in
-its place ``test_reopen_counter_feeds_io_stats`` ticks the reopen counter
-through ``count_stream_reopen``, the hook that stream calls.
+``test_reopen_counter_feeds_io_stats`` ticks the reopen counter through
+``count_stream_reopen``, the hook ``cloudfs.HttpReadStream`` calls; the
+JAX case ``test_http_seek_counts_reopen`` has its port copy, with both
+packages' streams on one seek pattern, in tests/test_torch_cloudfs.py.
 """
 
 import numpy as np

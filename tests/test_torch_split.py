@@ -401,12 +401,28 @@ def test_index_parse_is_shared_and_rereads_a_rewritten_file(tmp_path):
     ("{p};{p}?index={i}", "multi-file"),
     ("s3://b/k?index={i}", "remote"),
 ])
-def test_create_refuses_what_the_port_lacks(indexed, tmp_path, uri, match):
+def test_create_refuses_what_the_port_lacks(indexed, tmp_path, monkeypatch, uri, match):
     """What the port lacks raises. A ``#cachefile`` and a file set, once
     refused, read since slice 7: the records equal the JAX package's, and
-    so do the cache files the two write."""
+    so do the cache files the two write. A remote file, once refused,
+    reads since slice 13: an ``s3://`` object (a fake S3 on the loopback)
+    with a local index gives the JAX split's records."""
     p, idx, _ = indexed
     uri = uri.format(p=p, i=idx)
+    if match == "remote":
+        from test_cloudfs import FakeS3Handler
+        from test_torch_cloudfs import reset_both, start_s3
+
+        srv = start_s3(monkeypatch)
+        try:
+            FakeS3Handler.STORE["b/k"] = open(p, "rb").read()
+            got = drain(split.create(uri, type="recordio"), epochs=2)
+            want = drain(jax_split.create(uri, type="recordio", threaded=False), epochs=2)
+        finally:
+            reset_both()
+            srv.stop()
+        assert got == want and got
+        return
     if match in ("cachefile", "multi-file"):
         port_uri = uri.replace("#cache", f"#{tmp_path / 'port.cache'}")
         jax_uri = uri.replace("#cache", f"#{tmp_path / 'jax.cache'}")

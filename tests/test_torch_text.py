@@ -179,13 +179,36 @@ def test_create_parser_takes_the_format_from_the_uri(tmp_path):
     ("{p}.missing", "Cannot find"),
     ("{p}?indexing_mode=one", "not an integer"),
 ])
-def test_create_parser_refuses_what_the_port_lacks(tmp_path, uri, match):
+def test_create_parser_refuses_what_the_port_lacks(tmp_path, monkeypatch, uri, match):
     """What the port lacks raises. A ``#cachefile`` and a file set, once
     refused, read since slice 7: the blocks equal the JAX package's (its
-    parser drops the fragment; the port's caches the chunks in it)."""
+    parser drops the fragment; the port's caches the chunks in it). A
+    remote file, once refused, reads since slice 13: an ``s3://`` object
+    (a fake S3 on the loopback) parses to the JAX parser's blocks."""
     p = tmp_path / "a.libsvm"
     p.write_bytes(b"1 0:1\n")
     uri = uri.format(p=p).replace("#cache", f"#{tmp_path / 'cache'}")
+    if match == "remote":
+        from test_cloudfs import FakeS3Handler
+        from test_torch_cloudfs import reset_both, start_s3
+
+        srv = start_s3(monkeypatch)
+        try:
+            FakeS3Handler.STORE["bucket/x"] = b"".join(
+                b"%d 0:1 %d:2.5\n" % (i % 2, i + 1) for i in range(200))
+            for part in range(2):
+                port = create_parser(uri, part, 2, type="libsvm")
+                jax = jax_create_parser(uri, part, 2, type="libsvm")
+                got, want = list(port), list(jax)
+                port.close()
+                jax.close()
+                assert len(got) == len(want) > 0
+                for g, w in zip(got, want):
+                    assert_blocks_equal(g, w)
+        finally:
+            reset_both()
+            srv.stop()
+        return
     if match in ("cachefile", "multi-file"):
         port, jax = create_parser(uri, type="libsvm"), jax_create_parser(uri, type="libsvm")
         got, want = list(port), list(jax)

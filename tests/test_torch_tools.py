@@ -84,13 +84,17 @@ def test_info_with_a_shard_uri_names_the_roadmap_item(capsys):
     assert "ROADMAP.md §1 item 7" in err
 
 
-@pytest.mark.parametrize("argv", [["cached"], ["cached", "serve", "--mb", "64"]])
-def test_cached_names_the_roadmap_item(capsys, argv):
-    """``tools cached`` (the host block-cache daemon) is not ported: it
-    fails with ROADMAP.md §1 item 8b, not argparse's unknown-command."""
-    rc, _, err = run_cli(argv, capsys)
-    assert rc == 1
-    assert "ROADMAP.md §1 item 8b" in err
+@pytest.mark.parametrize("argv", [["cached", "stats"], ["cached", "flush"]])
+def test_cached_names_the_roadmap_item(capsys, tmp_path, argv):
+    """``tools cached``, which named ROADMAP.md §1 item 8b until that
+    item was ported, now runs the JAX package's subcommand: with no
+    daemon on the socket both packages fail alike, rc 1 and the same
+    message."""
+    argv = [*argv, "--socket", str(tmp_path / "absent.sock")]
+    got = run_cli(argv, capsys)
+    want = run_cli(argv, capsys, mod=jax_tools)
+    assert got == want
+    assert got[0] == 1 and "no block-cache daemon" in got[2]
 
 
 def test_trace_report_prints_the_stall_attribution(tmp_path, capsys):

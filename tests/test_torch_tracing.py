@@ -1,9 +1,9 @@
 """The port's flight recorder (copies of tests/test_tracing.py run
-against dmlc_core_tpu_torch.telemetry.tracing, less the block-cache
-case): bounded per-thread span rings whose overflow is COUNTED (never
+against dmlc_core_tpu_torch.telemetry.tracing): bounded per-thread span rings whose overflow is COUNTED (never
 silent), valid Chrome trace-event export, per-thread monotonic order,
 cross-process merge round-trips, stall attribution, and a port submit
-run (workers + tracker in one merged timeline). Then both packages on
+run (workers + tracker in one merged timeline, and with ``--block-cache``
+the cache daemon too). Then both packages on
 the same trace files: ``stall_report`` and ``merge_traces`` agree, and
 a JAX process's trace merges with a port process's."""
 
@@ -478,8 +478,8 @@ def test_submit_run_merges_workers_and_tracker(tmp_path):
     merge`` joins into one timeline with spans of all three, flow arrows
     between the ranks' allreduce frames and from each worker to the
     tracker's handling of its requests; ``trace report`` attributes
-    the stages. (The JAX test adds the block-cache daemon, which is not
-    ported.)"""
+    the stages. (``test_submit_run_merges_workers_daemon_and_tracker``
+    adds the block-cache daemon, as the JAX test does.)"""
     from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
     from dmlc_core_tpu_torch.io.stream import FileStream
 
@@ -547,6 +547,51 @@ def test_submit_run_merges_workers_and_tracker(tmp_path):
     assert rep["busy_seconds_by_stage"], rep
     assert rep["threads"]
     assert len(rep["starvation_gaps"]) >= 1, rep
+
+
+@pytest.mark.blockcache
+def test_submit_run_merges_workers_daemon_and_tracker(tmp_path):
+    """A port ``submit --block-cache --trace-dir`` run with 2 workers
+    leaves a trace file per process, the ``tools cached serve`` daemon's
+    included, that ``tools trace merge`` joins into one timeline with a
+    ``blockcache-daemon`` row holding its ``dmlc:blockcache_*`` handler
+    spans beside the workers' and the tracker's."""
+    from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_core_tpu_torch.io.stream import FileStream
+
+    rec = str(tmp_path / "corpus.rec")
+    idx = rec + ".idx"
+    with FileStream(rec, "w") as f, FileStream(idx, "w") as fi:
+        w = IndexedRecordIOWriter(f, fi, codec="zlib", block_bytes=2048)
+        for i in range(500):
+            w.write_record(f"row-{i:06d}|".encode() * 8)
+        w.flush_block()
+    trace_dir = tmp_path / "traces"
+    script = tmp_path / "worker.py"
+    script.write_text(_SUBMIT_WORKER.format(repo=REPO, rec=rec, idx=idx))
+    out = subprocess.run(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
+         "--cluster", "local", "--num-workers", "2", "--host-ip", "127.0.0.1",
+         "--block-cache", "--trace-dir", str(trace_dir), sys.executable, str(script)],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "DMLC_TRACE": "on", "JAX_PLATFORMS": "cpu"}, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    files = sorted(str(trace_dir / f) for f in os.listdir(trace_dir)
+                   if f.startswith("dmlc-trace-"))
+    assert len(files) == 4, files  # 2 workers, the daemon and the tracker
+    from dmlc_core_tpu_torch import tools
+
+    merged_path = str(tmp_path / "job.json")
+    assert tools.main(["trace", "merge"] + files + ["-o", merged_path]) == 0
+    merged = tracing.load_trace(merged_path)
+    labels = {e["args"]["name"] for e in merged["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "process_name"}
+    for want in ("worker0", "worker1", "blockcache-daemon", "tracker"):
+        assert any(want in lb for lb in labels), labels
+    names = {e["name"] for e in merged["traceEvents"] if e["ph"] == "X"}
+    assert "dmlc:window_load" in names
+    assert any(n.startswith("dmlc:blockcache_") for n in names), names
 
 
 # -- causal RPC trace context ---------------------------------------------------
