@@ -75,12 +75,14 @@ Phases (any failure exits non-zero and prints no result line):
    directory and as a regex, and through a ``#cachefile`` for two
    epochs (the second replayed from the cache), each into FM SGD, with
    batches equal to the one file's;
-8. the two example ports (``dmlc_core_tpu_torch.examples``) on the card
-   for two epochs each at their own sizes;
+8. the example ports (``dmlc_core_tpu_torch.examples``) on the card at
+   their own sizes: HIGGS and Criteo for two epochs each, and the online
+   FM in demo mode (its generator on a thread, the FM following the live
+   stream to EOS);
 9. multi-worker training through the port's launcher (``python -m
    dmlc_core_tpu_torch.tracker.submit --cluster local``) and collective,
    each worker a process of its own on the card: 2 workers at the Criteo
-   width take 32 steps each over their part of the shuffle phase's file
+   width take 16 steps each over their part of 2^17 indexed rows
    (``shuffle=batch``, 2 parts), allreducing ``[grads, 1]`` (71 MB) a step,
    once over the tree and once over the ring; both ranks' params must be
    bit-identical, every rank must launch K1-K4 once a step, and the params
@@ -111,8 +113,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``io_stats()``, ``tools trace merge`` holding spans of the tracker and
    both workers with flow arrows between the ranks, ``tools info``
    naming the card;
-11. tracker-leased micro-shards at the Criteo width (the shuffle phase's
-   2^18 indexed rows, ``shuffle=batch``, ``&dynamic_shards=1``, 4
+11. tracker-leased micro-shards at the Criteo width (2^17 indexed rows,
+   ``shuffle=batch``, ``&dynamic_shards=1``, 4
    micro-shards a worker; native producer, pinned staging, K1-K4): (a)
    one worker and a port ``RabitTracker`` in this process, each leased
    micro-shard's batches bit for bit the static part ``(i, 4)``'s, no
@@ -206,7 +208,32 @@ Phases (any failure exits non-zero and prints no result line):
    the params within ``PARAM_REL``; then ``submit --block-cache`` with
    two colocated trainers (rank 1 starting at rank 0's step 8) decodes
    fewer than twice the file's blocks and leaves no socket directory;
-16. the ``entry()`` forward on the card against the CPU.
+16. live streams at the Criteo width: (a) a writer process (the port's
+   ``StreamWriter``: zlib, a commit every 8192 records, rotation at
+   STREAM_ROTATE_BYTES) appends 2^17 Criteo rows paced at about 100 k
+   rows/s and closes with EOS, while this process trains the FM over
+   ``ell_batches(dir/manifest.json?shuffle=window&window=16384&seed=7)``:
+   a drain of the sealed stream afterwards gives the live pass's batch
+   digests in the same order and its params within ``PARAM_REL``; the
+   follower saw 2 or more rotations and waited on the writer at least
+   once; the lag's p99 (the ``stream.lag_seconds`` gauge a step) is under
+   2 s (``bench.py``'s stream_online bound); (b) two FM trainers under
+   ``submit`` follow another such stream with ``&dynamic_shards=1`` while
+   its writer writes: each generation's micro-shards completed once with
+   no duplicate, and the multiset of the records the two ranks trained
+   equal to the sealed drain's, generation by generation;
+17. point lookups over the shuffle phase's rows in zlib blocks of 1 MiB
+   with their index: ``tools serve --port-file --metrics-port --warm 64``
+   as a process; ``bench.py``'s point_lookup_zipf key sequence (Zipf 1.1
+   over a permuted key space, 360 keys in batches of 60, negatives at
+   ``keys[7::61]``) through a ``LookupClient``, an in-process
+   ``RecordLookup`` and the naive per-key read, one sha256 each, all
+   equal, every negative None; then 300 requests of 16 keys on the warm
+   server; a ``/metrics`` scrape with ``dmlc_io_lookup_request_seconds``;
+   SIGTERM ending the server with rc 0 and a last JSON stats line;
+   ``tools info`` with the corpus's geometry, and "growing" on a stream's
+   live shard with no commit. It runs no kernel;
+18. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -217,7 +244,8 @@ shared memory), a ``{"kernels": [...]}``, a ``{"producers": {...}}``, a
 an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
 ``{"telemetry": {...}}``, a ``{"shards": {...}}``, a ``{"dsserve":
 {...}}``, a ``{"faults": {...}}``, an ``{"autoscale": {...}}``, a
-``{"remote": {...}}`` and a ``{"phase_seconds": {...}}`` line, the
+``{"remote": {...}}``, a ``{"stream": {...}}``, a ``{"lookup":
+{...}}`` and a ``{"phase_seconds": {...}}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1333,8 +1361,9 @@ def codec_phase(dev, sequential_fm):
 
 
 def examples_phase(dev):
-    """Both example ports on the card at their own sizes for two epochs,
-    in a scratch directory: wall time, final loss, latest checkpoint."""
+    """The example ports on the card at their own sizes, in a scratch
+    directory: HIGGS and Criteo for two epochs (wall time, final loss,
+    latest checkpoint), then the online FM (``online_example``)."""
     from dmlc_core_tpu_torch.examples import train_criteo_rec, train_higgs
 
     out = {}
@@ -1352,6 +1381,7 @@ def examples_phase(dev):
                     fail(f"{name}: losses {res['losses']}")
                 out[name] = {"wall_s": wall, "loss_first": losses[0],
                              "loss_last": losses[-1], "latest_step": res["latest_step"]}
+        out["train_online_fm"] = online_example(dev)
     finally:
         if old is None:
             os.environ.pop("DMLC_SGD_EPOCHS")
@@ -1360,14 +1390,44 @@ def examples_phase(dev):
     return out
 
 
+def online_example(dev):
+    """The online FM example in demo mode on the card (its generator on a
+    thread, the FM following the live stream to EOS), in a scratch
+    directory: wall s, rows, steps, final loss and K1-K4's launches."""
+    from dmlc_core_tpu_torch.examples import train_online_fm
+    from dmlc_core_tpu_torch.ops import _build
+
+    old = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp  # the demo's stream directory goes here
+        try:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = train_online_fm.main([], device=dev)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.launches)
+        finally:
+            tempfile.tempdir = old
+    losses = res["losses"]
+    if res["rows"] != 8000 or not losses or not all(np.isfinite(losses)):
+        fail(f"train_online_fm: {res['rows']} rows, losses {losses}")
+    if any(launches[k] != res["steps"] for k in KERNEL_NAMES):
+        fail(f"train_online_fm: launches {launches} for {res['steps']} steps")
+    return {"wall_s": wall, "rows": res["rows"], "steps": res["steps"],
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "follow_s": res["wall_s"], "launches": launches,
+            "rotations_seen": res["io_stats"]["rotations_seen"]}
+
+
 # the collective phase: COLL_WORKERS workers at full width take
-# COLL_STEPS steps each over their part of the shuffle phase's file, once
-# over the tree and once over the ring; the example's drill runs
+# COLL_STEPS steps each over their part of a file of COLL_ROWS indexed
+# rows (the shuffle phase's rows cut to half, for time), once over the
+# tree and once over the ring; the example's drill runs
 # DRILL_WORKERS workers over DRILL_ROWS rows (5 full batches a rank, so a
 # span-aligned peer checkpoint exists at step 4 when DRILL_FAULTS kills
 # rank 2 at the start of round 4) for two epochs, twice clean and once
 # with the kill; HIGGS runs HIGGS_WORKERS workers
-COLL_WORKERS, COLL_STEPS, COLL_LR = 2, 32, 0.5
+COLL_WORKERS, COLL_STEPS, COLL_LR, COLL_ROWS = 2, 16, 0.5, 1 << 17
 DRILL_WORKERS, DRILL_ROWS = 3, 3 * 5 * 2048
 DRILL_FAULTS = "kill_seq=4,kill_rank=2,kill_phase=start"
 HIGGS_WORKERS = 2
@@ -1649,8 +1709,9 @@ def collective_phase(dev):
     ``{"collective": ...}`` line and the full-width workers' launches."""
     with tempfile.TemporaryDirectory() as tmp:
         rec = write_indexed(os.path.join(tmp, "criteo.rec"),
-                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
+                            *criteo_data(np.random.default_rng(3), COLL_ROWS, D))
         out, launches = full_width_jobs(rec, dev, tmp)
+        out["rows"] = COLL_ROWS
         out["drill"] = drill(tmp)
         out["higgs"] = higgs_launch(tmp)
     return out, launches
@@ -1988,8 +2049,9 @@ def ptxas_summary(log: str):
     return out
 
 
-# the shards phase: tracker-leased micro-shards of the shuffle phase's
-# 2^18 indexed rows (shuffle=batch), SHARD_OVERSPLIT a worker; (a) one
+# the shards phase: tracker-leased micro-shards of SHARD_ROWS indexed
+# rows (the shuffle phase's rows cut to half, for time; shuffle=batch),
+# SHARD_OVERSPLIT a worker; (a) one
 # worker in this process, in turns with a static drain of the same file,
 # (b) SHARD_WORKERS workers through the launcher beside the same job over
 # static parts, (c) the same with --tracker-journal and the tracker
@@ -2001,6 +2063,7 @@ def ptxas_summary(log: str):
 # left with no lease to take blocks its trainer, and through the lockstep
 # allreduce the holder of the last shard, until that lease expires
 SHARD_OVERSPLIT, SHARD_WORKERS, SHARD_PAUSE, SHARD_TTL, SHARD_LR = 4, 2, 2, 120, 0.5
+SHARD_ROWS = 1 << 17
 SHARD_OPEN_TTL = 30
 SHARD_EXAMPLE_ROWS = 8 * 2 * 2048  # 2 batches a micro-shard at 2 workers x 4
 
@@ -2493,8 +2556,8 @@ def shards_phase(dev):
             ("drill", "dynamic", "boundary"), ("drill_open", "dynamic", "open"))
     with tempfile.TemporaryDirectory() as tmp:
         rec = write_indexed(os.path.join(tmp, "criteo.rec"),
-                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
-        out = {"rows": PRODUCER_ROWS, "oversplit": SHARD_OVERSPLIT,
+                            *criteo_data(np.random.default_rng(3), SHARD_ROWS, D))
+        out = {"rows": SHARD_ROWS, "oversplit": SHARD_OVERSPLIT,
                "one_worker": one_worker_shards(rec, spec, dev, make)}
         launches = dict(out["one_worker"]["launches"])
         batches = {}
@@ -3906,6 +3969,550 @@ def autoscale_phase(dev, card: str):
     return out, launches
 
 
+# -- the stream phase: the FM follows a live stream ------------------------------------
+# a writer process appends STREAM_ROWS Criteo rows (43 MB of rowrec) paced
+# at STREAM_RATE rows/s, committing every STREAM_COMMIT records; zlib packs
+# these rows to about 0.42 of their size (18 MB), so it rotates every
+# STREAM_ROTATE_BYTES of compressed shard: 3 times a run, then the seal at
+# EOS (at 16 MiB it would rotate once). The follower reads windows of
+# STREAM_WINDOW records (8 batches), fails after STREAM_IDLE s with no
+# writer progress, and its lag's p99 must stay under STREAM_LAG_P99 s
+# (bench.py's stream_online bound, bench.py:2087)
+STREAM_ROWS, STREAM_RATE, STREAM_COMMIT = 1 << 17, 100_000.0, 8192
+STREAM_ROTATE_BYTES, STREAM_WINDOW, STREAM_IDLE, STREAM_LAG_P99 = 5 << 20, 16384, 120.0, 2.0
+STREAM_LR, STREAM_OVERSPLIT = 0.5, 4
+
+STREAM_WRITER = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import chip_smoke as cs
+from dmlc_core_tpu_torch.stream import StreamWriter
+
+# the stream directory, the rows' seed and a file to wait for: the
+# writer makes its rows, says so in <go>.ready and starts once <go> exists
+d, seed, go = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+payloads = cs.row_payloads(*cs.criteo_data(np.random.default_rng(seed), {rows}, {d_}))
+open(go + ".ready", "w").close()
+t0 = time.monotonic()
+while not os.path.exists(go):
+    if time.monotonic() - t0 > 300:
+        sys.exit("the followers never started")
+    time.sleep(0.02)
+t0 = time.perf_counter()
+with StreamWriter(d, codec="zlib", commit_records={commit}, rotate_bytes={rotate}) as w:
+    for i, p in enumerate(payloads):
+        w.append(p)
+        if i % 1024 == 1023:
+            ahead = t0 + (i + 1) / {rate} - time.perf_counter()
+            if ahead > 0:
+                time.sleep(ahead)
+print(json.dumps({{"wall_s": time.perf_counter() - t0, **w.stats()}}))
+"""
+
+STREAM_TRAINER = """
+import hashlib, json, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from dmlc_core_tpu_torch.io.recordio import RecordIOChunkReader
+from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.ops import _build
+from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+from dmlc_core_tpu_torch.staging.fused import ell_batches
+from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
+from dmlc_core_tpu_torch.stream import manifest as sm
+from dmlc_core_tpu_torch.tracker.client import RabitWorker
+
+d, out, go, dev = sys.argv[1], sys.argv[2], sys.argv[3], torch.device(sys.argv[4])
+w = RabitWorker()
+rank = w.start()
+src = ell_batches(d + "/manifest.json?dynamic_shards=1&shuffle=window&window={window}&seed=7",
+                  BatchSpec(batch_size={b}, max_nnz={k}, value_dtype=np.float32))
+split = src._split  # the StreamSource the producer follows
+split._max_idle = {idle}
+by_gen, events = {{}}, []
+split.on_shard_done = lambda gen, shard, status: events.append([gen, shard, status])
+pull = split.next_gather_batch
+
+def spy(n):
+    # each record the producer takes, by the generation it came from
+    g = pull(n)
+    if g is not None:
+        buf, starts, sizes = g
+        digests = by_gen.setdefault(str(split.generation), [])
+        for s0, z in zip(starts.tolist(), sizes.tolist()):
+            frame = buf[s0:s0 + z]
+            p = sm.frame_payload(frame)
+            rec = (p.tobytes() if p is not None
+                   else bytes(RecordIOChunkReader(frame.tobytes()).next_record()))
+            digests.append(hashlib.blake2b(rec, digest_size=8).hexdigest())
+    return g
+
+split.next_gather_batch = spy
+if rank == 0:
+    open(go, "w").close()  # the writer starts now
+model = FactorizationMachine({d_}, {e}, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+pipe = StagingPipeline(src, device=dev)
+losses = []
+_build.reset_launches()
+t0 = time.perf_counter()
+for batch in pipe:
+    losses.append(float(model.sgd_step(batch, lr={lr})))
+wall = time.perf_counter() - t0
+launches = dict(_build.launches)
+stats = split.io_stats()
+drain_close(pipe, src)
+with open(f"{{out}}.rank{{rank}}.json", "w") as f:
+    json.dump({{"rank": rank, "by_gen": by_gen, "events": events, "losses": losses,
+               "launches": launches, "wall_s": wall, "io_stats": stats}}, f)
+w.shutdown()
+"""
+
+
+def row_payloads(idx, val, labels) -> list:
+    """Each Criteo row's rowrec record (what a stream writer appends)."""
+    from dmlc_core_tpu_torch.io.recordio import RecordIOChunkReader
+    from dmlc_core_tpu_torch.stream import manifest as sm
+
+    framed = rowrec_bytes(idx, val, labels)
+    view = memoryview(framed)
+    out = []
+    for s0, z in zip(*(a.tolist() for a in sm.walk_frames(framed))):
+        p = sm.frame_payload(view[s0:s0 + z])
+        out.append(bytes(p) if p is not None
+                   else bytes(RecordIOChunkReader(bytes(view[s0:s0 + z])).next_record()))
+    return out
+
+
+def stream_writer(tmp: str, d: str, seed: int, go: str):
+    """The STREAM_WRITER process into ``d`` (made here); it appends once
+    the file ``go`` exists."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "stream_writer.py")
+    if not os.path.exists(script):
+        with open(script, "w") as f:
+            f.write(STREAM_WRITER.format(repo=repo, rows=STREAM_ROWS, d_=D,
+                                         commit=STREAM_COMMIT, rotate=STREAM_ROTATE_BYTES,
+                                         rate=STREAM_RATE))
+    os.makedirs(d)
+    return subprocess.Popen([sys.executable, script, d, str(seed), go],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=repo), cwd=repo)
+
+
+def writer_stats(proc, what: str) -> dict:
+    """The writer's last stdout line (its stats) once it exited 0."""
+    try:
+        out, err = proc.communicate(timeout=JOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        fail(f"{what}: the stream writer ran past {JOB_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"{what}: the stream writer exited {proc.returncode}:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def sealed_record_digests(d: str) -> dict:
+    """The sealed stream's record digests by generation, each shard read
+    alone as an indexed file."""
+    from dmlc_core_tpu_torch.io import split as io_split
+    from dmlc_core_tpu_torch.stream import manifest as sm
+
+    m = sm.read_manifest(d)
+    if not (m["eos"] and m["live"] is None):
+        fail(f"stream {d} was not sealed: {m}")
+    out = {}
+    for ent in m["sealed"]:
+        sp = io_split.create(sm.join(d, ent["data"]), type="recordio",
+                             index_uri=sm.join(d, ent["index"]), threaded=False)
+        out[str(ent["gen"])] = sorted(hashlib.blake2b(bytes(r), digest_size=8).hexdigest()
+                                      for r in iter(sp.next_record, None))
+        sp.close()
+    return out
+
+
+def stream_live(dev, tmp: str, make, spec):
+    """(a): the FM follows the writer's stream live, then the same model
+    seed over a drain of the sealed stream; the lag sampled a step."""
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+    from dmlc_core_tpu_torch.stream import manifest as sm
+    from dmlc_core_tpu_torch.telemetry import default_registry
+
+    d, go = os.path.join(tmp, "live"), os.path.join(tmp, "live.go")
+    uri = f"{d}/manifest.json?shuffle=window&window={STREAM_WINDOW}&seed=7"
+    gauge = default_registry().gauge("stream.lag_seconds")
+    lags = []
+    writer = stream_writer(tmp, d, 5, go)
+    model = make()
+    try:
+        deadline = time.monotonic() + JOB_TIMEOUT
+        while not os.path.exists(go + ".ready"):  # the writer made its rows
+            if writer.poll() is not None or time.monotonic() > deadline:
+                fail(f"stream (a): the writer did not get ready: {writer.communicate()[1]}")
+            time.sleep(0.02)
+        src = ell_batches(uri, spec)
+        split = src._split  # the StreamSource the producer follows
+        split._max_idle = STREAM_IDLE
+        open(go, "w").close()
+        live, _, _ = drive("stream_live", model, src, dev, STREAM_LR, digests=True,
+                           on_step=lambda step, batch: lags.append(gauge.value()))
+    except BaseException:
+        writer.kill()
+        writer.communicate()
+        raise
+    io = split.io_stats()
+    wstats = writer_stats(writer, "stream (a)")
+    m = sm.read_manifest(d)
+    replay_model = make()
+    post, _, _ = drive("stream_posthoc", replay_model, ell_batches(uri, spec), dev, STREAM_LR,
+                       digests=True)
+    if live["digests"] != post["digests"]:
+        fail("stream (a): the live pass's batches differ from the sealed stream's drain")
+    gap = param_gap(fm_params(model), fm_params(replay_model))
+    check_gap(gap, "stream (a): the live FM against the replay over the sealed drain")
+    if live["rows_staged"] != STREAM_ROWS or sum(e["records"] for e in m["sealed"]) != STREAM_ROWS:
+        fail(f"stream (a): {live['rows_staged']} rows staged, manifest {m['sealed']}")
+    lag = {"p50_s": float(np.percentile(lags, 50)), "p99_s": float(np.percentile(lags, 99)),
+           "max_s": float(max(lags)), "samples": len(lags)}
+    if io["rotations_seen"] < 2 or not io["tail_wait_secs"] > 0:
+        fail(f"stream (a): the follower saw {io['rotations_seen']} rotations and waited "
+             f"{io['tail_wait_secs']} s on the writer")
+    if not lag["p99_s"] < STREAM_LAG_P99:
+        fail(f"stream (a): lag p99 {lag['p99_s']} s >= {STREAM_LAG_P99} s")
+    pick = ("steps", "step_ms", "staged_rows_per_sec", "wait_share", "wall_s", "rows_staged",
+            "loss_first", "loss_last")
+    return {"live": {k: live[k] for k in pick}, "posthoc": {k: post[k] for k in pick},
+            "writer": wstats, "generations": len(m["sealed"]),
+            "stream_tail_wait_s": io["tail_wait_secs"],
+            "commits_seen": io["commits_seen"], "rotations_seen": io["rotations_seen"],
+            "extents": io["extents"], "lag": lag, "vs_posthoc": gap,
+            "batches_equal": len(live["digests"])}, [live, post]
+
+
+def stream_leased(dev, tmp: str):
+    """(b): two FM trainers under ``submit`` follow a stream with
+    ``&dynamic_shards=1`` while its writer writes (the writer starts once
+    rank 0 is up)."""
+    from collections import Counter
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "stream_trainer.py")
+    with open(script, "w") as f:
+        f.write(STREAM_TRAINER.format(repo=repo, window=STREAM_WINDOW, b=B, k=K, d_=D, e=E,
+                                      idle=STREAM_IDLE, lr=STREAM_LR))
+    d, go = os.path.join(tmp, "leased"), os.path.join(tmp, "leased.go")
+    prefix, report_path = os.path.join(tmp, "leased"), os.path.join(tmp, "leased.report.json")
+    writer = stream_writer(tmp, d, 6, go)
+    try:
+        _, wall = submit_job(["--num-workers", "2", "--shard-oversplit", str(STREAM_OVERSPLIT),
+                              sys.executable, script, d, prefix, go, dev.type],
+                             env={"DMLC_METRICS_REPORT": report_path})
+    except BaseException:
+        writer.kill()
+        writer.communicate()
+        raise
+    wstats = writer_stats(writer, "stream (b)")
+    want = sealed_record_digests(d)
+    n_gen, m = len(want), 2 * STREAM_OVERSPLIT
+    with open(report_path) as f:
+        ledger = json.load(f).get("shards") or {}
+    ranks, got, recorded = [], {}, []
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for r in range(2):
+        with open(f"{prefix}.rank{r}.json") as f:
+            res = json.load(f)
+        n = len(res["losses"])
+        if any(res["launches"][k] != n for k in KERNEL_NAMES) or not all(
+                np.isfinite(res["losses"])):
+            fail(f"stream (b) rank {r}: launches {res['launches']} for {n} steps, "
+                 f"losses {res['losses'][:4]}...")
+        for k in KERNEL_NAMES:
+            launches[k] += n
+        for gen, ds in res["by_gen"].items():
+            got.setdefault(gen, []).extend(ds)
+        recorded += [(g, s) for g, s, st in res["events"] if st == "recorded"]
+        ranks.append({"rank": r, "steps": n, "wall_s": res["wall_s"],
+                      "rows": sum(map(len, res["by_gen"].values())),
+                      "generations": sorted(res["by_gen"]),
+                      "lease_wait_s": res["io_stats"].get("dyn_lease_wait_secs"),
+                      "tail_wait_s": res["io_stats"]["tail_wait_secs"],
+                      "loss_first": res["losses"][0], "loss_last": res["losses"][-1]})
+    for gen, ds in want.items():
+        if sorted(got.get(gen, [])) != ds:
+            fail(f"stream (b): generation {gen}: the ranks trained {len(got.get(gen, []))} "
+                 f"records, not the sealed shard's {len(ds)} once each")
+    if set(got) != set(want):
+        fail(f"stream (b): the ranks trained generations {sorted(got)}, sealed {sorted(want)}")
+    per_gen = Counter(g for g, _ in recorded)
+    if len(recorded) != len(set(recorded)) or any(per_gen[int(g)] != m for g in want):
+        fail(f"stream (b): micro-shards recorded {sorted(recorded)}")
+    if not (ledger.get("duplicates") == 0
+            and ledger.get("completed") == ledger.get("granted") == m * n_gen):
+        fail(f"stream (b): the tracker's ledger {ledger} for {n_gen} generations of {m}")
+    return {"wall_s": wall, "writer": wstats, "generations": n_gen, "micro_shards": m,
+            "ledger": ledger, "ranks": ranks,
+            "records": sum(len(v) for v in want.values())}, launches
+
+
+def stream_phase(dev, card: str):
+    """Live streams at the Criteo width: (a) the FM follows a writer
+    process's stream in this process, (b) two leased trainers under
+    ``submit``. Returns the ``{"stream": ...}`` line and the launches of
+    every FM step."""
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    def make():
+        return FactorizationMachine(D, E, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        live, runs = stream_live(dev, tmp, make, spec)
+        leased, launches = stream_leased(dev, tmp)
+    for run in runs:
+        for k in KERNEL_NAMES:
+            if run["launches"][k] != run["steps"]:
+                fail(f"stream phase: launches {run['launches']} for {run['steps']} steps")
+            launches[k] += run["launches"][k]
+    return {"card": card, "rows": STREAM_ROWS, "rate_target": STREAM_RATE,
+            "commit_records": STREAM_COMMIT, "rotate_bytes": STREAM_ROTATE_BYTES,
+            "window": STREAM_WINDOW, "live": live, "leased": leased,
+            "seconds": time.perf_counter() - t_phase}, launches
+
+
+# -- the lookup phase: point reads over the zlib corpus -------------------------------
+# bench.py's point_lookup_zipf (bench.py:597-640): Zipf(LOOKUP_ALPHA) over a
+# permuted key space, LOOKUP_KEYS keys in batches of LOOKUP_BATCH with
+# negatives at keys[7::61]; then its served part, LOOKUP_REQUESTS requests of
+# LOOKUP_REQ_BATCH keys on the warm server (bench.py:720-750)
+LOOKUP_ALPHA, LOOKUP_KEYS, LOOKUP_BATCH = 1.1, 360, 60
+LOOKUP_REQUESTS, LOOKUP_REQ_BATCH, LOOKUP_WARM = 300, 16, 64
+LOOKUP_GROWING_ROWS = 200
+
+
+def lookup_keys(n: int):
+    """bench.py's key sequence over ``n`` keys, and its served requests."""
+    rng = np.random.default_rng(29)
+    scatter = rng.permutation(n)
+    p = 1.0 / np.arange(1, n + 1) ** LOOKUP_ALPHA
+    p /= p.sum()
+    keys = scatter[rng.choice(n, size=LOOKUP_KEYS, p=p)].tolist()
+    keys[7::61] = [n * 10 + i for i in range(len(keys[7::61]))]
+    return keys, scatter[rng.choice(n, size=(LOOKUP_REQUESTS, LOOKUP_REQ_BATCH), p=p)]
+
+
+def answers_sha(keys, answers) -> str:
+    sha = hashlib.sha256()
+    for k, v in zip(keys, answers):
+        sha.update(b"%d:" % k)
+        sha.update(b"<none>" if v is None else v)
+    return sha.hexdigest()
+
+
+def naive_lookup(handle, path: str, keys) -> list:
+    """bench.py's run_naive: per key, open the shard, seek to the
+    record's block, read, decode and slice it (key resolution through the
+    handle's index)."""
+    from dmlc_core_tpu_torch.io import codec
+    from dmlc_core_tpu_torch.io.recordio import RecordIOChunkReader, scan_compressed_blob
+    from dmlc_core_tpu_torch.io.stream import Stream
+
+    sp = handle._sp
+    out = []
+    for k in keys:
+        hit, recs = handle._resolve([k])
+        if not bool(hit[0]):
+            out.append(None)
+            continue
+        rec = int(recs[0])
+        bid = int(sp._rec_block[rec])
+        with Stream.create(path, "r") as s:
+            s.seek(int(sp._block_offs[bid]))
+            data = s.read_exact(int(sp._block_sizes[bid]))
+        blob, _end = scan_compressed_blob(memoryview(data), 0)
+        raw, _n = codec.decode_block(blob)
+        start, end = int(sp._rec_inoff[rec]), int(sp._rec_next[rec])
+        framed = raw[start:] if end < 0 else raw[start:end]
+        out.append(bytes(RecordIOChunkReader(framed, 0, 1).next_record()))
+    return out
+
+
+def tools_info(uri: str) -> dict:
+    """``python -m dmlc_core_tpu_torch.tools info uri``'s shard section."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.tools", "info", uri],
+                          capture_output=True, text=True, timeout=120, cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo))
+    if proc.returncode != 0:
+        fail(f"tools info {uri} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)["shard"]
+
+
+def lookup_server(tmp: str, zrec: str, metrics_port: int):
+    """``tools serve`` as a process: (process, port) once its port file
+    names the endpoint."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pf = os.path.join(tmp, "lookup.port.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tools", "serve", zrec, "--port-file", pf,
+         "--metrics-port", str(metrics_port), "--warm", str(LOOKUP_WARM)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo))
+    deadline = time.monotonic() + 120
+    while not os.path.exists(pf):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            fail(f"tools serve did not start: {proc.communicate()[1][-2000:]}")
+        time.sleep(0.05)
+    with open(pf) as f:
+        return proc, json.load(f)["port"]
+
+
+def growing_shard(tmp: str) -> dict:
+    """``tools info`` on a stream's live shard whose tail was never
+    committed: 'growing'; once the writer seals it, its geometry
+    (``RecordLookup.describe``, what ``tools info`` prints)."""
+    from dmlc_core_tpu_torch.io.lookup import RecordLookup
+    from dmlc_core_tpu_torch.stream import StreamWriter
+    from dmlc_core_tpu_torch.stream import manifest as sm
+
+    d = os.path.join(tmp, "growing")
+    os.makedirs(d)
+    rows = row_payloads(*criteo_data(np.random.default_rng(8), LOOKUP_GROWING_ROWS, D))
+    # blocks of 16 KiB: several reach the file, their index lines stay in
+    # the writer's buffer
+    w = StreamWriter(d, codec="zlib", block_bytes=16 << 10, commit_records=0)
+    try:
+        for row in rows:
+            w.append(row)
+        live = sm.read_manifest(d)["live"]
+        growing = tools_info(sm.join(d, live["data"]))
+    finally:
+        w.close(eos=True)
+    # the sealed shard's geometry in this process: what tools info prints
+    h = RecordLookup(sm.join(d, sm.read_manifest(d)["sealed"][0]["data"]))
+    sealed = h.describe()
+    h.close()
+    if not str(growing.get("status", "")).startswith("growing") or live["bytes"] != 0:
+        fail(f"tools info on a live shard with no commit: {growing}, watermark {live}")
+    if sealed.get("records") != LOOKUP_GROWING_ROWS or "status" in sealed:
+        fail(f"tools info on the sealed shard: {sealed}")
+    return {"live": growing, "sealed": sealed}
+
+
+def lookup_phase(card: str):
+    """Point lookups over the shuffle phase's rows in zlib blocks of 1 MiB:
+    ``tools serve`` as a process, a client, an in-process handle and the
+    naive per-key read on bench.py's Zipf keys; ``/metrics``; SIGTERM;
+    ``tools info``. No kernel runs here. Returns the ``{"lookup": ...}``
+    line."""
+    import signal
+    import socket
+
+    from dmlc_core_tpu_torch.io import codec, retry
+    from dmlc_core_tpu_torch.io.lookup import LookupClient, RecordLookup
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"),
+                            *criteo_data(np.random.default_rng(3), PRODUCER_ROWS, D))
+        zrec = write_compressed(rec, os.path.join(tmp, "criteo.zlib.rec"), "zlib", CODEC_BLOCK)
+        blocks = count_blocks(zrec)
+        keys, requests = lookup_keys(PRODUCER_ROWS)
+        negatives = set(range(7, LOOKUP_KEYS, 61))
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            mport = sock.getsockname()[1]
+        proc, port = lookup_server(tmp, zrec, mport)
+        try:
+            client = LookupClient("127.0.0.1", port)
+            seq_lat, served_lat, answers = [], [], []
+            t0 = time.perf_counter()
+            for at in range(0, LOOKUP_KEYS, LOOKUP_BATCH):
+                t1 = time.perf_counter()
+                answers += client.lookup(keys[at:at + LOOKUP_BATCH])
+                seq_lat.append(time.perf_counter() - t1)
+            seq_s = time.perf_counter() - t0
+            client.warm(requests.ravel().tolist())
+            t0 = time.perf_counter()
+            for r in range(LOOKUP_REQUESTS):
+                t1 = time.perf_counter()
+                client.lookup(requests[r].tolist())
+                served_lat.append(time.perf_counter() - t1)
+            served_s = time.perf_counter() - t0
+            server_stats = client.stats()
+            client.close()
+            with retry.request(f"http://127.0.0.1:{mport}/metrics", timeout=30.0) as resp:
+                metrics = resp.read().decode()
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                _, err = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                fail("tools serve ignored SIGTERM for 60 s")
+        if proc.returncode != 0:
+            fail(f"tools serve exited {proc.returncode} on SIGTERM: {err[-2000:]}")
+        final = json.loads(err.strip().splitlines()[-1])
+        h = RecordLookup(zrec, merge_gap=0, decode_ctx=codec.DecodeContext(
+            cache=codec.DecodedBlockCache(256 << 20), shared=None))
+        try:
+            t0 = time.perf_counter()
+            handle_answers = []
+            for at in range(0, LOOKUP_KEYS, LOOKUP_BATCH):
+                handle_answers += h.lookup(keys[at:at + LOOKUP_BATCH])
+            batched_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            naive = naive_lookup(h, zrec, keys)
+            naive_s = time.perf_counter() - t0
+            hstats = h.io_stats()
+        finally:
+            h.close()
+        shas = {"server": answers_sha(keys, answers),
+                "handle": answers_sha(keys, handle_answers),
+                "naive": answers_sha(keys, naive)}
+        if len(set(shas.values())) != 1:
+            fail(f"lookup: the server, the handle and the naive read disagree: {shas}")
+        if {i for i, v in enumerate(answers) if v is None} != negatives:
+            fail("lookup: the negatives are not exactly keys[7::61]")
+        if "dmlc_io_lookup_request_seconds" not in metrics:
+            fail("lookup: /metrics has no dmlc_io_lookup_request_seconds")
+        info = tools_info(zrec)
+        if not (info["records"] == PRODUCER_ROWS and info["codec"] == "zlib"
+                and info["blocks"] == blocks):
+            fail(f"lookup: tools info says {info}, the corpus has {blocks} blocks")
+        growing = growing_shard(tmp)
+
+    def ms(lat, q):
+        return float(np.percentile(lat, q)) * 1e3
+
+    return {"card": card, "rows": PRODUCER_ROWS, "blocks": blocks, "alpha": LOOKUP_ALPHA,
+            "kernels": "none: the lookup path serves bytes and runs no kernel",
+            "sequence": {"keys": LOOKUP_KEYS, "batch": LOOKUP_BATCH,
+                         "negatives": len(negatives), "sha256": shas["server"],
+                         "p50_ms": ms(seq_lat, 50), "p99_ms": ms(seq_lat, 99),
+                         "qps": len(seq_lat) / seq_s, "client_s": seq_s,
+                         "batched_s": batched_s, "naive_s": naive_s,
+                         "batched_speedup": naive_s / batched_s,
+                         "handle_block_misses": hstats["block_cache_misses"],
+                         "handle_spans": hstats["spans"]},
+            "served": {"requests": LOOKUP_REQUESTS, "keys_per_request": LOOKUP_REQ_BATCH,
+                       "p50_ms": ms(served_lat, 50), "p99_ms": ms(served_lat, 99),
+                       "qps": LOOKUP_REQUESTS / served_s},
+            "server": {k: server_stats[k] for k in ("requests", "p50_ms", "p99_ms",
+                                                    "block_cache_hits", "block_cache_misses")},
+            "sigterm_rc": proc.returncode, "final_stats_requests": final["requests"],
+            "info": info, "growing": growing,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -3975,6 +4582,8 @@ def main() -> None:
     faults, fault_launches = timed("faults", faults_phase, dev, smi_line)
     autoscale, autoscale_launches = timed("autoscale", autoscale_phase, dev, smi_line)
     remote, remote_launches = timed("remote", remote_phase, dev, smi_line)
+    stream, stream_launches = timed("stream", stream_phase, dev, smi_line)
+    lookup = timed("lookup", lookup_phase, smi_line)
     timed("entry", entry_phase, dev)
     torch.cuda.synchronize()
     seconds["total"] = time.perf_counter() - t0
@@ -3986,7 +4595,8 @@ def main() -> None:
              + coll_launches[row["name"]] + tele_launches[row["name"]]
              + shard_launches[row["name"]] + dsserve_launches[row["name"]]
              + fault_launches[row["name"]] + autoscale_launches[row["name"]]
-             + remote_launches[row["name"]])
+             + remote_launches[row["name"]] + stream_launches[row["name"]]
+             + examples["train_online_fm"]["launches"][row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -4011,6 +4621,8 @@ def main() -> None:
     print(json.dumps({"faults": faults}))
     print(json.dumps({"autoscale": autoscale}))
     print(json.dumps({"remote": remote}))
+    print(json.dumps({"stream": stream}))
+    print(json.dumps({"lookup": lookup}))
     print(json.dumps({"phase_seconds": seconds}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ frames into v1 frames first.
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Iterator, List, Optional, Tuple
 
@@ -86,16 +87,28 @@ def _aligned_magic_positions(payload: bytes) -> np.ndarray:
     return (np.nonzero(words == KMAGIC)[0] * 4).astype(np.int64)
 
 
+def _fsync_stream(stream) -> None:
+    """fsync the file under a Stream; a sink with no durable file
+    descriptor (memory, a pipe) is left as it is."""
+    fp = getattr(stream, "_fp", stream)
+    try:
+        os.fsync(fp.fileno())
+    except (AttributeError, OSError, ValueError):
+        pass
+
+
 class RecordIOWriter:
     """Frame writer (recordio.h:38-115) onto a binary stream. With a
     ``codec`` (a name or an ``io/codec.py`` Codec), records are buffered
     and written as compressed blocks of about ``block_bytes`` raw framed
     bytes; ``flush()`` (or ``close()``) writes the last partial block.
-    Without one the output is plain v1 frames."""
+    Without one the output is plain v1 frames. ``fsync`` is the default
+    durability of ``commit()``."""
 
     def __init__(self, stream, codec=None, level: Optional[int] = None,
-                 block_bytes: int = DEFAULT_BLOCK_BYTES) -> None:
+                 block_bytes: int = DEFAULT_BLOCK_BYTES, fsync: bool = False) -> None:
         self.stream = stream
+        self.fsync = fsync
         self.except_counter = 0  # magic collisions escaped
         self.bytes_written = 0
         self.records_written = 0  # records written out, not the buffered ones
@@ -209,6 +222,23 @@ class RecordIOWriter:
         self.flush_block()
         self.stream.flush()
 
+    def commit(self, fsync: Optional[bool] = None) -> Tuple[int, int]:
+        """Seal the pending block, flush the data (and the index of an
+        indexed writer), fsync when ``fsync`` (None: the constructor's
+        policy) says so, and return the ``(bytes, records)`` watermark: the
+        prefix a concurrent reader may read. The pending block is sealed
+        first, so the watermark lands on a frame boundary."""
+        self.flush_block()
+        self.stream.flush()
+        do_sync = self.fsync if fsync is None else bool(fsync)
+        self._commit_sidecar(do_sync)
+        if do_sync:
+            _fsync_stream(self.stream)
+        return self.bytes_written, self.records_written
+
+    def _commit_sidecar(self, do_sync: bool) -> None:
+        pass  # the plain writer has no index
+
     def close(self) -> None:
         """``flush()``; the stream stays the caller's."""
         self.flush()
@@ -224,8 +254,9 @@ class IndexedRecordIOWriter(RecordIOWriter):
     bytes, so the data stream must start at byte 0 of its file."""
 
     def __init__(self, stream, index_stream, codec=None, level: Optional[int] = None,
-                 block_bytes: int = DEFAULT_BLOCK_BYTES) -> None:
-        super().__init__(stream, codec=codec, level=level, block_bytes=block_bytes)
+                 block_bytes: int = DEFAULT_BLOCK_BYTES, fsync: bool = False) -> None:
+        super().__init__(stream, codec=codec, level=level, block_bytes=block_bytes,
+                         fsync=fsync)
         try:
             pos = stream.tell()
         except (OSError, AttributeError, Error):
@@ -263,6 +294,12 @@ class IndexedRecordIOWriter(RecordIOWriter):
     def flush(self) -> None:
         super().flush()
         self.index_stream.flush()
+
+    def _commit_sidecar(self, do_sync: bool) -> None:
+        # every committed record's index line is out with the data
+        self.index_stream.flush()
+        if do_sync:
+            _fsync_stream(self.index_stream)
 
 
 class RecordIOReader:

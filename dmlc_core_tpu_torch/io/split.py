@@ -29,8 +29,9 @@ other filesystem (``s3://``, ``http(s)://``, ``fault://``, ``mem://``,
 such files go through the concurrent span fetcher (``io/spanfetch.py``).
 The index of an indexed split may be remote too. ``io_stats()`` carries
 the split's ``retries``, ``backoff_secs``, ``faults_injected`` and
-``reopens`` since its construction. The stream sources are not ported:
-``create`` refuses them.
+``reopens`` since its construction. ``create`` follows a live stream
+(``stream/source.py``) for ``type="stream"``, ``&stream=1`` or a
+``…/manifest.json`` URI.
 """
 
 from __future__ import annotations
@@ -919,6 +920,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         self._skip_next = skip_records
         self._index_uri = index_uri
         self._index_loaded = False
+        # the index's key column in record order, once loaded: the point
+        # reads of io/lookup.py resolve keys through it
+        self._index_keys: Optional[np.ndarray] = None
         self._compressed = False
         self._cache_key: object = None
         self.index_begin = self.index_end = 0
@@ -933,6 +937,7 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         data = (_load_index_cached(skey) if skey is not None
                 else _load_index_uri(self._index_uri, total))
         self._index_loaded = True
+        self._index_keys = data.get("keys")
         if "offs" in data:
             self._index_offs = data["offs"]
             self._index_sizes = data["sizes"]
@@ -2137,11 +2142,56 @@ def fileset_signature(data_uri: str, index_uri: Optional[str] = None,
     ).hexdigest()
 
 
-# URI options ``create`` reads: those of an indexed split, and
-# ``shuffle_parts``/``seed`` of the macro-shuffle over any split
+# URI options ``create`` reads: those of an indexed split,
+# ``shuffle_parts``/``seed`` of the macro-shuffle over any split, and
+# ``stream`` (a live stream's directory); a stream takes STREAM_OPTIONS
 INDEXED_OPTIONS = ("index", "shuffle", "seed", "epoch", "skip_records",
                    "batch_size", "window", "merge_gap", "legacy_shuffle")
-SPLIT_OPTIONS = INDEXED_OPTIONS + ("shuffle_parts", "dynamic_shards")
+SPLIT_OPTIONS = INDEXED_OPTIONS + ("shuffle_parts", "dynamic_shards", "stream")
+STREAM_OPTIONS = ("stream", "shuffle", "seed", "window", "batch_size", "dynamic_shards")
+
+
+def is_stream_uri(uri: str, type: str = "recordio") -> bool:
+    """Does ``create`` follow ``uri`` as a live stream: ``type="stream"``,
+    ``&stream=1``, or a path that names a stream's ``manifest.json``?"""
+    from ..stream.manifest import MANIFEST_NAME  # stream/ imports this module
+
+    spec = URISpec(uri)
+    return (type == "stream" or bool(uri_int(spec.args, "stream", 0))
+            or spec.uri.rstrip("/").endswith("/" + MANIFEST_NAME))
+
+
+def _create_stream(spec: URISpec, part_index: int, num_parts: int, shuffle, seed: int,
+                   batch_size: Optional[int], threaded: bool, window: Optional[int]):
+    """The stream branch of ``create``: a ``StreamSource`` over the
+    stream's directory, with the JAX package's checks (no #cachefile;
+    a static follow is one reader)."""
+    from ..stream.manifest import MANIFEST_NAME
+    from ..stream.source import StreamSource  # stream/ imports this module
+
+    check(not spec.cache_file, "a #cachefile would freeze a growing stream's first "
+          "read; streams are followed live, not cached")
+    unknown = sorted(set(spec.args) - set(STREAM_OPTIONS))
+    if unknown:
+        raise Error(f"URI options {unknown} do not apply to a stream (it takes "
+                    f"{list(STREAM_OPTIONS)})")
+    dir_uri = spec.uri.rstrip("/")
+    if dir_uri.endswith("/" + MANIFEST_NAME):
+        dir_uri = dir_uri[:-(len(MANIFEST_NAME) + 1)]
+    dynamic = bool(uri_int(spec.args, "dynamic_shards", 0))
+    check(dynamic or (part_index == 0 and num_parts == 1),
+          "a static stream follow drains everything (one reader); multi-worker "
+          "streaming uses &dynamic_shards=1 leased micro-shards")
+    if shuffle is None:
+        shuffle = spec.args.get("shuffle", "0")
+    return StreamSource(
+        dir_uri, shuffle=normalize_shuffle(shuffle),
+        seed=seed if seed else uri_int(spec.args, "seed", 0),
+        window=window if window is not None else uri_int(spec.args, "window", 8192,
+                                                         minimum=1),
+        batch_size=(batch_size if batch_size is not None
+                    else uri_int(spec.args, "batch_size", 256)),
+        dynamic=dynamic, threaded=threaded)
 
 
 def create(
@@ -2163,10 +2213,13 @@ def create(
 ):
     """Split factory for local files (reference InputSplit::Create,
     src/io.cc:81-130). ``type``: 'text' (LineSplitter; the URI ``-`` is
-    standard input, ``SingleFileSplit``), 'recordio' (RecordIOSplitter)
-    or 'indexed_recordio' (IndexedRecordIOSplitter, which 'recordio'
-    becomes when an index is given). Options ride the URI as well, a
-    keyword argument winning over the URI:
+    standard input, ``SingleFileSplit``), 'recordio' (RecordIOSplitter),
+    'indexed_recordio' (IndexedRecordIOSplitter, which 'recordio'
+    becomes when an index is given) or 'stream' (``StreamSource`` over a
+    live stream's directory, as for ``&stream=1`` or a path ending in
+    ``/manifest.json``; it takes ``shuffle``, ``seed``, ``window``,
+    ``batch_size`` and ``dynamic_shards``, and one reader unless leased).
+    Options ride the URI as well, a keyword argument winning over the URI:
     ``?index=<uri>&shuffle=0|record|batch|window&seed=S&epoch=E&
     skip_records=N&batch_size=B&window=W&merge_gap=G&legacy_shuffle=1``
     for an indexed split, ``?shuffle_parts=N&seed=S`` for the
@@ -2188,6 +2241,9 @@ def create(
           f"invalid shard ({part_index}, {num_parts}): need "
           "0 <= part_index < num_parts")
     spec = URISpec(uri, part_index, num_parts)
+    if is_stream_uri(uri, type):
+        return _create_stream(spec, part_index, num_parts, shuffle, seed, batch_size,
+                              threaded, window)
     args = spec.args
     unknown = sorted(set(args) - set(SPLIT_OPTIONS))
     if unknown:

@@ -700,7 +700,9 @@ class FusedEllRowRecBatches(_RingBatches):
     One local v1 file is read as raw mmap windows of the part's byte
     range. A URI with ``?index=``, ``?shuffle_parts=`` or
     ``&dynamic_shards=1`` (a ``DynamicShardSource`` leasing micro-shards
-    from the tracker), a file set and a file whose head holds compressed
+    from the tracker), a live stream's ``…/manifest.json?…`` or
+    ``dir?stream=1`` (a ``StreamSource``; a bare manifest path without a
+    query raises), a file set and a file whose head holds compressed
     blocks go through ``io.split.create``: a windowed shuffle
     (``shuffle=record|batch|window``) hands ``(buf, starts, sizes)`` views of each batch's
     records in permutation order to ``dmlc_parse_rowrec_gather_ell``,
@@ -722,6 +724,11 @@ class FusedEllRowRecBatches(_RingBatches):
         # the split refuses options of an indexed read without an index;
         # a seed alone changes nothing of a plain read
         routed = bool(set(split_args) - {"seed"})
+        if io_split.is_stream_uri(uri) and not routed:
+            # the JAX producer maps the manifest's JSON as RecordIO and
+            # fails on its first frame
+            raise Error(f"{uspec.uri} names a live stream's manifest: follow it with "
+                        "a query, e.g. '?stream=1' or '?shuffle=window&window=N'")
         self.path = _one_local_file(uspec.uri)
         self._mmap = not (routed or self.path is None or _rec_file_compressed(self.path))
         super().__init__(spec, ring)
@@ -1087,6 +1094,9 @@ def plain_batches(
     if fmt == "rowrec":
         uspec = URISpec(uri, part_index, num_parts)
         check(not uspec.cache_file, "plain rowrec batches read no #cachefile")
+        check(not io_split.is_stream_uri(uri),
+              "plain rowrec batches read files, not a live stream; read the sealed "
+              "stream's shards, or ell_batches over the stream")
         args = parser_options("rowrec", uspec.args)
         check("dynamic_shards" not in args,
               "plain rowrec batches read a static part; the static part "

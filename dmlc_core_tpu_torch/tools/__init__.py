@@ -5,9 +5,11 @@ arguments and output:
 
 - ``info``: the runtime feature report (``build_info()``: the parse core,
   codecs, env flags, torch, CUDA and each device, the CUDA kernels'
-  source hash). ``info <uri>`` describes an indexed shard through the
-  point-lookup layer, which is not ported (``ROADMAP.md`` §1 item 7d):
-  it raises.
+  source hash). ``info <uri>`` adds an indexed shard's key count and
+  block geometry (``io/lookup.py``), or for a stream shard still being
+  written its committed prefix and uncommitted tail.
+- ``serve``: the point-lookup daemon over one indexed shard
+  (``io/lookup.py``), with ``/metrics``.
 - ``trace dump|merge|report``: the flight recorder's operator surface.
 - ``top``: a live dashboard over the tracker's ``/metrics.json?window=``
   (with the shard queue depth of a dynamic-shard job).
@@ -23,8 +25,7 @@ arguments and output:
 
 The other subcommands (``ls``, ``cat``, ``cp``, ``split``, ``recordio``,
 ``rowrec``, ``recompress``, ``dump``, ``ckpt``) wait for ``ROADMAP.md``
-§1 item 9b, and ``serve`` for item 7d. Importing
-this module loads no torch.
+§1 item 9b. Importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -41,18 +42,73 @@ __all__ = ["main"]
 
 def _cmd_info(args) -> int:
     """Runtime feature report (build_info): the parse core, env flags,
-    the torch runtime and the kernels, as JSON."""
+    the torch runtime and the kernels, as JSON. With a shard URI, also
+    the indexed shard's key count and block geometry (``RecordLookup.
+    describe``), or, for a shard still being written (a stream's live
+    generation), its whole-frame prefix with the tail in flight reported
+    as uncommitted."""
     import json
 
     from .. import build_info
 
+    report = build_info()
     if getattr(args, "uri", None):
-        raise Error(
-            "tools info <uri> describes an indexed shard through the "
-            "point-lookup layer (io/lookup.py), which is not ported "
-            "(ROADMAP.md §1 item 7d)"
-        )
-    print(json.dumps(build_info(), indent=2))
+        from ..io.lookup import RecordLookup
+
+        handle = None
+        try:
+            handle = RecordLookup(args.uri, args.index or None)
+            report["shard"] = handle.describe()
+        except (Error, OSError, ValueError):
+            # a growing shard: its index tail or last block may be mid-write
+            from ..stream import manifest as stream_manifest
+
+            scan = stream_manifest.scan_committed_prefix(args.uri)
+            scan["status"] = f"growing (tail_bytes={scan['tail_bytes']} uncommitted)"
+            report["shard"] = scan
+        finally:
+            if handle is not None:
+                handle.close()
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def _cmd_serve(args) -> int:
+    """The point-lookup daemon (``io/lookup.py``): batched ``lookup(keys)``
+    over one indexed shard on a TCP request loop, with p50/p99 latency
+    and qps on ``/metrics``. ``--warm N`` prefetches the shard's N hottest
+    blocks first; ``--port-file`` writes a JSON readiness file. SIGTERM
+    ends it with rc 0 after a last JSON stats line on stderr."""
+    import json
+    import signal
+
+    from ..dsserve.server import write_port_file
+    from ..io.lookup import LookupServer, RecordLookup
+    from ..telemetry import tracing
+
+    tracing.set_process_label("lookup-daemon")
+    handle = RecordLookup(args.uri, args.index or None)
+    if args.warm:
+        print(f"warmed {handle.warm(max_blocks=args.warm)} blocks", file=sys.stderr)
+    server = LookupServer(handle, host=args.host, port=args.port,
+                          metrics_port=args.metrics_port)
+    if args.port_file:
+        write_port_file(args.port_file, args.host, server.port)
+    signal.signal(signal.SIGTERM, lambda *_a: server.close())
+    print(f"lookup daemon pid {os.getpid()} serving {args.host}:{server.port} over "
+          f"{args.uri}" + (f" (/metrics on 127.0.0.1:{args.metrics_port})"
+                           if args.metrics_port else ""), file=sys.stderr)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+        # the stats before handle.close(): their shard section reads
+        # through the handle
+        stats = server.stats()
+        handle.close()
+        print(json.dumps(stats), file=sys.stderr)
     return 0
 
 
@@ -603,18 +659,43 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     info = sub.add_parser(
         "info",
-        help="runtime feature report (JSON); a shard URI raises "
-             "(point lookups are not ported)",
+        help="runtime feature report (JSON); with a shard URI, also "
+             "its index key count + block geometry",
     )
     info.add_argument(
         "uri", nargs="?", default="",
-        help="indexed .rec URI to describe (not ported)",
+        help="optional indexed .rec URI to describe",
     )
     info.add_argument(
         "--index", default="",
         help="index sidecar URI (default <uri>.idx)",
     )
     info.set_defaults(fn=_cmd_info)
+
+    sv = sub.add_parser(
+        "serve", help="low-latency point-read daemon over an indexed shard"
+    )
+    sv.add_argument("uri", help="indexed .rec URI to serve")
+    sv.add_argument(
+        "--index", default="", help="index sidecar URI (default <uri>.idx)"
+    )
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument(
+        "--port", default=0, type=int, help="TCP port (0 = any free)"
+    )
+    sv.add_argument(
+        "--port-file", default="",
+        help="write a JSON readiness file naming the bound endpoint",
+    )
+    sv.add_argument(
+        "--metrics-port", default=0, type=int,
+        help="loopback /metrics port (0 = off)",
+    )
+    sv.add_argument(
+        "--warm", default=0, type=int,
+        help="prefetch the N hottest blocks before serving (0 = off)",
+    )
+    sv.set_defaults(fn=_cmd_serve)
 
     tr = sub.add_parser(
         "trace", help="flight-recorder dump/merge/report (Perfetto)"

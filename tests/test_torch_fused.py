@@ -11,6 +11,8 @@ within 1e-5 relative) and Criteo libsvm → ELL → FactorizationMachine
 (tolerance of test_torch_slice.py: losses 1e-5 relative, parameters 1e-4
 of max |param|)."""
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -348,15 +350,37 @@ def test_overflow_error_policy_raises(tmp_path, layout):
     (lambda p, s, d: dense_batches(p, s), "dense"),
     (lambda p, s, d: dense_batches(p + "?format=csv&delimiter=é", d), "ASCII"),
     (lambda p, s, d: dense_batches(p + "?format=csv&dtype=int32", d), "float32"),
+    (lambda p, s, d: ell_batches(os.path.dirname(p) + "/s?stream=1&shuffle=window&window=4",
+                                 s), "stream"),
+    (lambda p, s, d: ell_batches(os.path.dirname(p) + "/s/manifest.json", s),
+     "names a live stream"),
 ])
 def test_factories_refuse_what_the_port_lacks(tmp_path, call, match):
     """What the port lacks raises (a rowrec ``#cachefile`` as in the JAX
     package). A file set, once refused, reads since slice 7: its batches
-    equal the JAX fused producer's."""
+    equal the JAX fused producer's. A live stream, refused until slice
+    14, is followed with a query: its batches equal the JAX producer's; a
+    bare manifest path (whose JSON the JAX producer maps as RecordIO)
+    raises by name."""
     p = tmp_path / "x.rec"
     write_rec(p, 10, seed=7)
     spec = BatchSpec(batch_size=4, max_nnz=2)
     dspec = BatchSpec(batch_size=4, layout="dense", num_features=3)
+    if match in ("stream", "names a live stream"):
+        from dmlc_core_tpu.stream import StreamWriter as JaxWriter
+        from dmlc_core_tpu_torch.io.recordio import RecordIOReader
+        from dmlc_core_tpu_torch.io.stream import FileStream
+
+        (tmp_path / "s").mkdir()
+        with FileStream(str(p), "r") as f, JaxWriter(str(tmp_path / "s"), codec=None,
+                                                     rotate_bytes=64) as w:
+            for rec in iter(RecordIOReader(f).next_record, None):
+                w.append(bytes(rec))
+    if match == "stream":
+        uri = f"{tmp_path}/s?stream=1&shuffle=window&window=4"
+        want = snapshot(jax_ell_batches(uri, JaxSpec(batch_size=4, max_nnz=2)))
+        assert_same_stream(snapshot(call(str(p), spec, dspec)), want)
+        return
     if match == "multi-file":
         want = snapshot(jax_ell_batches(f"{p};{p}", JaxSpec(batch_size=4, max_nnz=2)))
         assert_same_stream(snapshot(call(str(p), spec, dspec)), want)

@@ -92,12 +92,19 @@ TRACKER_MODULES = [
     # is a tools process)
     "dmlc_core_tpu_torch.io.cloudfs",
     "dmlc_core_tpu_torch.io.blockcache",
+    # live streams and point lookups: a stream writer and a lookup server
+    # (tools serve) are processes without torch
+    "dmlc_core_tpu_torch.stream",
+    "dmlc_core_tpu_torch.stream.manifest",
+    "dmlc_core_tpu_torch.stream.writer",
+    "dmlc_core_tpu_torch.stream.source",
+    "dmlc_core_tpu_torch.io.lookup",
 ]
 
 # the modules of the indexed, shuffled path, the checkpoints, the example
-# ports, the codec layer, the tracker, dsserve, autoscale, the fault layer,
-# the remote filesystems and the block cache: each must be among those
-# imported
+# ports (the online FM too), the codec layer, the tracker, dsserve,
+# autoscale, the fault layer, the remote filesystems, the block cache, the
+# streams and the point lookups: each must be among those imported
 NEW_MODULES = {
     "dmlc_core_tpu_torch.checkpoint",
     "dmlc_core_tpu_torch.io.stream",
@@ -112,6 +119,7 @@ NEW_MODULES = {
     "dmlc_core_tpu_torch.io.codec",
     "dmlc_core_tpu_torch.utils.env",
     "dmlc_core_tpu_torch.io.retry",
+    "dmlc_core_tpu_torch.examples.train_online_fm",
     *TRACKER_MODULES,
 }
 

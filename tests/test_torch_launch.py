@@ -697,3 +697,111 @@ def test_higgs_trains_each_shard_and_only_rank_zero_writes(tmp_path):
     for k in params[0].files:
         assert saved[k].tobytes() == params[0][k].tobytes()
         assert not np.array_equal(params[1][k], params[0][k])
+
+
+# -- a live stream followed by two workers under the launcher -------------------
+
+_STREAM_WORKER = """
+import json, os, sys, time, zlib
+sys.path.insert(0, {repo!r})
+from dmlc_core_tpu_torch.io import split as io_split
+from dmlc_core_tpu_torch.tracker.client import RabitWorker
+w = RabitWorker()
+rank = w.start()
+sp = io_split.create(
+    {d!r} + "/manifest.json?dynamic_shards=1&shuffle=window&window=64&seed=9",
+    threaded=False)
+events = []
+sp.on_shard_done = lambda gen, shard, status: events.append([gen, shard, status])
+by_gen = {{}}
+theta = rows = 0
+while True:
+    rec = sp.next_record()
+    if rec is None:
+        break
+    by_gen.setdefault(str(sp.generation), []).append(zlib.crc32(rec))
+    theta += zlib.crc32(rec)  # an order-free integer "gradient"
+    rows += 1
+    time.sleep(0.002)  # the drain spans a few sample intervals
+sp.close()
+with open(os.path.join({out!r}, "worker-%d.json" % rank), "w") as f:
+    json.dump({{"rank": rank, "rows": rows, "theta": theta, "by_gen": by_gen,
+               "events": events}}, f)
+w.heartbeat()  # ships the ring's samples, the stream.* gauges among them
+w.shutdown()
+"""
+
+N_DRILL = 600
+
+
+def test_submit_run_streaming_rotation_exactly_once(tmp_path):
+    """Two port workers under the port's submit follow a stream whose
+    writer rotates mid-job (``&dynamic_shards=1``): the records of each
+    generation, and their order-free integer sum, equal the sealed
+    shards'; every micro-shard is recorded once; the end-of-job report
+    carries the stream lag that ``tools top`` renders."""
+    import threading
+    import zlib  # noqa: L009 (crc32 as an order-free fold, not compression)
+
+    from dmlc_core_tpu_torch.stream import StreamWriter
+    from dmlc_core_tpu_torch.stream import manifest as sm
+    from dmlc_core_tpu_torch.telemetry import timeseries as ts
+    from dmlc_core_tpu_torch.tools import _render_top, _top_model
+
+    def payload(i):
+        return (b"rec-%08d|" % i) * (1 + i % 4)
+
+    d = tmp_path / "stream"
+    out_dir = tmp_path / "out"
+    d.mkdir()
+    out_dir.mkdir()
+    report_path = tmp_path / "metrics_report.json"
+    script = tmp_path / "worker.py"
+    script.write_text(_STREAM_WORKER.format(repo=str(REPO), d=str(d), out=str(out_dir)))
+
+    def produce():
+        with StreamWriter(str(d), codec=None, rotate_bytes=4096, commit_records=40) as w:
+            for i in range(N_DRILL):
+                w.append(payload(i))
+                time.sleep(0.004)  # the rotations land while the workers drain
+
+    t = threading.Thread(target=produce, daemon=True)
+    t.start()
+    try:
+        run = run_job([sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
+                       "--cluster", "local", "--num-workers", "2", "--host-ip",
+                       "127.0.0.1", sys.executable, str(script)],
+                      dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu",
+                           DMLC_TS_INTERVAL="0.1",
+                           DMLC_METRICS_REPORT=str(report_path)), str(REPO))
+    finally:
+        t.join(RUN_S)
+    assert not t.is_alive()
+    assert run.returncode == 0, run.stderr[-3000:]
+    outs = [json.loads(p.read_text()) for p in sorted(out_dir.iterdir())]
+    assert len(outs) == 2 and {o["rank"] for o in outs} == {0, 1}
+    m = sm.read_manifest(str(d))
+    assert m["eos"] is True and len(m["sealed"]) >= 3, "the writer never rotated mid-job"
+    sealed_by_gen, nxt = {}, 0
+    for ent in m["sealed"]:
+        sealed_by_gen[str(ent["gen"])] = sorted(
+            zlib.crc32(payload(i)) for i in range(nxt, nxt + ent["records"]))
+        nxt += ent["records"]
+    assert nxt == N_DRILL
+    assert sum(o["rows"] for o in outs) == N_DRILL
+    for gen, want in sealed_by_gen.items():
+        got = sorted(c for o in outs for c in o["by_gen"].get(gen, []))
+        assert got == want, f"generation {gen} content drifted"
+    assert sum(o["theta"] for o in outs) == sum(sum(v) for v in sealed_by_gen.values())
+    recorded = [tuple(e[:2]) for o in outs for e in o["events"] if e[2] == "recorded"]
+    assert len(recorded) == len(set(recorded)) > 0, "a micro-shard double-committed"
+    assert {g for g, _ in recorded} == {int(g) for g in sealed_by_gen}
+    report = json.loads(report_path.read_text())
+    per_rank = report["timeseries"]["per_rank"]
+    assert {"0", "1"} <= set(per_rank)
+    views = {r: ts.windowed(per_rank[r], 120.0) for r in per_rank}
+    assert [r for r in ("0", "1") if "stream_lag_seconds" in views[r]["derived"]], \
+        "no rank shipped stream.* gauges"
+    model = _top_model({"windowed": {"per_rank": views,
+                                     "cluster": ts.merge_windows(views)}}, 120.0)
+    assert "stream lag" in _render_top(model, "127.0.0.1:9999")

@@ -400,15 +400,32 @@ def test_index_parse_is_shared_and_rereads_a_rewritten_file(tmp_path):
     ("{p}?index={i}&window=0&shuffle=window", ">= 1"),
     ("{p};{p}?index={i}", "multi-file"),
     ("s3://b/k?index={i}", "remote"),
+    ("{s}?stream=1&shuffle=window&window=16&seed=2", "stream"),
+    ("{s}/manifest.json", "stream"),
 ])
 def test_create_refuses_what_the_port_lacks(indexed, tmp_path, monkeypatch, uri, match):
     """What the port lacks raises. A ``#cachefile`` and a file set, once
     refused, read since slice 7: the records equal the JAX package's, and
     so do the cache files the two write. A remote file, once refused,
     reads since slice 13: an ``s3://`` object (a fake S3 on the loopback)
-    with a local index gives the JAX split's records."""
-    p, idx, _ = indexed
-    uri = uri.format(p=p, i=idx)
+    with a local index gives the JAX split's records. A live stream
+    (``?stream=1``, ``…/manifest.json``), refused until slice 14, is
+    followed: the records of a stream of the fixture's records, written by
+    the JAX writer, equal the JAX split's, in two epochs."""
+    p, idx, records = indexed
+    uri = uri.format(p=p, i=idx, s=tmp_path / "s")
+    if match == "stream":
+        from dmlc_core_tpu.stream import StreamWriter as JaxWriter
+
+        (tmp_path / "s").mkdir()
+        with JaxWriter(str(tmp_path / "s"), codec="zlib", block_bytes=256,
+                       rotate_bytes=1024, commit_records=20) as w:
+            for r in records:
+                w.append(r)
+        got = drain(split.create(uri, type="recordio"), epochs=2)
+        want = drain(jax_split.create(uri, type="recordio", threaded=False), epochs=2)
+        assert got == want and sorted(got[:len(records)]) == sorted(records)
+        return
     if match == "remote":
         from test_cloudfs import FakeS3Handler
         from test_torch_cloudfs import reset_both, start_s3

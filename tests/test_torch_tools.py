@@ -1,7 +1,8 @@
 """The port's ``python -m dmlc_core_tpu_torch.tools`` (info, trace, top)
 and the tracker's telemetry endpoint, with both packages on the wire:
 ``tools info`` (a copy of tests/test_tools.py::test_info_reports_features
-with the port's torch section), ``info <uri>`` refused, a port worker
+with the port's torch section), ``info <uri>`` against the JAX tool's,
+``tools serve`` as a process answering port and JAX clients, a port worker
 heartbeating to a JAX tracker and a JAX worker to a port tracker with
 ``tools top --once --json`` of each package against each tracker, a
 pinned ``DMLC_METRICS_PORT``, the ``DMLC_METRICS_REPORT`` end-of-job
@@ -9,10 +10,12 @@ report, and ``trace report`` on a recorded file. Every tracker is closed
 and joined with a timeout."""
 
 import json
+import os
 import socket
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import pytest
 
@@ -28,6 +31,7 @@ from dmlc_core_tpu_torch.tracker import client as port_client
 from dmlc_core_tpu_torch.tracker import tracker as port_tracker
 
 JOIN_S = 30
+REPO = Path(__file__).resolve().parent.parent
 TRACKERS = {"port": port_tracker.RabitTracker, "jax": jax_tracker.RabitTracker}
 WORKERS = {"port": port_client.RabitWorker, "jax": jax_client.RabitWorker}
 TOOLS = {"port": tools, "jax": jax_tools}
@@ -78,10 +82,130 @@ def test_package_import_loads_no_torch():
     assert out.stdout.strip() == "False"
 
 
-def test_info_with_a_shard_uri_names_the_roadmap_item(capsys):
-    rc, _, err = run_cli(["info", "corpus.rec"], capsys)
-    assert rc == 1
-    assert "ROADMAP.md §1 item 7" in err
+def test_info_with_a_shard_uri_names_the_roadmap_item(capsys, tmp_path):
+    """``info <uri>``, which named ROADMAP.md §1 item 7d until that item
+    was ported, now describes the shard as the JAX tool does: a missing
+    shard fails alike (rc 1), and an indexed shard's ``shard`` section
+    (key count, block geometry, codec) equals the JAX tool's."""
+    from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_core_tpu_torch.io.stream import FileStream
+
+    missing = str(tmp_path / "corpus.rec")
+    got, want = run_cli(["info", missing], capsys), run_cli(["info", missing], capsys,
+                                                            mod=jax_tools)
+    assert got[0] == want[0] == 1
+    path = str(tmp_path / "shard.rec")
+    with FileStream(path, "w") as f, FileStream(path + ".idx", "w") as fi:
+        w = IndexedRecordIOWriter(f, fi, codec="zlib", block_bytes=256)
+        for i in range(90):
+            w.write_record(b"r%04d" % i * (1 + i % 5), key=10 * i)
+        w.flush()
+    rc, out, _ = run_cli(["info", path], capsys)
+    jrc, jout, _ = run_cli(["info", path], capsys, mod=jax_tools)
+    assert rc == jrc == 0
+    shard = json.loads(out)["shard"]
+    assert shard == json.loads(jout)["shard"]
+    assert shard["records"] == shard["keys"] == 90 and shard["codec"] == "zlib"
+    assert shard["blocks"] > 1
+
+
+def _serve(tmp_path, uri, pkg="dmlc_core_tpu_torch", extra=()):
+    """``python -m <pkg>.tools serve uri --port-file …`` as a subprocess;
+    returns (proc, port) once the port file names the endpoint."""
+    pf = tmp_path / f"{pkg}.port.json"
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{pkg}.tools", "serve", uri, "--port-file", str(pf), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(REPO))
+    deadline = time.monotonic() + 60
+    while not pf.exists():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            out, err = proc.communicate(timeout=30)
+            raise AssertionError(f"serve never wrote its port file: {err[-2000:]}")
+        time.sleep(0.05)
+    return proc, json.loads(pf.read_text())["port"]
+
+
+def _stop(proc):
+    """SIGTERM; (rc, stderr) within 30 s."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        _, err = proc.communicate(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate(timeout=30)
+        raise AssertionError("serve did not exit on SIGTERM")
+    return proc.returncode, err
+
+
+def _zlib_shard(tmp_path, n=300):
+    from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
+    from dmlc_core_tpu_torch.io.stream import FileStream
+
+    path = str(tmp_path / "served.rec")
+    with FileStream(path, "w") as f, FileStream(path + ".idx", "w") as fi:
+        w = IndexedRecordIOWriter(f, fi, codec="zlib", block_bytes=512)
+        for i in range(n):
+            w.write_record(b"%05d" % i + bytes([i % 256]) * (i % 37), key=i)
+        w.flush()
+    return path
+
+
+def test_serve_answers_lookups_scrapes_metrics_and_exits_on_sigterm(tmp_path):
+    """``tools serve --port-file --metrics-port --warm``: a port client and
+    a JAX client get the in-process handle's bytes (negatives None), the
+    ``/metrics`` scrape has ``dmlc_io_lookup_request_seconds``, and
+    SIGTERM ends it with rc 0 and a last JSON stats line on stderr."""
+    from dmlc_core_tpu.io.lookup import LookupClient as JaxClient
+    from dmlc_core_tpu_torch.io import retry
+    from dmlc_core_tpu_torch.io.lookup import LookupClient, RecordLookup
+
+    path = _zlib_shard(tmp_path)
+    mport = _free_port()
+    proc, port = _serve(tmp_path, path, extra=("--metrics-port", str(mport),
+                                               "--warm", "4"))
+    keys = [0, 5, 299, 1000, 77, 5]
+    h = RecordLookup(path)
+    try:
+        want = h.lookup(keys)
+        for cls in (LookupClient, JaxClient):
+            c = cls("127.0.0.1", port)
+            assert c.lookup(keys) == want and want[3] is None
+            c.close()
+        with retry.request(f"http://127.0.0.1:{mport}/metrics", timeout=30.0) as resp:
+            text = resp.read().decode()
+        assert "dmlc_io_lookup_request_seconds" in text
+    finally:
+        h.close()
+        rc, err = _stop(proc)
+    assert rc == 0, err[-2000:]
+    assert "warmed 4 blocks" in err
+    stats = json.loads(err.strip().splitlines()[-1])
+    assert stats["requests"] == 2 and stats["negatives"] == 2
+    assert stats["shard"]["records"] == 300
+
+
+def test_jax_serve_answers_a_port_client(tmp_path):
+    """The JAX package's ``tools serve`` process answers the port's
+    client with the port handle's bytes."""
+    from dmlc_core_tpu_torch.io.lookup import LookupClient, RecordLookup
+
+    path = _zlib_shard(tmp_path, 120)
+    proc, port = _serve(tmp_path, path, pkg="dmlc_core_tpu")
+    h = RecordLookup(path)
+    try:
+        c = LookupClient("127.0.0.1", port)
+        keys = list(range(0, 130, 7))
+        assert c.lookup(keys) == h.lookup(keys)
+        assert c.stats()["shard"] == h.describe()
+        c.close()
+    finally:
+        h.close()
+        rc, _ = _stop(proc)
+    assert rc == 0
 
 
 @pytest.mark.parametrize("argv", [["cached", "stats"], ["cached", "flush"]])
