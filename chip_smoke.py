@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only parallel,autoscale,autoscale
+
+(``--only``: the builds, then the named phases alone, in that order, each
+line printed as it ends; no kernels line.)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -11,7 +15,7 @@ Phases (any failure exits non-zero and prints no result line):
    against its plain PyTorch version on the card, on inputs with
    duplicate, padding, wrapped-negative and out-of-range indices and
    f32 and f16 values, and again at the edge shapes the kernels' designs
-   branch on (K in {1, 33, 39, 64}, E in {1, 5, 16}, E = 33 and 64 in
+   branch on (K in {1, 33, 39, 64}, E in {1, 5, 8, 16}, E = 33 and 64 in
    chunks of the gradient scatters, B a multiple of no block's rows nor
    B*K of the scatters' tiles), on the scatters' own edge inputs (every
    row naming the same K rows; every entry naming its own row, so a
@@ -184,8 +188,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``dmlc:autoscale_decision`` instants), with at most 2 direction
    changes, and ``tools autoscale replay`` of its report scales up first
    in the expensive phase too; in both runs every (epoch, micro-shard)
-   is trained once with the local producer's batches, no duplicate,
-   K1-K4 once a step, the params within ``PARAM_REL`` of a one-process
+   is trained once with the local producer's batches, each batch's
+   bytes on the device (hashed from the staged tensor after its
+   host-to-device copy) those it was received as, no duplicate, K1-K4
+   once a step, the params within ``PARAM_REL`` of a one-process
    replay. It prints both runs' expensive-phase makespans and their
    ratio, the recv wait share per phase and the controller's spend;
 15. the remote filesystems and the host block cache at the Criteo width
@@ -233,7 +239,25 @@ Phases (any failure exits non-zero and prints no result line):
    SIGTERM ending the server with rc 0 and a last JSON stats line;
    ``tools info`` with the corpus's geometry, and "growing" on a stream's
    live shard with no commit. It runs no kernel;
-18. the ``entry()`` forward on the card against the CPU.
+18. the FM over a rank mesh (``parallel/``) at the Criteo width, each job
+   through the launcher with its ranks on this card, every rank reading
+   the global batches of an indexed rowrec file and staging its own rows
+   (``StagingPipeline(mesh=)``) into ``data_parallel_step``: (a) one rank
+   over NCCL, mesh (1, 1), 32 steps; (b) two ranks over gloo, mesh (1, 2),
+   ``v`` split into two [D, 8] blocks, 32 steps; (c) four ranks over
+   gloo, mesh (2, 2), 16 steps, a sharded ``save_async`` with ``meta`` at
+   step 8; (d) a (1, 2) job that restores (c)'s ``.d`` by template and
+   runs to step 16. Gates: params within ``PARAM_REL`` of a one-process
+   replay of the same global batches ((d): of (c)'s final params), the
+   replicas bit-identical, each rank's K1-K4 once a step and one copy a
+   batch on the packed-shard path; (c)'s ``.d`` the manifest and 4 shard
+   files, each chunk once from its block's replica 0, the manifest last;
+   a restore without a template equal to (c)'s params at step 8 bit for
+   bit, ``restore_meta`` what was saved. It prints each job's step ms per
+   rank and the share of the step its collectives took. Last, the port
+   of ``dryrun_multichip(4)`` on the card (4 gloo ranks, its own small
+   FM on a (2, 2) mesh) and its report;
+19. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -245,7 +269,7 @@ an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
 ``{"telemetry": {...}}``, a ``{"shards": {...}}``, a ``{"dsserve":
 {...}}``, a ``{"faults": {...}}``, an ``{"autoscale": {...}}``, a
 ``{"remote": {...}}``, a ``{"stream": {...}}``, a ``{"lookup":
-{...}}`` and a ``{"phase_seconds": {...}}`` line, the
+{...}}``, a ``{"parallel": {...}}`` and a ``{"phase_seconds": {...}}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -283,12 +307,13 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 SRC = "dmlc_core_tpu_torch/ops/csrc/ell_kernels.cu"
 # (B, K, E, D) of the edge inputs beside the slice's: K below, at and
-# above a warp and the Criteo width, E scalar-lane (1, 5) and 16-byte-lane
+# above a warp and the Criteo width, E scalar-lane (1, 5), the half of the
+# Criteo E that each rank of a (., 2) mesh holds (8), and 16-byte-lane
 # (16), E in more than one of K4's 16-column chunks with a scalar (33) and
 # a float4 (64) flush, B a multiple of neither K1's 16 rows a block nor
 # K3's 8, and B*K a multiple of none of K2's and K4's 256-entry tiles
 KERNEL_NAMES = ("ell_matvec_fwd", "ell_matvec_bwd", "fm_pair_fwd", "fm_pair_bwd")
-EDGE_SHAPES = [(1037, k, e, 1000) for k in (1, 33, 39, 64) for e in (1, 5, 16)]
+EDGE_SHAPES = [(1037, k, e, 1000) for k in (1, 33, 39, 64) for e in (1, 5, 8, 16)]
 EDGE_SHAPES += [(1037, 39, e, 1000) for e in (33, 64)]
 # the gradient scatters' own edge inputs (see scatter_inputs)
 SCATTER_KINDS = ("contention", "distinct")
@@ -500,6 +525,7 @@ def kernel_phase(dev, flush):
     v = torch.randn(D, E, generator=gen, device=dev) * 0.01
     g = torch.randn(B, generator=gen, device=dev)
     err = dict.fromkeys(KERNEL_NAMES, 0.0)
+    by_e = {}  # the edge shapes' largest errors by E
     for f16 in (False, True):
         tag = "f16" if f16 else "f32"
         idx, val = edge_inputs(rng, dev, f16)
@@ -510,13 +536,17 @@ def kernel_phase(dev, flush):
             check_kernels(idx_e, val_e, torch.randn(d, generator=gen, device=dev),
                           torch.randn(d, e, generator=gen, device=dev),
                           torch.randn(b, generator=gen, device=dev),
-                          f"{tag} B={b} K={k} E={e}", err)
+                          f"{tag} B={b} K={k} E={e}",
+                          by_e.setdefault(e, dict.fromkeys(KERNEL_NAMES, 0.0)))
         for kind in SCATTER_KINDS:
             idx_s, val_s, d = scatter_inputs(rng, dev, f16, kind)
             check_kernels(idx_s, val_s, torch.randn(d, generator=gen, device=dev),
                           torch.randn(d, E, generator=gen, device=dev), g,
                           f"{tag} {kind}", err)
     torch.cuda.synchronize()
+    for e_err in by_e.values():
+        for name in KERNEL_NAMES:
+            err[name] = max(err[name], e_err[name])
 
     # timing inputs: the main path's shape and data (f32 values)
     idx_np, val_np = criteo_rows(rng, B, D)
@@ -563,6 +593,7 @@ def kernel_phase(dev, flush):
         out.append({
             "name": name, "route": "cuda", "source": SRC, "replaces": replaces,
             "launches": 0, "max_abs_err": err[name],
+            "max_abs_err_by_e": {str(e): by_e[e][name] for e in sorted(by_e)},
             "ms": ms, "plain_ms": time_ms(plain, flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(lib, flush),
@@ -1878,7 +1909,8 @@ def dispatch_alone(rec, spec, dev, n: int = 64):
     for _ in range(n):
         slot.wait()
         t0 = time.perf_counter()
-        buf = slot.fill(packed)
+        buf = slot.get(packed.nbytes)
+        buf.copy_(torch.from_numpy(packed))
         t1 = time.perf_counter()
         with torch.cuda.stream(stream):
             u8 = torch.empty(buf.numel(), dtype=torch.uint8, device=dev)
@@ -3705,7 +3737,7 @@ recv_key = 'trace.stall_seconds{{stage="dsserve_recv_wait"}}'
 recv = lambda: reg.snapshot()["counters"].get(recv_key, 0.0)
 w, joined = RabitWorker(), False
 _build.reset_launches()
-trained, epochs, losses, step_s = [], [], [], []
+trained, staged, epochs, losses, step_s = [], [], [], [], []
 last_hb, epoch = 0.0, 0
 for phase, n, inner in (("cheap", n_cheap, cheap_uri), ("expensive", n_slow, slow_uri)):
     for _ in range(n):
@@ -3716,6 +3748,11 @@ for phase, n, inner in (("cheap", n_cheap, cheap_uri), ("expensive", n_slow, slo
         pipe = StagingPipeline(src, device=dev)
         t0, r0, wall0, steps = time.perf_counter(), recv(), time.time(), 0
         for batch in pipe:
+            # the batch's digest again, from its bytes on the device after
+            # the host-to-device copy (the u8 tensor its views share)
+            u8 = torch.empty(0, dtype=torch.uint8, device=dev).set_(
+                batch["labels"].untyped_storage())
+            staged.append(hashlib.blake2b(u8.cpu().numpy()).hexdigest())
             t1 = time.perf_counter()
             losses.append(float(model.sgd_step(batch, lr=lr)))
             sync()
@@ -3743,7 +3780,7 @@ w.heartbeat()
 np.savez(out + ".npz", **{{n: p.detach().cpu().numpy() for n, p in model.params().items()}})
 with open(out + ".json", "w") as f:
     json.dump({{"launches": launches, "losses": losses, "step_s": step_s, "epochs": epochs,
-               "trained": trained}}, f)
+               "trained": trained, "staged": staged}}, f)
 w.shutdown()
 """
 
@@ -3844,6 +3881,11 @@ def autoscale_run(tag: str, res, report, instants, wall, local, batches, dev):
         bad = sorted(k for k in set(by_shard) | set(local) if by_shard.get(k) != local.get(k))
         fail(f"autoscale {tag}: (epoch, micro-shard) batches differ from the local "
              f"producer's: {bad[:8]}")
+    received = [h for _e, _s, h in res["trained"]]
+    if res["staged"] != received:
+        bad = [i for i, (a, b) in enumerate(zip(res["staged"], received)) if a != b]
+        fail(f"autoscale {tag}: {len(bad)} of {len(received)} batches changed between their "
+             f"receipt and the device (first at step {bad[:1]}; {len(res['staged'])} staged)")
     ledger = report.get("shards") or {}
     if ledger.get("duplicates", 0) != 0:
         fail(f"autoscale {tag}: duplicates in the ledger: {ledger}")
@@ -3867,7 +3909,7 @@ def autoscale_run(tag: str, res, report, instants, wall, local, batches, dev):
                       "recv_wait_share": sum(ep["recv_wait_s"] for ep in eps) / secs,
                       "start_wall": eps[0]["start_wall"], "end_wall": eps[-1]["end_wall"]}
     return {"wall_s": wall, "steps": n, "step_ms": statistics.median(res["step_s"]) * 1e3,
-            "phases": phases, "ledger": ledger, "autoscale": report.get("autoscale"),
+            "staged_digests_equal": True, "phases": phases, "ledger": ledger, "autoscale": report.get("autoscale"),
             "replay_gap": gap, "replay_rounds": rounds, "replay_s": replay_s,
             "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
             "actions": [ev for ev in instants if ev.get("kind") != "hold"],
@@ -4513,6 +4555,298 @@ def lookup_phase(card: str):
             "seconds": time.perf_counter() - t_phase}
 
 
+# -- the parallel phase: the FM over a rank mesh through torch.distributed -----------
+# the jobs' lengths: (a) and (b) drain a file of PAR_LONG batches, (c) one of
+# PAR_SHORT, saving at PAR_SAVE_STEP; (d) resumes (c) there and runs to its end
+PAR_LONG, PAR_SHORT, PAR_SAVE_STEP, PAR_LR = 32, 16, 8, 0.5
+
+PAR_WORKER = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+from dmlc_core_tpu_torch.checkpoint import Checkpointer
+from dmlc_core_tpu_torch.models import FactorizationMachine
+from dmlc_core_tpu_torch.ops import _build
+from dmlc_core_tpu_torch.parallel import (P, data_parallel_step, destroy_process_group,
+                                          init_process_group, make_mesh, place_model)
+from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+from dmlc_core_tpu_torch.staging.fused import ell_batches
+from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
+
+uri, out, backend, shape, lr, save_step, ck_dir, restore = sys.argv[1:9]
+shape = tuple(int(x) for x in shape.split("x"))
+lr, save_step = float(lr), int(save_step)
+if not torch.cuda.is_available():
+    raise SystemExit("a rank found no GPU")
+rank, world = init_process_group(backend=backend)  # no other backend is tried
+mesh = make_mesh(shape, ("data", "model"))
+# the backend's own collective, checked: the NCCL or gloo all_reduce on the card
+probe = torch.full((4,), float(rank + 1), device=mesh.device)
+dist.all_reduce(probe)
+if probe.tolist() != [world * (world + 1) / 2] * 4:
+    raise SystemExit(f"all_reduce on {{backend}} gave {{probe.tolist()}}")
+model = FactorizationMachine({d}, {e}, device=mesh.device,
+                             generator=torch.Generator(device=mesh.device).manual_seed(0))
+rules = {{"v": P(None, "model")}} if mesh.shape["model"] > 1 else None
+place_model(model, mesh, rules)
+first = 0
+if restore != "-":
+    ck = Checkpointer(restore)
+    _, tree = ck.restore(template=model.placed())
+    model.load_placed(tree)
+    first = ck.restore_meta()["batches"]
+    uri += f"&skip_records={{first * {b}}}"
+step = data_parallel_step(lambda m, b: m.sgd_step(b, lr=lr), mesh, "data", rules)
+src = ell_batches(uri, BatchSpec(batch_size={b}, max_nnz={k}, value_dtype=np.float32))
+pipe = StagingPipeline(src, mesh=mesh)
+
+def blocks(tag):
+    np.savez(f"{{out}}.{{tag}}.rank{{rank}}.npz",
+             **{{n: p.local.cpu().numpy() for n, p in model.placed().items()}},
+             **{{n + "__index": np.array([[s.start, s.stop] for s in p.index])
+                for n, p in model.placed().items()}})
+
+# the collectives' time on the step's stream, from CUDA events around
+# each all_reduce the step makes (no host sync added to the step)
+coll_events = []
+_all_reduce = dist.all_reduce
+
+def timed_all_reduce(*args, **kwargs):
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = _all_reduce(*args, **kwargs)
+    e1.record()
+    coll_events.append((e0, e1))
+    return out
+
+dist.all_reduce = timed_all_reduce
+_build.reset_launches()
+losses, step_s, handle = [], [], None
+n = first
+for batch in pipe:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(float(step(model, batch)))  # syncs the step
+    step_s.append(time.perf_counter() - t0)
+    n += 1
+    if n == save_step:
+        blocks(f"step{{n}}")
+        handle = Checkpointer(ck_dir).save_async(n, model.placed(), meta={{"batches": n}})
+launches = dict(_build.launches)
+dist.all_reduce = _all_reduce
+torch.cuda.synchronize()
+coll_s = sum(e0.elapsed_time(e1) for e0, e1 in coll_events) / 1e3
+staging = pipe.staging_stats()
+drain_close(pipe, src)
+if handle is not None:
+    handle.result(timeout=120)
+blocks("final")
+with open(f"{{out}}.rank{{rank}}.json", "w") as f:
+    json.dump({{"rank": rank, "world": world, "coords": mesh.coords, "backend": backend,
+               "device": str(mesh.device), "launches": launches, "losses": losses,
+               "step_s": step_s, "collectives": model.spmd.stats, "collective_s": coll_s,
+               "staging": staging}}, f)
+destroy_process_group()
+"""
+
+
+def par_gather(prefix: str, tag: str, n: int) -> dict:
+    """The global params from the ranks' ``<prefix>.<tag>.rank<r>.npz``
+    blocks (each block written where its index says)."""
+    parts = [dict(np.load(f"{prefix}.{tag}.rank{r}.npz")) for r in range(n)]
+    out = {}
+    for name in ("w", "v", "b"):
+        shape = tuple(int(hi) for _lo, hi in parts[0][name + "__index"])
+        for p in parts[1:]:
+            shape = tuple(max(s, int(hi)) for s, (_lo, hi) in zip(shape, p[name + "__index"]))
+        full = np.empty(shape, np.float32)
+        for p in parts:
+            full[tuple(slice(int(lo), int(hi)) for lo, hi in p[name + "__index"])] = p[name]
+        out[name] = full
+    return out, parts
+
+
+def par_replicas(parts, shape, what: str) -> None:
+    """Bit-identical replicas: ``w`` and ``b`` on every rank (a model line
+    and a data line both), each ``v`` block down its data line."""
+    n_model = shape[1]
+    for r, p in enumerate(parts):
+        for name in ("w", "b"):
+            if p[name].tobytes() != parts[0][name].tobytes():
+                fail(f"{what}: rank {r}'s {name} differs from rank 0's")
+        if p["v"].tobytes() != parts[r % n_model]["v"].tobytes():
+            fail(f"{what}: rank {r}'s v block differs from rank {r % n_model}'s")
+
+
+def par_job(tag: str, uri: str, tmp: str, backend: str, shape, restore: str = "-",
+            save_step: int = 0):
+    """One meshed FM job through the port's launcher: ``prod(shape)``
+    ranks on the card over ``backend``. Returns (prefix, ranks' records,
+    wall seconds); gates each rank's K1-K4 once a step, one host→device
+    copy a batch on the packed-shard path, finite falling losses."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "par_worker.py")
+    with open(script, "w") as f:
+        f.write(PAR_WORKER.format(repo=repo, d=D, e=E, b=B, k=K))
+    prefix = os.path.join(tmp, f"par_{tag}")
+    n = int(np.prod(shape))
+    _, wall = submit_job(["--num-workers", str(n), sys.executable, script, shlex.quote(uri),
+                          prefix, backend, "x".join(map(str, shape)), str(PAR_LR),
+                          str(save_step), os.path.join(tmp, "par_ck"), restore])
+    ranks = []
+    for r in range(n):
+        with open(f"{prefix}.rank{r}.json") as f:
+            res = json.load(f)
+        steps = len(res["losses"])
+        if res["backend"] != backend or not res["device"].startswith("cuda"):
+            fail(f"parallel {tag} rank {r}: ran on {res['device']} over {res['backend']}")
+        if any(res["launches"][k] != steps for k in KERNEL_NAMES):
+            fail(f"parallel {tag} rank {r}: {steps} steps, launches {res['launches']}")
+        st = res["staging"]
+        if not (st["packed_shard_batches"] == steps and st["device_puts"] == steps
+                and st["per_array_batches"] == 0):
+            fail(f"parallel {tag} rank {r}: {steps} steps, staging {st}")
+        if not all(np.isfinite(res["losses"])):
+            fail(f"parallel {tag} rank {r}: losses {res['losses']}")
+        ranks.append(res)
+    return prefix, ranks, wall
+
+
+def par_summary(ranks, wall: float, gap=None) -> dict:
+    """A job's numbers: step ms per rank (median) and the share of the
+    step its collectives took (their CUDA-event time on the step's stream)."""
+    return {"wall_s": wall, "steps": len(ranks[0]["losses"]),
+            "loss_first": ranks[0]["losses"][0], "loss_last": ranks[0]["losses"][-1],
+            "step_ms": [statistics.median(r["step_s"]) * 1e3 for r in ranks],
+            "collective_share": [r["collective_s"] / sum(r["step_s"]) for r in ranks],
+            "collectives_per_step": ranks[0]["collectives"]["collectives"] / len(ranks[0]["losses"]),
+            "collective_mb_per_step": ranks[0]["collectives"]["bytes"] / 1e6 / len(ranks[0]["losses"]),
+            "launches": ranks[0]["launches"], "vs_replay": gap}
+
+
+def parallel_phase(dev, card: str):
+    """The FM at the Criteo width over a rank mesh, each job through the
+    port's launcher with its ranks on this card (read global batches,
+    ``StagingPipeline(mesh=)``, ``data_parallel_step``): (a) ``world1``,
+    one rank over NCCL, mesh (1, 1), PAR_LONG steps; (b) ``tp``, two
+    ranks over gloo, mesh (1, 2), ``v`` as two [D, E/2] blocks, PAR_LONG
+    steps; (c) ``dp_tp``, four ranks over gloo, mesh (2, 2), PAR_SHORT
+    steps, a sharded ``save_async`` with ``meta`` at PAR_SAVE_STEP; (d)
+    ``reshard``, a (1, 2) job that restores (c)'s ``.d`` by template and
+    runs to its end. Gates: params within PARAM_REL of a one-process
+    replay of the same global batches ((d): of (c)'s final params);
+    replicas bit-identical; each rank's K1-K4 once a step and one copy a
+    batch; (c)'s ``.d`` holds the manifest and 4 shard files, each chunk
+    once, written by its block's replica 0, the manifest last; a restore
+    without a template in this process equals (c)'s params at the save
+    bit for bit, and ``restore_meta`` what was saved. Returns the
+    ``{"parallel": ...}`` line and the ranks' launches."""
+    from dmlc_core_tpu_torch.checkpoint import Checkpointer, load_pytree
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    out = {"card": card, "shape": {"B": B, "K": K, "E": E, "D": D}, "lr": PAR_LR}
+
+    def fm():
+        return FactorizationMachine(D, E, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    def replay(uri):
+        model = fm()
+        drive("parallel replay", model, ell_batches(uri, spec), dev, PAR_LR,
+              min_steps=PAR_SHORT)
+        return {k: p.detach().cpu().numpy() for k, p in model.params().items()}
+
+    def count(ranks):
+        for res in ranks:
+            for k in KERNEL_NAMES:
+                launches[k] += res["launches"][k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        data = criteo_data(rng, PAR_LONG * B, D)
+        long_rec = write_indexed(os.path.join(tmp, "long.rec"), *data)
+        short_rec = write_indexed(os.path.join(tmp, "short.rec"),
+                                  *(a[:PAR_SHORT * B] for a in data))
+        long_uri, short_uri = f"{long_rec}?index={long_rec}.idx", f"{short_rec}?index={short_rec}.idx"
+        want_long, want_short = replay(long_uri), replay(short_uri)
+        for tag, backend, shape in (("world1", "nccl", (1, 1)), ("tp", "gloo", (1, 2))):
+            prefix, ranks, wall = par_job(tag, long_uri, tmp, backend, shape)
+            got, parts = par_gather(prefix, "final", len(ranks))
+            par_replicas(parts, shape, f"parallel {tag}")
+            gap = param_gap(got, want_long)
+            check_gap(gap, f"parallel {tag} against the one-process replay")
+            out[tag] = {"backend": backend, "mesh": shape, **par_summary(ranks, wall, gap)}
+            count(ranks)
+        prefix, ranks, wall = par_job("dp_tp", short_uri, tmp, "gloo", (2, 2),
+                                      save_step=PAR_SAVE_STEP)
+        final_c, parts = par_gather(prefix, "final", 4)
+        par_replicas(parts, (2, 2), "parallel dp_tp")
+        gap = param_gap(final_c, want_short)
+        check_gap(gap, "parallel dp_tp against the one-process replay")
+        out["dp_tp"] = {"backend": "gloo", "mesh": (2, 2), **par_summary(ranks, wall, gap)}
+        count(ranks)
+        saved, _ = par_gather(prefix, f"step{PAR_SAVE_STEP}", 4)
+        d = os.path.join(tmp, "par_ck", f"ckpt-{PAR_SAVE_STEP:010d}.d")
+        names = sorted(os.listdir(d))
+        if names != ["MANIFEST.bin"] + [f"shard-{r:05d}.bin" for r in range(4)]:
+            fail(f"parallel dp_tp: the .d holds {names}")
+        mtimes = {x: os.stat(os.path.join(d, x)).st_mtime_ns for x in names}
+        if mtimes["MANIFEST.bin"] < max(mtimes.values()):
+            fail(f"parallel dp_tp: the manifest landed before a shard: {mtimes}")
+        # each chunk once, from its block's replica 0: w and b on rank 0,
+        # v's two column blocks on the ranks of data coordinate 0
+        leaves = {int(k["__dmlc_sharded_leaf__"]): name for name, k in
+                  load_pytree(os.path.join(d, "MANIFEST.bin"))["tree"].items()}
+        chunks = {r: sorted(leaves[int(i)] for i in load_pytree(
+            os.path.join(d, f"shard-{r:05d}.bin"))["chunks"]) for r in range(4)}
+        if chunks != {0: ["b", "v", "w"], 1: ["v"], 2: [], 3: []}:
+            fail(f"parallel dp_tp: chunks by shard file {chunks}")
+        ck = Checkpointer(os.path.join(tmp, "par_ck"))
+        step_no, host = ck.restore()
+        if step_no != PAR_SAVE_STEP or ck.restore_meta() != {"batches": PAR_SAVE_STEP}:
+            fail(f"parallel: restored step {step_no}, meta {ck.restore_meta()}")
+        for name in saved:
+            if host[name].tobytes() != saved[name].tobytes():
+                fail(f"parallel: the untemplated restore's {name} differs from the saved one")
+        out["dp_tp"]["checkpoint"] = {"files": names, "chunks": chunks,
+                                      "bytes": sum(os.path.getsize(os.path.join(d, x))
+                                                   for x in names)}
+        prefix, ranks, wall = par_job("reshard", short_uri, tmp, "gloo", (1, 2),
+                                      restore=os.path.join(tmp, "par_ck"))
+        if len(ranks[0]["losses"]) != PAR_SHORT - PAR_SAVE_STEP:
+            fail(f"parallel reshard: {len(ranks[0]['losses'])} steps after the restore")
+        got, parts = par_gather(prefix, "final", 2)
+        par_replicas(parts, (1, 2), "parallel reshard")
+        gap = param_gap(got, final_c)
+        check_gap(gap, "parallel reshard against dp_tp's final params")
+        out["reshard"] = {"backend": "gloo", "mesh": (1, 2), **par_summary(ranks, wall, gap)}
+        count(ranks)
+    # the port of __graft_entry__.dryrun_multichip on this card: 4 gloo
+    # ranks through the launcher, its own small FM on a (2, 2) mesh
+    from dmlc_core_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    report = dryrun_multichip(4)
+    if not (report["ok"] and report["mesh"] == {"data": 2, "model": 2}
+            and report["steps"] == 2 and report["packed_shard_dma"]
+            and report["packed_shard_batches"] == 2 and report["device_puts"] == 8
+            and report["backend"] == "gloo" and report["foreign_modules"] == []
+            and np.isfinite(report["loss_exact"])):
+        fail(f"parallel: dryrun_multichip(4) reported {report}")
+    out["dryrun"] = {k: report[k] for k in ("mesh", "steps", "loss_exact", "device_puts",
+                                            "puts_per_device", "backend")}
+    out["dryrun"]["wall_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -4523,7 +4857,40 @@ def entry_phase(dev) -> None:
                  "fwd", "entry forward")
 
 
-def main() -> None:
+def run_only(names, dev, smi_line: str, timed) -> None:
+    """``--only a,b,...``: the named phases alone, in that order (a name
+    may repeat), each line printed as it ends; no kernels line."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    calls = {
+        "kernels": lambda: kernel_phase(dev, flush),
+        "producers": producer_phase,
+        "slice": lambda: slice_phase(dev),
+        "examples": lambda: examples_phase(dev),
+        "collective": lambda: collective_phase(dev)[0],
+        "shards": lambda: shards_phase(dev)[0],
+        "dsserve": lambda: dsserve_phase(dev, smi_line)[0],
+        "faults": lambda: faults_phase(dev, smi_line)[0],
+        "autoscale": lambda: autoscale_phase(dev, smi_line)[0],
+        "remote": lambda: remote_phase(dev, smi_line)[0],
+        "stream": lambda: stream_phase(dev, smi_line)[0],
+        "lookup": lambda: lookup_phase(smi_line),
+        "parallel": lambda: parallel_phase(dev, smi_line)[0],
+        "entry": lambda: entry_phase(dev),
+    }
+    unknown = [n for n in names if n not in calls]
+    if unknown:
+        fail(f"--only: unknown phases {unknown}; known: {sorted(calls)}")
+    for i, name in enumerate(names):
+        print(json.dumps({name: timed(f"{name}.{i}", calls[name])}), flush=True)
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only":
+            fail(f"usage: python3 chip_smoke.py [--only phase,phase,...], not {argv}")
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4567,6 +4934,14 @@ def main() -> None:
         seconds[name] = time.perf_counter() - t
         return out
 
+    if only is not None:
+        run_only(only, dev, smi_line, timed)
+        seconds["total"] = time.perf_counter() - t0
+        print(json.dumps({"phase_seconds": seconds}))
+        print(smi_line)
+        print(json.dumps({"ok": True, "only": only, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = timed("kernels", kernel_phase, dev, flush)
     del flush
@@ -4584,6 +4959,7 @@ def main() -> None:
     remote, remote_launches = timed("remote", remote_phase, dev, smi_line)
     stream, stream_launches = timed("stream", stream_phase, dev, smi_line)
     lookup = timed("lookup", lookup_phase, smi_line)
+    parallel, par_launches = timed("parallel", parallel_phase, dev, smi_line)
     timed("entry", entry_phase, dev)
     torch.cuda.synchronize()
     seconds["total"] = time.perf_counter() - t0
@@ -4596,6 +4972,7 @@ def main() -> None:
              + shard_launches[row["name"]] + dsserve_launches[row["name"]]
              + fault_launches[row["name"]] + autoscale_launches[row["name"]]
              + remote_launches[row["name"]] + stream_launches[row["name"]]
+             + par_launches[row["name"]]
              + examples["train_online_fm"]["launches"][row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
@@ -4623,6 +5000,7 @@ def main() -> None:
     print(json.dumps({"remote": remote}))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"lookup": lookup}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"phase_seconds": seconds}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

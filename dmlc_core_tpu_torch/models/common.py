@@ -8,6 +8,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.sparse import weighted_mean
 from ..utils.device import DeviceLike, resolve_device
 
 __all__ = ["SparseModel", "bce_with_logits", "sgd_update"]
@@ -38,7 +39,14 @@ def sgd_update(params: Params, grads: Params, lr: float) -> Params:
 
 class SparseModel(nn.Module):
     """An nn.Module whose parameters are named as in the JAX package's
-    param dicts (``w``, ``b``, ``v``), plus the step machinery."""
+    param dicts (``w``, ``b``, ``v``), plus the step machinery.
+
+    A model placed on a rank mesh (``parallel.place_model``) holds this
+    rank's block of each parameter and an ``spmd`` whose collectives make
+    its loss, scores and gradients those of the global batch and the
+    global parameters (``parallel/spmd.py``)."""
+
+    spmd = None
 
     def __init__(self, device: DeviceLike, shapes: Dict[str, Tuple[int, ...]],
                  generator: Optional[torch.Generator]) -> None:
@@ -59,6 +67,44 @@ class SparseModel(nn.Module):
         """The parameters by name (the tensors themselves, not copies)."""
         return dict(self.named_parameters())
 
+    def place(self, placed, spmd) -> None:
+        """Take this rank's blocks (``parallel.Placed`` by name) as the
+        parameters, with the ``spmd`` that computes the global step."""
+        self._placement = {}
+        for name, p in placed.items():
+            self.register_parameter(name, nn.Parameter(p.local))
+            self._placement[name] = p
+        self.spmd = spmd
+
+    def placed(self):
+        """The parameters as ``parallel.Placed`` blocks of their global
+        shapes (a placed model only): the tree a sharded checkpoint saves
+        and the template its restore places by."""
+        from ..parallel.spmd import Placed
+
+        out = {}
+        for name, param in self.named_parameters():
+            p = self._placement[name]
+            out[name] = Placed(param.detach(), p.shape, p.index, p.replica_id, p.spec, p.mesh)
+        return out
+
+    @torch.no_grad()
+    def load_placed(self, tree) -> None:
+        """Copy restored blocks (``Placed`` by name) into the parameters."""
+        for name, param in self.named_parameters():
+            param.copy_(tree[name].local)
+
+    def _mean(self, per_row: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        if self.spmd is None:
+            return weighted_mean(per_row, weights)
+        return self.spmd.mean(per_row, weights)
+
+    def _shard_sum(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return x if self.spmd is None else self.spmd.shard_sum(name, x)
+
+    def _penalty(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.spmd is None else self.spmd.penalty(x)
+
     def loss(self, batch: Batch) -> torch.Tensor:
         raise NotImplementedError
 
@@ -67,8 +113,10 @@ class SparseModel(nn.Module):
         loop all-reduces before one shared ``sgd_update``."""
         params = self.params()
         loss = self.loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), dict(zip(params, grads))
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        if self.spmd is not None:
+            return self.spmd.reduce(loss, grads)
+        return loss.detach(), grads
 
     def sgd_step(self, batch: Batch, lr: float) -> torch.Tensor:
         """One SGD step, updating the parameters in place; returns the

@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 
 from ..ops.fm import fm_pair
-from ..ops.sparse import ell_matvec, weighted_mean
+from ..ops.sparse import ell_matvec
 from ..utils.device import DeviceLike
 from .common import Batch, SparseModel, bce_with_logits
 
@@ -39,15 +39,16 @@ class FactorizationMachine(SparseModel):
 
     def forward(self, batch: Batch) -> torch.Tensor:
         idx, val = batch["indices"], batch["values"]
-        return ell_matvec(idx, val, self.w) + fm_pair(idx, val, self.v) + self.b
+        pair = self._shard_sum("v", fm_pair(idx, val, self.v))
+        return ell_matvec(idx, val, self.w) + pair + self.b
 
     def loss(self, batch: Batch) -> torch.Tensor:
         per_row = bce_with_logits(self(batch), batch["labels"])
-        data_loss = weighted_mean(per_row, batch["weights"])
+        data_loss = self._mean(per_row, batch["weights"])
         if self.l2:
-            data_loss = data_loss + self.l2 * (
-                torch.sum(self.w ** 2) + torch.sum(self.v ** 2)
-            )
+            data_loss = data_loss + self._penalty(self.l2 * (
+                torch.sum(self.w ** 2) + self._shard_sum("v", torch.sum(self.v ** 2))
+            ))
         return data_loss
 
     def sgd_step(self, batch: Batch, lr: float = 0.05) -> torch.Tensor:

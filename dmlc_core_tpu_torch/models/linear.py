@@ -42,9 +42,9 @@ class _LinearBase(SparseModel):
 
     def loss(self, batch: Batch) -> torch.Tensor:
         per_row = self.per_row_loss(scores(self.w, self.b, batch), batch["labels"])
-        data_loss = weighted_mean(per_row, batch["weights"])
+        data_loss = self._mean(per_row, batch["weights"])
         if self.l2:
-            data_loss = data_loss + self.l2 * torch.sum(self.w ** 2)
+            data_loss = data_loss + self._penalty(self.l2 * torch.sum(self.w ** 2))
         return data_loss
 
     def sgd_step(self, batch: Batch, lr: float = 0.1) -> torch.Tensor:

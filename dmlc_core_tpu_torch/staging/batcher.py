@@ -34,6 +34,7 @@ __all__ = [
     "alloc_ell_slot",
     "alloc_packed_slot",
     "packed_layout",
+    "packed_shard_layout",
 ]
 
 # every section starts on an 8-byte boundary (the widest staged dtype),
@@ -111,6 +112,29 @@ def packed_layout(batch: Batch):
             return None
         layout.append((k, lo - base, v.nbytes, v.shape, str(v.dtype)))
     return tuple(layout)
+
+
+def packed_shard_layout(entries, n_shards: int):
+    """Per-shard packing plan for a batch split by rows over ``n_shards``.
+
+    ``entries`` is [(name, shape, dtype)]; every shape's leading dim must
+    divide by ``n_shards``, else None (the caller stages per array).
+    Returns (shard_entries, stride): ``shard_entries`` is
+    [(name, seg_off, seg_nbytes, global_shape, dtype)], ``seg_off`` the
+    PACK_ALIGN-aligned offset of the array's rows INSIDE one shard's
+    contiguous block, and ``stride`` the aligned size of that block, so
+    shard ``d`` of the batch is bytes ``[d*stride, (d+1)*stride)`` of the
+    repacked buffer and rides one copy."""
+    shard_entries = []
+    off = 0
+    for name, shape, dtype in entries:
+        if not shape or shape[0] % n_shards:
+            return None
+        rows = shape[0] // n_shards
+        nb = rows * int(np.prod(shape[1:], dtype=np.int64)) * np.dtype(dtype).itemsize
+        shard_entries.append((name, off, int(nb), tuple(shape), str(dtype)))
+        off += _aligned(int(nb))
+    return tuple(shard_entries), off
 
 
 @dataclass

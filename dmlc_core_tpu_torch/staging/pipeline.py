@@ -30,6 +30,18 @@ the array, so the producer's liveness tracking sees it), and a buffer
 that fails the shape check (not page-aligned) is copied and counted in
 ``dsserve.slot_copies``.
 
+Mesh staging (``mesh=``, one rank of a ``parallel`` mesh): every rank
+reads the same global batch of B rows (the JAX package's single-process
+layout), packs only its own data coordinate's rows, every array's at a
+PACK_ALIGN offset of one ``stride``-byte block (``packed_shard_layout``),
+into its pinned slot, makes one host→device copy and hands out views of
+``B/n`` rows: rank ``d`` of the data axis gets rows ``[d·B/n,
+(d+1)·B/n)``, and the ranks of a model line get the same rows. A batch
+whose rows do not split over the data axis, or that is not packed, goes
+array by array (``_stage_per_array_mesh``), and a batch of B rows that
+do not divide by the axis raises there, as a JAX ``NamedSharding`` put
+does.
+
 Telemetry (the JAX package's series and span names): the registry
 counters ``staging.rows``/``bytes``/``device_puts``/``batches{path}``
 and one ``staging.stage_seconds{stage}`` histogram per stage, resolved
@@ -59,7 +71,7 @@ from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from ..utils.profiler import annotate
-from .batcher import Batch, packed_layout
+from .batcher import Batch, packed_layout, packed_shard_layout
 
 __all__ = [
     "StagingPipeline",
@@ -244,30 +256,44 @@ def _unpack(u8: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
 
 
 class StagingStats:
-    """Thread-safe transfer-shape counters."""
+    """Thread-safe transfer-shape counters. ``packed_shard_dma`` latches
+    True the first time a batch rides the mesh's packed-shard path."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.device_puts = 0
+        self.puts_per_device: Dict[str, int] = {}
         self.packed_batches = 0
+        self.packed_shard_batches = 0
         self.per_array_batches = 0
+        self.packed_shard_dma = False
 
-    def tick_batch(self, packed: bool, puts: int) -> None:
+    def tick_batch(self, kind: str, puts: int, device) -> None:
+        """One staged batch on path ``kind`` (packed, packed_shard or
+        per_array) that took ``puts`` copies to ``device``."""
         with self._lock:
             self.device_puts += puts
-            if packed:
+            key = str(device)
+            self.puts_per_device[key] = self.puts_per_device.get(key, 0) + puts
+            if kind == "packed":
                 self.packed_batches += 1
+            elif kind == "packed_shard":
+                self.packed_shard_batches += 1
+                self.packed_shard_dma = True
             else:
                 self.per_array_batches += 1
         _DEVICE_PUTS.inc(puts)
-        _BATCH_COUNTERS["packed" if packed else "per_array"].inc()
+        _BATCH_COUNTERS[kind].inc()
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             return {
                 "device_puts": self.device_puts,
+                "puts_per_device": dict(self.puts_per_device),
                 "packed_batches": self.packed_batches,
+                "packed_shard_batches": self.packed_shard_batches,
                 "per_array_batches": self.per_array_batches,
+                "packed_shard_dma": self.packed_shard_dma,
             }
 
 
@@ -291,14 +317,93 @@ def _per_array(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
     }
 
 
-def stage_batch(batch: Batch, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+def _shard_plan(batch: Batch, mesh, data_axis: str):
+    """(shard_entries, stride, n_shards) when the packed-shard path
+    applies, else None: the batch is packed, the data axis exists, every
+    array is C-contiguous and every leading dim divides by the axis (the
+    batcher emits a fixed batch_size, so this holds per config)."""
+    if batch.packed is None:
+        return None
+    n_shards = mesh.shape.get(data_axis)
+    if not n_shards:
+        return None
+    arrays = batch.as_dict()
+    if any(not v.flags.c_contiguous for v in arrays.values()):
+        return None
+    plan = packed_shard_layout(
+        [(k, v.shape, str(v.dtype)) for k, v in arrays.items()], n_shards)
+    if plan is None:
+        return None
+    shard_entries, stride = plan
+    return shard_entries, stride, n_shards
+
+
+def _local_layout(shard_entries, n_shards: int):
+    """The unpack layout of one shard's block: each array's rows."""
+    return tuple((name, off, nb, (shape[0] // n_shards,) + tuple(shape[1:]), dtype)
+                 for name, off, nb, shape, dtype in shard_entries)
+
+
+def _pack_shard(batch: Batch, shard_entries, n_shards: int, coord: int,
+                out: np.ndarray) -> np.ndarray:
+    """Copy shard ``coord``'s rows of every array into ``out`` (one
+    shard's block of ``stride`` bytes) at their offsets."""
+    arrays = batch.as_dict()
+    for name, off, nb, _shape, _dtype in shard_entries:
+        src = arrays[name].view(np.uint8).reshape(n_shards, nb)
+        out[off : off + nb] = src[coord]
+    return out
+
+
+def _stage_per_array_mesh(batch: Batch, mesh, data_axis: str,
+                          device: torch.device) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every array, one copy per array."""
+    check(data_axis in mesh.shape,
+          f"data axis {data_axis!r} is not an axis of the mesh {mesh.shape}")
+    n = mesh.shape[data_axis]
+    d = mesh.coords[data_axis]
+    out = {}
+    for k, v in batch.as_dict().items():
+        check(v.shape[0] % n == 0,
+              f"array {k!r} of shape {tuple(v.shape)}: the global size of its "
+              f"dimension 0 should be divisible by {n}, the size of the data "
+              f"axis {data_axis!r}, but it is equal to {v.shape[0]}")
+        rows = v.shape[0] // n
+        out[k] = torch.from_numpy(np.array(v[d * rows:(d + 1) * rows], copy=True)).to(device)
+    return out
+
+
+def stage_batch(batch: Batch, device: DeviceLike = None, mesh=None,
+                data_axis: str = "data",
+                stats: Optional[StagingStats] = None) -> Dict[str, torch.Tensor]:
     """One host Batch → dict of device tensors, synchronously: one u8
     copy unpacked by views when the batch is packed, else one copy per
-    array. The result never aliases the host batch."""
+    array. With a mesh, this rank's rows (its data coordinate's) on the
+    mesh's device, one copy of its shard's block when the rows split.
+    The result never aliases the host batch."""
+    if mesh is not None:
+        dev = mesh.device
+        plan = _shard_plan(batch, mesh, data_axis)
+        if plan is None:
+            out = _stage_per_array_mesh(batch, mesh, data_axis, dev)
+            if stats is not None:
+                stats.tick_batch("per_array", len(out), dev)
+            return out
+        shard_entries, stride, n_shards = plan
+        src = _pack_shard(batch, shard_entries, n_shards, mesh.coords[data_axis],
+                          np.zeros(stride, dtype=np.uint8))
+        if stats is not None:
+            stats.tick_batch("packed_shard", 1, dev)
+        return _unpack(torch.from_numpy(src).to(dev), _local_layout(shard_entries, n_shards))
     dev = resolve_device(device)
     layout = packed_layout(batch)
     if layout is None:
-        return _per_array(batch, dev)
+        out = _per_array(batch, dev)
+        if stats is not None:
+            stats.tick_batch("per_array", len(out), dev)
+        return out
+    if stats is not None:
+        stats.tick_batch("packed", 1, dev)
     return _unpack(torch.from_numpy(np.array(batch.packed, copy=True)).to(dev), layout)
 
 
@@ -315,13 +420,11 @@ class _PinnedSlot:
             self.event.synchronize()
             self.event = None
 
-    def fill(self, packed: np.ndarray) -> torch.Tensor:
-        n = packed.nbytes
+    def get(self, n: int) -> torch.Tensor:
+        """The first ``n`` bytes of the slot's pinned buffer."""
         if self.buf is None or self.buf.numel() < n:
             self.buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-        dst = self.buf[:n]
-        dst.copy_(torch.from_numpy(packed))
-        return dst
+        return self.buf[:n]
 
 
 class _Staged:
@@ -351,17 +454,25 @@ class StagingPipeline:
 
     ``host_batches`` is any iterable of Batch, pulled on a background
     thread (``prefetch`` batches queued); a transfer thread keeps
-    ``depth`` staged batches in flight. ``device`` defaults to ``cuda``.
+    ``depth`` staged batches in flight. ``device`` defaults to ``cuda``,
+    or with ``mesh`` (a ``parallel.Mesh``) to the mesh's device, and then
+    each batch is this rank's rows of it over ``data_axis``.
     """
 
     def __init__(
         self,
         host_batches: Iterable[Batch],
         device: DeviceLike = None,
+        mesh=None,
+        data_axis: str = "data",
         depth: int = 2,
         prefetch: int = 2,
     ) -> None:
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._data_axis = data_axis
+        self._device = mesh.device if mesh is not None and device is None else (
+            resolve_device(device))
+        self._plan_memo: Dict[Any, Any] = {}
         self._depth = max(1, depth)
         # a ring producer recycles its host buffers: its ring must outlast
         # every batch this pipeline can hold at once — 1 in the producer
@@ -419,7 +530,9 @@ class StagingPipeline:
             self.stage_seconds["stage_dispatch"] += dt
         _STAGE_HISTS[key].observe(dt)
 
-    def _put_cuda(self, packed: np.ndarray, layout) -> _Staged:
+    def _put_cuda(self, fill, nbytes: int, layout) -> _Staged:
+        """``fill(dst)`` writes the batch's ``nbytes`` into a pinned slot,
+        then one copy to the device on the copy stream."""
         slot = self._slots[self._slot_i]
         self._slot_i = (self._slot_i + 1) % len(self._slots)
         if slot.event is not None:
@@ -429,7 +542,8 @@ class StagingPipeline:
             self._observe("dispatch_slot_wait", time.perf_counter() - t0)
         t0 = time.perf_counter()
         with annotate("dmlc:dispatch_pack"):
-            src = slot.fill(packed)
+            src = slot.get(nbytes)
+            fill(src)
         self._observe("dispatch_pack", time.perf_counter() - t0, dispatch=True)
         t0 = time.perf_counter()
         with annotate("dmlc:dispatch_put"), torch.cuda.stream(self._copy_stream):
@@ -440,6 +554,40 @@ class StagingPipeline:
         slot.event = event
         self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
         return _Staged(u8=u8, event=event, layout=layout)
+
+    def _plan_for(self, host: Batch):
+        """``_shard_plan`` for this pipeline's mesh, memoized by the
+        arrays' shapes and dtypes (contiguity is checked per batch)."""
+        if host.packed is None:
+            return None
+        arrays = host.as_dict()
+        key = tuple((k, v.shape, str(v.dtype)) for k, v in arrays.items())
+        if key not in self._plan_memo:
+            self._plan_memo[key] = _shard_plan(host, self._mesh, self._data_axis)
+        plan = self._plan_memo[key]
+        if plan is not None and any(not v.flags.c_contiguous for v in arrays.values()):
+            return None
+        return plan
+
+    def _put_shard(self, host: Batch, plan) -> _Staged:
+        """This rank's block of a mesh batch: packed, then one copy."""
+        shard_entries, stride, n_shards = plan
+        coord = self._mesh.coords[self._data_axis]
+        layout = _local_layout(shard_entries, n_shards)
+        if self._cuda:
+            return self._put_cuda(
+                lambda dst: _pack_shard(host, shard_entries, n_shards, coord, dst.numpy()),
+                stride, layout)
+        t0 = time.perf_counter()
+        with annotate("dmlc:dispatch_pack"):
+            src = _pack_shard(host, shard_entries, n_shards, coord,
+                              np.zeros(stride, dtype=np.uint8))
+        self._observe("dispatch_pack", time.perf_counter() - t0, dispatch=True)
+        t0 = time.perf_counter()
+        with annotate("dmlc:dispatch_put"):
+            item = _Staged(u8=torch.from_numpy(src), layout=layout)
+        self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
+        return item
 
     def _adopt_cuda(self, packed: np.ndarray, layout) -> _Staged:
         """The copy straight from the producer's buffer, which stays
@@ -477,14 +625,26 @@ class StagingPipeline:
             self._observe("host_pull", time.perf_counter() - t0)
             if host is None:
                 return
-            layout = packed_layout(host)
-            if layout is None:
+            plan = layout = None
+            if self._mesh is not None:
+                plan = self._plan_for(host)
+            else:
+                layout = packed_layout(host)
+            if plan is not None:
+                item = self._put_shard(host, plan)
+                self.staging.tick_batch("packed_shard", 1, self._device)
+            elif layout is None:
                 t0 = time.perf_counter()
                 with annotate("dmlc:stage"):
-                    item = _Staged(arrays=_per_array(host, self._device))
+                    if self._mesh is not None:
+                        arrays = _stage_per_array_mesh(host, self._mesh, self._data_axis,
+                                                       self._device)
+                    else:
+                        arrays = _per_array(host, self._device)
+                    item = _Staged(arrays=arrays)
                 self._observe("dispatch_put", time.perf_counter() - t0,
                               dispatch=True)
-                self.staging.tick_batch(False, len(item.arrays))
+                self.staging.tick_batch("per_array", len(item.arrays), self._device)
             elif self._adopt and adoptable_slot(host):
                 if self._cuda:
                     item = self._adopt_cuda(host.packed, layout)
@@ -498,12 +658,14 @@ class StagingPipeline:
                                   dispatch=True)
                 self.slots_adopted += 1
                 _SLOTS_ADOPTED.inc()
-                self.staging.tick_batch(True, 1)
+                self.staging.tick_batch("packed", 1, self._device)
             elif self._cuda:
                 if self._adopt:  # adopt-capable, but this buffer is unaligned
                     _SLOT_COPIES.inc()
-                item = self._put_cuda(host.packed, layout)
-                self.staging.tick_batch(True, 1)
+                packed = host.packed
+                item = self._put_cuda(lambda dst: dst.copy_(torch.from_numpy(packed)),
+                                      packed.nbytes, layout)
+                self.staging.tick_batch("packed", 1, self._device)
             else:
                 if self._adopt:
                     _SLOT_COPIES.inc()
@@ -519,7 +681,7 @@ class StagingPipeline:
                     item = _Staged(u8=u8, layout=layout)
                 self._observe("dispatch_put", time.perf_counter() - t0,
                               dispatch=True)
-                self.staging.tick_batch(True, 1)
+                self.staging.tick_batch("packed", 1, self._device)
             nbytes = sum(v.nbytes for v in host.as_dict().values())
             self.rows_staged += host.n_valid
             self.batches_staged += 1

@@ -120,6 +120,11 @@ NEW_MODULES = {
     "dmlc_core_tpu_torch.utils.env",
     "dmlc_core_tpu_torch.io.retry",
     "dmlc_core_tpu_torch.examples.train_online_fm",
+    # the mesh, the data-parallel step and the rank script's entry
+    "dmlc_core_tpu_torch.parallel",
+    "dmlc_core_tpu_torch.parallel.mesh",
+    "dmlc_core_tpu_torch.parallel.spmd",
+    "dmlc_core_tpu_torch.entry",
     *TRACKER_MODULES,
 }
 
@@ -158,6 +163,26 @@ def test_tracker_modules_load_neither_torch_nor_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_a_rank_process_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """The rank script of ``dryrun_multichip`` (``python -m
+    dmlc_core_tpu_torch.entry --dryrun-rank``), run whole in a world of
+    one: the modules it loaded include no ``jax`` and no
+    ``dmlc_core_tpu``."""
+    import json
+
+    env = dict(_clean_env(), DMLC_NUM_WORKER="1")
+    env.pop("DMLC_TRACKER_URI", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.entry", "--dryrun-rank", "cpu",
+         str(tmp_path)],
+        capture_output=True, text=True, timeout=120, cwd=str(REPO), env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads((tmp_path / "rank0.json").read_text())
+    assert report["steps"] == 2 and report["mesh"] == {"data": 1}
+    assert report["foreign_modules"] == []
 
 
 def test_cryptography_is_imported_lazily():
