@@ -240,9 +240,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``tools info`` with the corpus's geometry, and "growing" on a stream's
    live shard with no commit. It runs no kernel;
 18. the FM over a rank mesh (``parallel/``) at the Criteo width, each job
-   through the launcher with its ranks on this card, every rank reading
-   the global batches of an indexed rowrec file and staging its own rows
-   (``StagingPipeline(mesh=)``) into ``data_parallel_step``: (a) one rank
+   through the launcher with its ranks on this card, in (a)-(d) every
+   rank reading the global batches of an indexed rowrec file and staging
+   its own rows (``StagingPipeline(mesh=)``) into
+   ``data_parallel_step``: (a) one rank
    over NCCL, mesh (1, 1), 32 steps; (b) two ranks over gloo, mesh (1, 2),
    ``v`` split into two [D, 8] blocks, 32 steps; (c) four ranks over
    gloo, mesh (2, 2), 16 steps, a sharded ``save_async`` with ``meta`` at
@@ -253,10 +254,24 @@ Phases (any failure exits non-zero and prints no result line):
    batch on the packed-shard path; (c)'s ``.d`` the manifest and 4 shard
    files, each chunk once from its block's replica 0, the manifest last;
    a restore without a template equal to (c)'s params at step 8 bit for
-   bit, ``restore_meta`` what was saved. It prints each job's step ms per
-   rank and the share of the step its collectives took. Last, the port
-   of ``dryrun_multichip(4)`` on the card (4 gloo ranks, its own small
-   FM on a (2, 2) mesh) and its report;
+   bit, ``restore_meta`` what was saved; ``python -m
+   dmlc_core_tpu_torch.tools ckpt ls`` and ``ckpt show`` of that ``.d``
+   giving ``Checkpointer.steps_info()`` and the global shapes ``w``
+   [D], ``v`` [D, 16], ``b`` with the meta. (e) ``dp_tp_local``: (c)'s
+   mesh and file, each rank reading only part ``process_shard(mesh)``
+   (its data coordinate's of two) at B/2 rows a batch and staging it
+   with ``local_rows=True``, 16 steps. Gates: each rank's producer
+   parsed and staged only its part's rows (half the file), the ranks of
+   a model line staged the same bytes, each model line's per-row digests
+   read back from the staged device tensors are the file's rows once
+   each, one copy a batch with no padding batch, K1-K4 once a step, the
+   replicas bit-identical and the params within ``PARAM_REL`` of a
+   one-process replay of the global batches (part 0's batch i, then part
+   1's). It prints each job's step ms per rank and the share of the step
+   its collectives took, and for (c) and (e) the rows each rank parsed
+   and its producer's host seconds. Last, the port of
+   ``dryrun_multichip(4)`` on the card (4 gloo ranks, its own small FM
+   on a (2, 2) mesh) and its report;
 19. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
@@ -4561,7 +4576,7 @@ def lookup_phase(card: str):
 PAR_LONG, PAR_SHORT, PAR_SAVE_STEP, PAR_LR = 32, 16, 8, 0.5
 
 PAR_WORKER = """
-import json, sys, time
+import hashlib, json, sys, time
 sys.path.insert(0, {repo!r})
 import numpy as np
 import torch
@@ -4570,12 +4585,14 @@ from dmlc_core_tpu_torch.checkpoint import Checkpointer
 from dmlc_core_tpu_torch.models import FactorizationMachine
 from dmlc_core_tpu_torch.ops import _build
 from dmlc_core_tpu_torch.parallel import (P, data_parallel_step, destroy_process_group,
-                                          init_process_group, make_mesh, place_model)
+                                          init_process_group, make_mesh, place_model,
+                                          process_shard)
 from dmlc_core_tpu_torch.staging.batcher import BatchSpec
 from dmlc_core_tpu_torch.staging.fused import ell_batches
 from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
 
-uri, out, backend, shape, lr, save_step, ck_dir, restore = sys.argv[1:9]
+uri, out, backend, shape, lr, save_step, ck_dir, restore, rows = sys.argv[1:10]
+local = rows == "local"  # this rank reads and stages only its own rows
 shape = tuple(int(x) for x in shape.split("x"))
 lr, save_step = float(lr), int(save_step)
 if not torch.cuda.is_available():
@@ -4599,8 +4616,30 @@ if restore != "-":
     first = ck.restore_meta()["batches"]
     uri += f"&skip_records={{first * {b}}}"
 step = data_parallel_step(lambda m, b: m.sgd_step(b, lr=lr), mesh, "data", rules)
-src = ell_batches(uri, BatchSpec(batch_size={b}, max_nnz={k}, value_dtype=np.float32))
-pipe = StagingPipeline(src, mesh=mesh)
+part, nparts = process_shard(mesh) if local else (0, 1)
+src = ell_batches(uri, BatchSpec(batch_size={b} // nparts, max_nnz={k}, value_dtype=np.float32),
+                  part_index=part, num_parts=nparts)
+
+class Producer:
+    # the rank's producer, timed: the rows it parsed and the host seconds
+    # its batches took to come out of it
+    def __init__(self, src):
+        self.src, self.rows, self.seconds = src, 0, 0.0
+        self.ring_slots, self.spec = src.ring_slots, getattr(src, "spec", None)
+
+    def __iter__(self):
+        it = iter(self.src)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            self.seconds += time.perf_counter() - t0
+            if b is None:
+                return
+            self.rows += b.n_valid
+            yield b
+
+prod = Producer(src)
+pipe = StagingPipeline(prod, mesh=mesh, local_rows=local)
 
 def blocks(tag):
     np.savez(f"{{out}}.{{tag}}.rank{{rank}}.npz",
@@ -4612,8 +4651,11 @@ def blocks(tag):
 # each all_reduce the step makes (no host sync added to the step)
 coll_events = []
 _all_reduce = dist.all_reduce
+in_step = [False]  # the pipeline's end-of-part exchange is not the step's
 
 def timed_all_reduce(*args, **kwargs):
+    if not in_step[0]:
+        return _all_reduce(*args, **kwargs)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     out = _all_reduce(*args, **kwargs)
@@ -4624,12 +4666,23 @@ def timed_all_reduce(*args, **kwargs):
 dist.all_reduce = timed_all_reduce
 _build.reset_launches()
 losses, step_s, handle = [], [], None
+batch_digests, row_digests = [], []
 n = first
 for batch in pipe:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    in_step[0] = True
     losses.append(float(step(model, batch)))  # syncs the step
+    in_step[0] = False
     step_s.append(time.perf_counter() - t0)
+    if local:  # what this rank staged, read back from the device tensors
+        host = {{k: t.cpu().numpy() for k, t in batch.items()}}
+        batch_digests.append(hashlib.blake2b(
+            b"".join(host[k].tobytes() for k in sorted(host))).hexdigest())
+        for i in np.flatnonzero(host["weights"] > 0):
+            row_digests.append(hashlib.blake2b(
+                host["indices"][i].tobytes() + host["values"][i].tobytes()
+                + host["labels"][i].tobytes(), digest_size=16).hexdigest())
     n += 1
     if n == save_step:
         blocks(f"step{{n}}")
@@ -4639,6 +4692,7 @@ dist.all_reduce = _all_reduce
 torch.cuda.synchronize()
 coll_s = sum(e0.elapsed_time(e1) for e0, e1 in coll_events) / 1e3
 staging = pipe.staging_stats()
+rows_staged = pipe.rows_staged
 drain_close(pipe, src)
 if handle is not None:
     handle.result(timeout=120)
@@ -4647,7 +4701,10 @@ with open(f"{{out}}.rank{{rank}}.json", "w") as f:
     json.dump({{"rank": rank, "world": world, "coords": mesh.coords, "backend": backend,
                "device": str(mesh.device), "launches": launches, "losses": losses,
                "step_s": step_s, "collectives": model.spmd.stats, "collective_s": coll_s,
-               "staging": staging}}, f)
+               "staging": staging, "local": local, "part": [part, nparts],
+               "rows_staged": rows_staged, "producer_rows": prod.rows,
+               "producer_s": prod.seconds, "batch_digests": batch_digests,
+               "row_digests": row_digests}}, f)
 destroy_process_group()
 """
 
@@ -4681,11 +4738,14 @@ def par_replicas(parts, shape, what: str) -> None:
 
 
 def par_job(tag: str, uri: str, tmp: str, backend: str, shape, restore: str = "-",
-            save_step: int = 0):
+            save_step: int = 0, local: bool = False):
     """One meshed FM job through the port's launcher: ``prod(shape)``
-    ranks on the card over ``backend``. Returns (prefix, ranks' records,
-    wall seconds); gates each rank's K1-K4 once a step, one host→device
-    copy a batch on the packed-shard path, finite falling losses."""
+    ranks on the card over ``backend``; with ``local`` each rank reads
+    part ``process_shard(mesh)`` at B / (data axis) rows a batch and
+    stages it with local rows. Returns (prefix, ranks' records, wall
+    seconds); gates each rank's K1-K4 once a step, one host→device copy
+    a batch (on the packed-shard path, or with local rows the one-device
+    packed path with no padding batch), finite losses."""
     repo = os.path.dirname(os.path.abspath(__file__))
     script = os.path.join(tmp, "par_worker.py")
     with open(script, "w") as f:
@@ -4694,7 +4754,8 @@ def par_job(tag: str, uri: str, tmp: str, backend: str, shape, restore: str = "-
     n = int(np.prod(shape))
     _, wall = submit_job(["--num-workers", str(n), sys.executable, script, shlex.quote(uri),
                           prefix, backend, "x".join(map(str, shape)), str(PAR_LR),
-                          str(save_step), os.path.join(tmp, "par_ck"), restore])
+                          str(save_step), os.path.join(tmp, "par_ck"), restore,
+                          "local" if local else "global"])
     ranks = []
     for r in range(n):
         with open(f"{prefix}.rank{r}.json") as f:
@@ -4705,8 +4766,9 @@ def par_job(tag: str, uri: str, tmp: str, backend: str, shape, restore: str = "-
         if any(res["launches"][k] != steps for k in KERNEL_NAMES):
             fail(f"parallel {tag} rank {r}: {steps} steps, launches {res['launches']}")
         st = res["staging"]
-        if not (st["packed_shard_batches"] == steps and st["device_puts"] == steps
-                and st["per_array_batches"] == 0):
+        path = "packed_batches" if local else "packed_shard_batches"
+        if not (st[path] == steps and st["device_puts"] == steps
+                and st["per_array_batches"] == 0 and st.get("padding_batches", 0) == 0):
             fail(f"parallel {tag} rank {r}: {steps} steps, staging {st}")
         if not all(np.isfinite(res["losses"])):
             fail(f"parallel {tag} rank {r}: losses {res['losses']}")
@@ -4726,6 +4788,89 @@ def par_summary(ranks, wall: float, gap=None) -> dict:
             "launches": ranks[0]["launches"], "vs_replay": gap}
 
 
+class PartsInterleaved:
+    """The global batches of a local-rows job on a data axis of two: part
+    0's batch i, then part 1's, each of B/2 rows of the file (the JAX
+    package's ``make_array_from_process_local_data`` order)."""
+
+    def __init__(self, uri: str, spec) -> None:
+        self.uri, self.spec = uri, spec
+
+    def __iter__(self):
+        from dmlc_core_tpu_torch.staging.batcher import Batch, BatchSpec, alloc_ell_slot
+        from dmlc_core_tpu_torch.staging.fused import ell_batches
+
+        half = BatchSpec(batch_size=self.spec.batch_size // 2, max_nnz=self.spec.max_nnz,
+                         value_dtype=self.spec.value_dtype)
+        srcs = [ell_batches(self.uri, half, part_index=d, num_parts=2) for d in range(2)]
+        try:
+            for pair in zip(*srcs):
+                buf, views = alloc_ell_slot(self.spec)
+                for name, v in views.items():
+                    v[...] = np.concatenate([getattr(b, name) for b in pair])
+                yield Batch(n_valid=sum(b.n_valid for b in pair), packed=buf, **views)
+        finally:
+            for s in srcs:
+                s.close()
+
+    def close(self) -> None:
+        pass
+
+
+def local_rows_gates(ranks, data, n_rows: int) -> dict:
+    """The local-rows job's own gates, on a (2, 2) mesh over the first
+    ``n_rows`` rows of ``data``: each rank parsed and staged only its
+    part (half the rows); the ranks of a model line staged the same
+    bytes; each model line's per-row digests, taken from the staged device
+    tensors, are the file's rows once each."""
+    from collections import Counter
+
+    idx, val, labels = (a[:n_rows] for a in data)
+    want = Counter(hashlib.blake2b(idx[i].astype(np.int32).tobytes() + val[i].tobytes()
+                                   + labels[i].tobytes(), digest_size=16).hexdigest()
+                   for i in range(n_rows))
+    for r, res in enumerate(ranks):
+        if res["part"] != [r // 2, 2]:
+            fail(f"parallel dp_tp_local rank {r}: read part {res['part']}")
+        if not res["producer_rows"] == res["rows_staged"] == n_rows // 2:
+            fail(f"parallel dp_tp_local rank {r}: parsed {res['producer_rows']} and staged "
+                 f"{res['rows_staged']} rows of a part of {n_rows // 2}")
+        if res["batch_digests"] != ranks[r - r % 2]["batch_digests"]:
+            fail(f"parallel dp_tp_local: rank {r} staged other bytes than rank {r - r % 2}")
+    for m in range(2):
+        got = Counter(ranks[m]["row_digests"] + ranks[2 + m]["row_digests"])
+        if got != want:
+            fail(f"parallel dp_tp_local: model line {m}'s staged rows are not the file's "
+                 f"rows once each ({sum((got - want).values())} extra, "
+                 f"{sum((want - got).values())} missing)")
+    return {"rows_parsed": [r["producer_rows"] for r in ranks],
+            "rows_staged": [r["rows_staged"] for r in ranks],
+            "staged_rows_per_model_line": n_rows}
+
+
+def tools_ckpt(base: str, ck) -> dict:
+    """``python -m dmlc_core_tpu_torch.tools ckpt ls|show`` on the sharded
+    save: the listing is ``ck.steps_info()``, the tree the global shapes
+    with the saved meta."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    runs = [subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.tools", "ckpt", *argv],
+                           capture_output=True, text=True, timeout=120, cwd=repo, env=env)
+            for argv in (["ls", base], ["show", base, "--step", str(PAR_SAVE_STEP)])]
+    for r in runs:
+        if r.returncode != 0:
+            fail(f"tools ckpt {r.args[4]} exited {r.returncode}: {r.stderr[-2000:]}")
+    listing, shown = (json.loads(r.stdout) for r in runs)
+    if listing != ck.steps_info() or [e["layout"] for e in listing] != ["sharded"]:
+        fail(f"tools ckpt ls gave {listing}, the Checkpointer {ck.steps_info()}")
+    want = {"step": PAR_SAVE_STEP, "tree": {"w": f"float32[{D}]", "v": f"float32[{D}, {E}]",
+                                            "b": "float32[]"},
+            "meta": {"batches": PAR_SAVE_STEP}}
+    if shown != want:
+        fail(f"tools ckpt show gave {shown}, not {want}")
+    return {"ls": listing, "show": shown}
+
+
 def parallel_phase(dev, card: str):
     """The FM at the Criteo width over a rank mesh, each job through the
     port's launcher with its ranks on this card (read global batches,
@@ -4735,14 +4880,16 @@ def parallel_phase(dev, card: str):
     steps; (c) ``dp_tp``, four ranks over gloo, mesh (2, 2), PAR_SHORT
     steps, a sharded ``save_async`` with ``meta`` at PAR_SAVE_STEP; (d)
     ``reshard``, a (1, 2) job that restores (c)'s ``.d`` by template and
-    runs to its end. Gates: params within PARAM_REL of a one-process
-    replay of the same global batches ((d): of (c)'s final params);
-    replicas bit-identical; each rank's K1-K4 once a step and one copy a
-    batch; (c)'s ``.d`` holds the manifest and 4 shard files, each chunk
-    once, written by its block's replica 0, the manifest last; a restore
-    without a template in this process equals (c)'s params at the save
-    bit for bit, and ``restore_meta`` what was saved. Returns the
-    ``{"parallel": ...}`` line and the ranks' launches."""
+    runs to its end; (e) ``dp_tp_local``, (c) with each rank reading and
+    staging only its own rows (``local_rows_gates``). Gates: params
+    within PARAM_REL of a one-process replay of the same global batches
+    ((d): of (c)'s final params); replicas bit-identical; each rank's
+    K1-K4 once a step and one copy a batch; (c)'s ``.d`` holds the
+    manifest and 4 shard files, each chunk once, written by its block's
+    replica 0, the manifest last; a restore without a template in this
+    process equals (c)'s params at the save bit for bit, ``restore_meta``
+    what was saved, and ``tools ckpt ls|show`` agree with them. Returns
+    the ``{"parallel": ...}`` line and the ranks' launches."""
     from dmlc_core_tpu_torch.checkpoint import Checkpointer, load_pytree
     from dmlc_core_tpu_torch.models import FactorizationMachine
     from dmlc_core_tpu_torch.staging.batcher import BatchSpec
@@ -4757,10 +4904,10 @@ def parallel_phase(dev, card: str):
         return FactorizationMachine(D, E, device=dev,
                                     generator=torch.Generator(device=dev).manual_seed(0))
 
-    def replay(uri):
+    def replay(source):
         model = fm()
-        drive("parallel replay", model, ell_batches(uri, spec), dev, PAR_LR,
-              min_steps=PAR_SHORT)
+        drive("parallel replay", model, ell_batches(source, spec)
+              if isinstance(source, str) else source, dev, PAR_LR, min_steps=PAR_SHORT)
         return {k: p.detach().cpu().numpy() for k, p in model.params().items()}
 
     def count(ranks):
@@ -4818,6 +4965,25 @@ def parallel_phase(dev, card: str):
         out["dp_tp"]["checkpoint"] = {"files": names, "chunks": chunks,
                                       "bytes": sum(os.path.getsize(os.path.join(d, x))
                                                    for x in names)}
+        out["dp_tp"]["tools_ckpt"] = tools_ckpt(os.path.join(tmp, "par_ck"), ck)
+        # (e) dp_tp_local: the (2, 2) job again, each rank reading only its
+        # data coordinate's part of the same file at B/2 rows a batch
+        prefix, ranks_l, wall = par_job("dp_tp_local", short_uri, tmp, "gloo", (2, 2),
+                                        local=True)
+        got, parts = par_gather(prefix, "final", 4)
+        par_replicas(parts, (2, 2), "parallel dp_tp_local")
+        gap = param_gap(got, replay(PartsInterleaved(short_uri, spec)))
+        check_gap(gap, "parallel dp_tp_local against the one-process replay")
+        own = local_rows_gates(ranks_l, data, PAR_SHORT * B)
+        out["dp_tp_local"] = {"backend": "gloo", "mesh": (2, 2), **own,
+                              **par_summary(ranks_l, wall, gap)}
+        count(ranks_l)
+        out["local_vs_global"] = {t: {
+            "step_ms": [statistics.median(r["step_s"]) * 1e3 for r in rs],
+            "collective_share": [r["collective_s"] / sum(r["step_s"]) for r in rs],
+            "rows_parsed": [r["producer_rows"] for r in rs],
+            "producer_s": [r["producer_s"] for r in rs]}
+            for t, rs in (("dp_tp", ranks), ("dp_tp_local", ranks_l))}
         prefix, ranks, wall = par_job("reshard", short_uri, tmp, "gloo", (1, 2),
                                       restore=os.path.join(tmp, "par_ck"))
         if len(ranks[0]["losses"]) != PAR_SHORT - PAR_SAVE_STEP:

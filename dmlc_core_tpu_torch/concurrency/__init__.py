@@ -1,7 +1,12 @@
-"""Prefetch pipelines (reference: include/dmlc/threadediter.h).
+"""Prefetch pipelines and thread lifecycles (reference:
+include/dmlc/threadediter.h, thread_group.h, concurrency.h):
+``ThreadedIter``, and ``thread_group.py``'s ``ThreadGroup``,
+``TimerThread`` and ``ConcurrentBlockingQueue``."""
 
-The port holds ``ThreadedIter``; ``thread_group.py`` (``ThreadGroup``,
-``TimerThread``, ``ConcurrentBlockingQueue``) comes with ``ROADMAP.md``
-§1 item 9b."""
-
+from .thread_group import (  # noqa: F401
+    ConcurrentBlockingQueue,
+    ManualEvent,
+    ThreadGroup,
+    TimerThread,
+)
 from .threaded_iter import ThreadedIter  # noqa: F401

@@ -1,6 +1,7 @@
 """Sparse rows and their parsers: the CSR ``RowBlock``, the binary
 ``rowrec`` format, the libsvm/libfm/csv text parsers, the native parse
-core they run on (``native.py``) and the parser factory."""
+core they run on (``native.py``), the parser factory and the row-block
+iterators (``row_iter.py``: eager, or replayed from a ``#cachefile``)."""
 
 from __future__ import annotations
 
@@ -14,17 +15,22 @@ from .libfm_parser import LibFMParser
 from .libsvm_parser import LibSVMParser
 from .parser import Parser, ThreadedParser
 from .row_block import INDEX_T, RowBlock
+from .row_iter import BasicRowIter, DiskRowIter, RowBlockIter
 from .rowrec import RowRecParser
 
 __all__ = [
+    "BasicRowIter",
     "CSVParser",
+    "DiskRowIter",
     "LibFMParser",
     "LibSVMParser",
     "Parser",
     "RowBlock",
+    "RowBlockIter",
     "RowRecParser",
     "ThreadedParser",
     "create_parser",
+    "create_row_block_iter",
     "parser_options",
 ]
 
@@ -81,9 +87,38 @@ def create_parser(
     if fmt == "rowrec":
         base: Parser = RowRecParser(io_split.create(
             spec.uri + rejoin_query(kwargs) + cache, part_index, num_parts,
-            type="recordio"))
+            type="recordio"), index_dtype=index_dtype)
     else:
         cls = {"libsvm": LibSVMParser, "libfm": LibFMParser, "csv": CSVParser}[fmt]
         base = cls(io_split.create(spec.uri + cache, part_index, num_parts, type="text"),
                    nthread, index_dtype, **kwargs)
     return ThreadedParser(base) if threaded else base
+
+
+def create_row_block_iter(
+    uri: str,
+    part_index: int = 0,
+    num_parts: int = 1,
+    type: str = "auto",
+    nthread: Optional[int] = None,
+    index_dtype=INDEX_T,
+) -> RowBlockIter:
+    """RowBlockIter factory (reference CreateIter_, src/data.cc:87-107):
+    ``uri#cachefile`` gives a ``DiskRowIter`` over that cache file, any
+    other URI an eager ``BasicRowIter``. An epoch shuffle with a
+    ``#cachefile`` raises, as in the JAX package: the cache would freeze
+    the first epoch's order."""
+    spec = URISpec(uri, part_index, num_parts)
+
+    def make_parser() -> Parser:
+        return create_parser(spec.uri + rejoin_query(spec.args), part_index, num_parts,
+                             type, nthread, index_dtype)
+
+    if spec.cache_file:
+        if uri_int(spec.args, "shuffle_parts", 0) or (
+                "index" in spec.args
+                and io_split.normalize_shuffle(spec.args.get("shuffle", "0"))):
+            raise Error("epoch shuffling with a #cachefile would freeze the first "
+                        "epoch's shuffle order into the cache; pick one")
+        return DiskRowIter(make_parser, spec.cache_file, reuse_cache=True)
+    return BasicRowIter(make_parser())

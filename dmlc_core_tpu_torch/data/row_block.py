@@ -12,13 +12,15 @@ Arrays (numpy, contiguous):
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..io import serializer
+from ..io.stream import Stream
 from ..utils.logging import check, check_eq
 
-__all__ = ["INDEX_T", "RowBlock"]
+__all__ = ["INDEX_T", "RowBlock", "RowBlockContainer"]
 
 # feature ids of parsed text blocks (the JAX package's INDEX_T)
 INDEX_T = np.uint64
@@ -81,6 +83,41 @@ class RowBlock:
             field=None if self.field is None else self.field[lo:hi],
         )
 
+    def mem_cost_bytes(self) -> int:
+        """The arrays' bytes (reference MemCostBytes, data.h:203-214)."""
+        cost = self.offset.nbytes + self.label.nbytes + self.index.nbytes
+        for a in (self.weight, self.qid, self.field, self.value):
+            if a is not None:
+                cost += a.nbytes
+        return cost
+
+    def max_index(self) -> int:
+        return int(self.index.max()) if len(self.index) else 0
+
+    def save(self, stream: Stream) -> None:
+        """One page of ``DiskRowIter``'s cache: a presence mask, then the
+        arrays as dtype-tagged ``serializer`` frames (the JAX package's
+        bytes; reference RowBlockContainer::Save, row_block.h:189-200)."""
+        mask = ((1 if self.weight is not None else 0) | (2 if self.qid is not None else 0)
+                | (4 if self.field is not None else 0) | (8 if self.value is not None else 0))
+        serializer.write_scalar(stream, mask, "uint32")
+        for a in (self.offset, self.label, self.index, self.weight, self.qid, self.field,
+                  self.value):
+            if a is not None:
+                serializer.write_ndarray(stream, a)
+
+    @staticmethod
+    def load(stream: Stream) -> Optional["RowBlock"]:
+        """The inverse of ``save``; None at a clean end of the stream."""
+        mask = serializer.try_read_scalar(stream, "uint32")
+        if mask is None:
+            return None
+        offset, label, index = (serializer.read_ndarray(stream) for _ in range(3))
+        weight, qid, field, value = (serializer.read_ndarray(stream) if mask & bit else None
+                                     for bit in (1, 2, 4, 8))
+        return RowBlock(offset=offset, label=label, index=index, value=value,
+                        weight=weight, qid=qid, field=field)
+
     @staticmethod
     def concat(blocks: Sequence["RowBlock"]) -> "RowBlock":
         """One block holding ``blocks`` back to back."""
@@ -113,3 +150,40 @@ class RowBlock:
             qid=cat("qid", np.int64(0)),
             field=cat("field", np.int64(0)),
         )
+
+
+class RowBlockContainer:
+    """Whole blocks gathered into one (the block half of the JAX
+    package's ``RowBlockContainer``, reference row_block.h:28-218), as the
+    row iterators fill their pages."""
+
+    def __init__(self, index_dtype=INDEX_T) -> None:
+        self.index_dtype = index_dtype
+        self.clear()
+
+    def clear(self) -> None:
+        self._blocks: List[RowBlock] = []
+        self.max_index = 0
+
+    @property
+    def size(self) -> int:
+        return sum(b.size for b in self._blocks)
+
+    def mem_cost_bytes(self) -> int:
+        return sum(b.mem_cost_bytes() for b in self._blocks)
+
+    def push_block(self, block: RowBlock) -> None:
+        self._blocks.append(block)
+        if block.nnz:
+            self.max_index = max(self.max_index, block.max_index())
+
+    def to_block(self) -> RowBlock:
+        """One CSR block of everything pushed (reference GetBlock)."""
+        if not self._blocks:
+            return RowBlock(offset=np.zeros(1, dtype=np.int64),
+                            label=np.empty(0, dtype=np.float32),
+                            index=np.empty(0, dtype=self.index_dtype))
+        return RowBlock.concat(self._blocks)
+
+    def save(self, stream: Stream) -> None:
+        self.to_block().save(stream)

@@ -124,19 +124,25 @@ class RowRecParser(Parser):
     """Part ``part_index`` of ``num_parts`` of a local .rec file, or the
     chunks of a split of one (``io.split.create``) → one RowBlock per
     chunk of whole records, decoded record by record (the plain version
-    the native rowrec producer is held to)."""
+    the native rowrec producer is held to). Feature ids come as
+    ``index_dtype`` (the records' u32 by default; ``create_parser``
+    passes its own, u64 by default, as the JAX parser factory does)."""
 
     def __init__(
-        self, source, part_index: int = 0, num_parts: int = 1
+        self, source, part_index: int = 0, num_parts: int = 1, index_dtype=np.uint32
     ) -> None:
         self._source = (RecordIOSplitter(source, part_index, num_parts)
                         if isinstance(source, str) else source)
+        self._index_dtype = np.dtype(index_dtype)
 
     def parse_next(self) -> Optional[List[RowBlock]]:
         chunk = self._source.next_chunk()
         if chunk is None:
             return None
-        return [decode_records(RecordIOChunkReader(chunk))]
+        blk = decode_records(RecordIOChunkReader(chunk))
+        if blk.index.dtype != self._index_dtype:
+            blk.index = blk.index.astype(self._index_dtype)
+        return [blk]
 
     def close(self) -> None:
         self._source.close()

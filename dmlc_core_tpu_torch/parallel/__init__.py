@@ -7,7 +7,8 @@ the world (through the port's tracker under the launcher),
 per line, and ``data_parallel_step`` runs a model's step on this rank's
 rows of the global batch and its block of each parameter, with the
 collectives that make it the global step (``spmd.py``).
-``process_shard()`` is ``(rank, world)``.
+``process_shard()`` is ``(rank, world)``, and ``process_shard(mesh)``
+the ``(part, parts)`` a rank reads when it stages only its own rows.
 """
 
 from .mesh import (

@@ -19,7 +19,10 @@ calls on the process groups a ``Mesh`` makes over the world's ranks.
   construction (``new_group`` is collective: every rank makes every
   group, in the same order).
 - ``process_shard``: ``(rank, world)``, as ``jax.process_index()`` and
-  ``jax.process_count()`` give them.
+  ``jax.process_count()`` give them; ``process_shard(mesh)`` is the part
+  of the input this rank reads when each rank stages only its own rows:
+  ``(data coordinate, data axis size)``, the same part for every rank of
+  a model line.
 """
 
 from __future__ import annotations
@@ -198,8 +201,20 @@ def destroy_process_group() -> None:
         worker.shutdown()
 
 
-def process_shard() -> Tuple[int, int]:
-    """``(rank, world)`` of this process, ``(0, 1)`` outside a world."""
+def process_shard(mesh: Optional["Mesh"] = None,
+                  data_axis: str = "data") -> Tuple[int, int]:
+    """``(rank, world)`` of this process, ``(0, 1)`` outside a world.
+
+    With a mesh: ``(mesh.coords[data_axis], mesh.shape[data_axis])``, the
+    ``(part_index, num_parts)`` this rank reads when it stages only its
+    own rows (``StagingPipeline(mesh=, local_rows=True)``). The ranks of
+    a model line share a data coordinate, so they read the same part; a
+    JAX process reads part ``jax.process_index()``, and holds every
+    device of its line."""
+    if mesh is not None:
+        check(data_axis in mesh.shape,
+              f"data axis {data_axis!r} is not an axis of the mesh {mesh.shape}")
+        return mesh.coords[data_axis], mesh.shape[data_axis]
     dist = _dist()
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()

@@ -42,6 +42,20 @@ array by array (``_stage_per_array_mesh``), and a batch of B rows that
 do not divide by the axis raises there, as a JAX ``NamedSharding`` put
 does.
 
+Local rows (``mesh=`` with ``local_rows=True``, the JAX package's
+multi-process branch, ``make_array_from_process_local_data``): the host
+batch is this rank's own block, read from part ``process_shard(mesh)``
+of the input with the per-rank batch size, and it takes the one-device
+packed path on the mesh's device (pinned slot, one copy, event). The
+global batch is the data coordinates' blocks in data order. Parts of a
+byte-range split may end a batch apart, so once a step the ranks of a
+data line exchange, on the consumer's thread before the step's own
+collectives, whether each still has a batch: a rank whose part has ended
+yields an all-padding batch of the same layout (every row weight 0, the
+padding rows' zeros), counted in ``padding_batches``, and every rank
+stops together once no part has a batch. Weight-0 rows leave the step's
+global weighted mean as it was.
+
 Telemetry (the JAX package's series and span names): the registry
 counters ``staging.rows``/``bytes``/``device_puts``/``batches{path}``
 and one ``staging.stage_seconds{stage}`` histogram per stage, resolved
@@ -375,13 +389,19 @@ def _stage_per_array_mesh(batch: Batch, mesh, data_axis: str,
 
 def stage_batch(batch: Batch, device: DeviceLike = None, mesh=None,
                 data_axis: str = "data",
-                stats: Optional[StagingStats] = None) -> Dict[str, torch.Tensor]:
+                stats: Optional[StagingStats] = None,
+                local_rows: bool = False) -> Dict[str, torch.Tensor]:
     """One host Batch → dict of device tensors, synchronously: one u8
     copy unpacked by views when the batch is packed, else one copy per
     array. With a mesh, this rank's rows (its data coordinate's) on the
-    mesh's device, one copy of its shard's block when the rows split.
-    The result never aliases the host batch."""
-    if mesh is not None:
+    mesh's device, one copy of its shard's block when the rows split;
+    with ``local_rows`` as well, ``batch`` is this rank's own block and
+    goes whole to the mesh's device, as on one device. The result never
+    aliases the host batch."""
+    if local_rows:
+        check(mesh is not None, "local_rows stages a rank's block: it needs mesh=")
+        device = mesh.device
+    elif mesh is not None:
         dev = mesh.device
         plan = _shard_plan(batch, mesh, data_axis)
         if plan is None:
@@ -456,7 +476,10 @@ class StagingPipeline:
     thread (``prefetch`` batches queued); a transfer thread keeps
     ``depth`` staged batches in flight. ``device`` defaults to ``cuda``,
     or with ``mesh`` (a ``parallel.Mesh``) to the mesh's device, and then
-    each batch is this rank's rows of it over ``data_axis``.
+    each batch is this rank's rows of it over ``data_axis``. With
+    ``local_rows`` each host batch is already this rank's block (its
+    part ``process_shard(mesh)``), staged whole, and the ranks of a data
+    line take the same number of steps (the module docstring).
     """
 
     def __init__(
@@ -467,8 +490,19 @@ class StagingPipeline:
         data_axis: str = "data",
         depth: int = 2,
         prefetch: int = 2,
+        local_rows: bool = False,
     ) -> None:
-        self._mesh = mesh
+        check(mesh is not None or not local_rows,
+              "local_rows stages a rank's block: it needs mesh=")
+        self._local_rows = local_rows
+        # the data line's group that the end-of-part exchange runs on
+        # (None: a data axis of one rank, nothing to agree on)
+        self._line = mesh.group((data_axis,)) if local_rows else None
+        self._spec = getattr(host_batches, "spec", None)
+        self._pad_layout = None
+        self._part_ended = False
+        self.padding_batches = 0
+        self._mesh = None if local_rows else mesh
         self._data_axis = data_axis
         self._device = mesh.device if mesh is not None and device is None else (
             resolve_device(device))
@@ -630,6 +664,8 @@ class StagingPipeline:
                 plan = self._plan_for(host)
             else:
                 layout = packed_layout(host)
+                if self._local_rows and layout is not None and self._pad_layout is None:
+                    self._pad_layout = (layout, host.packed.nbytes)
             if plan is not None:
                 item = self._put_shard(host, plan)
                 self.staging.tick_batch("packed_shard", 1, self._device)
@@ -700,14 +736,45 @@ class StagingPipeline:
             while True:
                 t0 = time.perf_counter()
                 with annotate("dmlc:transfer_wait"):
-                    item = self._xfer_iter.next()
-                    if item is None:
+                    item = None if self._part_ended else self._xfer_iter.next()
+                    self._part_ended = item is None
+                    more = (item is not None if self._line is None
+                            else self._any_part_left(item is not None))
+                    if not more:
                         return
-                    dev = item.ready()
+                    dev = item.ready() if item is not None else self._padding()
                 self._observe("transfer_wait", time.perf_counter() - t0)
                 yield dev
         finally:
             self.close()
+
+    def _any_part_left(self, have: bool) -> bool:
+        """Whether any rank of this data line still has a batch of its
+        part (one all_reduce on the line's group, on the consumer's
+        thread: a tensor on the CPU for gloo, on the card for NCCL)."""
+        import torch.distributed as dist
+
+        on = "cpu" if dist.get_backend(self._line) == "gloo" else self._device
+        flag = torch.tensor([int(have)], dtype=torch.int32, device=on)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._line)
+        return bool(flag.item())
+
+    def _padding(self) -> Dict[str, torch.Tensor]:
+        """A batch of this part's layout whose every row is padding: the
+        zeros a padded tail row holds, weight 0."""
+        if self._pad_layout is None:
+            check(self._spec is not None,
+                  "this rank's part held no batch, and its source has no "
+                  "BatchSpec (.spec) to lay out a padding batch")
+            from .batcher import alloc_dense_slot, alloc_ell_slot
+
+            alloc = alloc_dense_slot if self._spec.layout == "dense" else alloc_ell_slot
+            buf, views = alloc(self._spec)
+            self._pad_layout = (packed_layout(Batch(n_valid=0, packed=buf, **views)),
+                                buf.nbytes)
+        layout, nbytes = self._pad_layout
+        self.padding_batches += 1
+        return _unpack(torch.zeros(nbytes, dtype=torch.uint8, device=self._device), layout)
 
     def throughput(self) -> Dict[str, float]:
         """rows/s and MB/s since the first iteration, with stage seconds."""
@@ -723,12 +790,18 @@ class StagingPipeline:
         }
 
     def staging_stats(self) -> Dict[str, Any]:
-        """Transfer counts by path and the pinned ring's shape."""
+        """Transfer counts by path and the pinned ring's shape; with local
+        rows, also the all-padding batches yielded after this part ended.
+        A local-rows batch counts as one packed copy, where the JAX
+        multi-process branch counts one put per array and local device
+        under ``per_array``."""
         out = self.staging.snapshot()
         out["dispatch_ring_depth"] = self._depth
         out["dispatch_ring_slots"] = len(self._slots) if self._cuda else 0
         out["slots_adopted"] = self.slots_adopted
         out["slots_adopted_pinned"] = self.slots_adopted_pinned
+        if self._local_rows:
+            out["padding_batches"] = self.padding_batches
         return out
 
     def close(self) -> bool:

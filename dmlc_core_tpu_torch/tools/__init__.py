@@ -1,8 +1,22 @@
 """Command-line tools of the port: ``python -m dmlc_core_tpu_torch.tools``.
 
-The port of the telemetry half of ``dmlc_core_tpu/tools``, with the same
-arguments and output:
+The port of ``dmlc_core_tpu/tools``, with the same arguments and output.
+Every subcommand that takes a URI takes any registered scheme (file,
+s3, gs, hdfs, azure, http, mem).
 
+- ``ls``, ``cat``, ``cp``: list a directory, print a file's bytes, copy
+  one URI to another (the reference's ``filesys_test``).
+- ``split``: stream one part of a sharded URI, with record counts and
+  bytes, or the records with ``--dump`` (``split_test``).
+- ``recordio pack|unpack``: one record a line, and back; ``--codec``
+  packs compressed blocks, ``--index`` writes the count index.
+- ``rowrec``: a libsvm, csv or libfm dataset (or one part of it) to a
+  rowrec ``.rec`` with its index, optionally compressed.
+- ``recompress``: a ``.rec`` between codecs in one stream pass.
+- ``dump``: parsed rows back to text (rowrec to libsvm by default).
+- ``ckpt ls|show|prune``: a checkpoint directory's steps (single-file and
+  sharded ``.d`` alike), a step's tree shapes and data position, and
+  retention.
 - ``info``: the runtime feature report (``build_info()``: the parse core,
   codecs, env flags, torch, CUDA and each device, the CUDA kernels'
   source hash). ``info <uri>`` adds an indexed shard's key count and
@@ -23,14 +37,13 @@ arguments and output:
   daemon (what ``submit --block-cache`` launches) and its operator
   queries.
 
-The other subcommands (``ls``, ``cat``, ``cp``, ``split``, ``recordio``,
-``rowrec``, ``recompress``, ``dump``, ``ckpt``) wait for ``ROADMAP.md``
-§1 item 9b. Importing this module loads no torch.
+Importing this module loads no torch: each command imports what it runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from typing import List, Optional
@@ -38,6 +51,289 @@ from typing import List, Optional
 from ..utils.logging import Error
 
 __all__ = ["main"]
+
+_COPY_CHUNK = 4 << 20
+
+
+def _cmd_ls(args) -> int:
+    from ..io.filesystem import FileSystem
+
+    fs = FileSystem.get_instance(args.uri)
+    lister = fs.list_directory_recursive if args.recursive else fs.list_directory
+    for info in lister(args.uri):
+        print(f"{info.size:>12}  {info.path}")
+    return 0
+
+
+def _cmd_cat(args) -> int:
+    from ..io.stream import Stream
+
+    with Stream.create(args.uri, "r") as s:
+        while True:
+            buf = s.read(_COPY_CHUNK)
+            if not buf:
+                break
+            sys.stdout.buffer.write(buf)
+    sys.stdout.buffer.flush()
+    return 0
+
+
+def _cmd_cp(args) -> int:
+    from ..io.stream import Stream
+
+    with Stream.create(args.src, "r") as src, Stream.create(args.dst, "w") as dst:
+        n = 0
+        while True:
+            buf = src.read(_COPY_CHUNK)
+            if not buf:
+                break
+            dst.write(buf)
+            n += len(buf)
+    print(f"copied {n} bytes {args.src} -> {args.dst}", file=sys.stderr)
+    return 0
+
+
+def _cmd_split(args) -> int:
+    """One part of a URI: its record count and bytes, and with
+    ``--dump`` the records themselves (a newline after each text
+    record)."""
+    from ..io import split as io_split
+
+    sp = io_split.create(args.uri, args.part, args.num_parts, type=args.type,
+                         threaded=False)
+    records = 0
+    nbytes = 0
+    try:
+        while True:
+            rec = sp.next_record()
+            if rec is None:
+                break
+            records += 1
+            nbytes += len(rec)
+            if args.dump:
+                sys.stdout.buffer.write(bytes(rec))
+                if args.type == "text":
+                    sys.stdout.buffer.write(b"\n")
+    finally:
+        sp.close()
+    print(f"part {args.part}/{args.num_parts}: {records} records, {nbytes} bytes",
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_recordio(args) -> int:
+    """pack: one record per input line; unpack: the records back to
+    lines (the frame format carries any bytes)."""
+    from ..io.recordio import IndexedRecordIOWriter, RecordIOReader, RecordIOWriter
+    from ..io.stream import Stream
+
+    if args.action == "pack":
+        if not args.dst:
+            print("error: recordio pack needs a dst URI", file=sys.stderr)
+            return 2
+        with contextlib.ExitStack() as stack:
+            dst = stack.enter_context(Stream.create(args.dst, "w"))
+            codec = _codec_arg(args)
+            writer = (
+                IndexedRecordIOWriter(dst, stack.enter_context(Stream.create(args.index, "w")),
+                                      codec=codec, level=args.level)
+                if args.index
+                else RecordIOWriter(dst, codec=codec, level=args.level)
+            )
+            n = _pack_lines(args.src, writer)
+            writer.flush_block()
+        print(f"packed {n} records", file=sys.stderr)
+    else:
+        with Stream.create(args.src, "r") as src:
+            n = 0
+            for rec in RecordIOReader(src):
+                sys.stdout.buffer.write(rec)
+                sys.stdout.buffer.write(b"\n")
+                n += 1
+        print(f"unpacked {n} records", file=sys.stderr)
+    return 0
+
+
+def _pack_lines(src_uri: str, writer) -> int:
+    """One record per line, through the text splitter. Blank lines are
+    not records: the line splitter takes a run of \\n/\\r as one
+    separator."""
+    from ..io import split as io_split
+
+    sp = io_split.create(src_uri, 0, 1, type="text", threaded=False)
+    n = 0
+    try:
+        while True:
+            line = sp.next_record()
+            if line is None:
+                return n
+            writer.write_record(bytes(line))
+            n += 1
+    finally:
+        sp.close()
+
+
+def _codec_arg(args):
+    """The ``--codec`` option as a writer's codec argument (``none``: v1
+    frames)."""
+    codec = getattr(args, "codec", "none")
+    return None if codec in ("", "none") else codec
+
+
+def _cmd_rowrec(args) -> int:
+    """A text dataset to a rowrec ``.rec`` (and its count index);
+    ``--part/--num-parts`` convert one record-aligned part, ``--codec``
+    packs the rows into compressed blocks."""
+    from ..data import create_parser
+    from ..data.rowrec import write_rowrec
+    from ..io.stream import Stream
+
+    parser = create_parser(args.src, args.part, args.num_parts, type=args.format,
+                           threaded=False)
+    try:
+        with contextlib.ExitStack() as stack:
+            dst = stack.enter_context(Stream.create(args.dst, "w"))
+            idx = stack.enter_context(Stream.create(args.index, "w")) if args.index else None
+            n = write_rowrec(dst, iter(parser), index_stream=idx, codec=_codec_arg(args),
+                             level=args.level)
+    finally:
+        parser.close()
+    print(f"wrote {n} rows to {args.dst}", file=sys.stderr)
+    return 0
+
+
+def _cmd_recompress(args) -> int:
+    """A ``.rec`` (and a fresh index with ``--index``) to another codec
+    in one stream pass: the records are read through ``RecordIOReader``
+    (v1 frames and compressed blocks alike) and written again;
+    ``--codec none`` gives v1 frames back."""
+    from ..io.recordio import (
+        DEFAULT_BLOCK_BYTES,
+        IndexedRecordIOWriter,
+        RecordIOReader,
+        RecordIOWriter,
+    )
+    from ..io.stream import Stream
+
+    codec = _codec_arg(args)
+    block_bytes = args.block_bytes or DEFAULT_BLOCK_BYTES
+    n = 0
+    with contextlib.ExitStack() as stack:
+        src = stack.enter_context(Stream.create(args.src, "r"))
+        dst = stack.enter_context(Stream.create(args.dst, "w"))
+        writer = (
+            IndexedRecordIOWriter(dst, stack.enter_context(Stream.create(args.index, "w")),
+                                  codec=codec, level=args.level, block_bytes=block_bytes)
+            if args.index
+            else RecordIOWriter(dst, codec=codec, level=args.level, block_bytes=block_bytes)
+        )
+        for rec in RecordIOReader(src):
+            writer.write_record(rec)
+            n += 1
+        writer.flush_block()
+        out_bytes = writer.bytes_written
+    print(f"recompressed {n} records -> {args.dst} "
+          f"(codec={codec or 'none'}, {out_bytes} bytes)", file=sys.stderr)
+    return 0
+
+
+def _cmd_dump(args) -> int:
+    """Parsed rows as text on stdout (a rowrec ``.rec`` as libsvm unless
+    the URI names a ``?format=``): ``%.9g`` keeps f32 labels, weights and
+    values exact, qid and libfm fields are written when present, and a
+    binary feature as its bare index; ``--limit`` stops after N rows."""
+    from ..data import create_parser
+    from ..io.uri import URISpec
+
+    uspec = URISpec(args.src, args.part, args.num_parts)
+    uri = args.src
+    if "format" not in uspec.args:
+        head, sep, frag = uri.partition("#")
+        head += ("&" if "?" in head else "?") + "format=rowrec"
+        uri = head + sep + frag
+    parser = create_parser(uri, args.part, args.num_parts, threaded=False)
+    rows = 0
+    out = sys.stdout
+    try:
+        for blk in iter(parser):
+            weights, qid, field, vals = blk.weight, blk.qid, blk.field, blk.value
+            for i in range(blk.size):
+                b, e = int(blk.offset[i]), int(blk.offset[i + 1])
+                label = f"{float(blk.label[i]):.9g}"
+                if weights is not None and float(weights[i]) != 1.0:
+                    label += f":{float(weights[i]):.9g}"
+                toks = [label]
+                if qid is not None:
+                    toks.append(f"qid:{int(qid[i])}")
+                for j in range(b, e):
+                    idx = int(blk.index[j])
+                    if field is not None:
+                        v = 1.0 if vals is None else float(vals[j])
+                        toks.append(f"{int(field[j])}:{idx}:{v:.9g}")
+                    elif vals is None:
+                        toks.append(str(idx))
+                    else:
+                        toks.append(f"{idx}:{float(vals[j]):.9g}")
+                out.write(" ".join(toks) + "\n")
+                rows += 1
+                if args.limit and rows >= args.limit:
+                    print(f"dumped {rows} rows (limit)", file=sys.stderr)
+                    return 0
+    finally:
+        parser.close()
+    print(f"dumped {rows} rows", file=sys.stderr)
+    return 0
+
+
+def _cmd_ckpt(args) -> int:
+    """A checkpoint directory on any URI: ``ls`` its steps with layout
+    (``single`` or ``sharded``) and bytes, ``show`` a step's tree shapes
+    and saved meta, ``prune`` to ``--keep`` steps (0 or less keeps all),
+    through ``Checkpointer``'s ``steps_info``, ``restore``,
+    ``restore_meta`` and ``prune``. A sharded step is assembled whole on
+    the host."""
+    import json
+
+    from ..checkpoint import Checkpointer
+
+    ck = Checkpointer(args.base)
+    if args.action == "ls":
+        print(json.dumps(ck.steps_info(), indent=2))
+        return 0
+    if args.action == "show":
+        try:
+            step, tree = ck.restore(args.step)
+        except (Error, OSError) as e:
+            sys.stderr.write(
+                f"error: no readable checkpoint "
+                f"{'step %s ' % args.step if args.step is not None else ''}"
+                f"under {args.base}: {e}\n")
+            return 1
+
+        def describe(t):
+            if isinstance(t, dict):
+                return {k: describe(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return [describe(v) for v in t]
+            if hasattr(t, "shape") and hasattr(t, "dtype"):
+                return f"{t.dtype}{list(t.shape)}"
+            return repr(t)
+
+        out = {"step": step, "tree": describe(tree)}
+        # an unreadable meta sidecar costs the meta, not the tree
+        try:
+            meta = ck.restore_meta(step)
+        except (Error, OSError) as e:
+            meta = None
+            sys.stderr.write(f"warning: unreadable checkpoint meta: {e}\n")
+        if meta is not None:
+            out["meta"] = meta
+        print(json.dumps(out, indent=2, default=str))
+        return 0
+    # --keep as given: 0 or less keeps every step, as Checkpointer does
+    removed = ck.prune(keep=args.keep)
+    print(json.dumps({"kept": ck.steps(), "removed": removed}))
+    return 0
 
 
 def _cmd_info(args) -> int:
@@ -656,6 +952,82 @@ def build_arg_parser() -> argparse.ArgumentParser:
         description=__doc__.splitlines()[0],
     )
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ls = sub.add_parser("ls", help="list a directory URI")
+    ls.add_argument("uri")
+    ls.add_argument("-r", "--recursive", action="store_true")
+    ls.set_defaults(fn=_cmd_ls)
+
+    cat = sub.add_parser("cat", help="print a URI's bytes to stdout")
+    cat.add_argument("uri")
+    cat.set_defaults(fn=_cmd_cat)
+
+    cp = sub.add_parser("cp", help="copy src URI to dst URI")
+    cp.add_argument("src")
+    cp.add_argument("dst")
+    cp.set_defaults(fn=_cmd_cp)
+
+    spl = sub.add_parser("split", help="stream one shard of a URI")
+    spl.add_argument("uri")
+    spl.add_argument("part", type=int)
+    spl.add_argument("num_parts", type=int)
+    spl.add_argument("--type", default="text",
+                     choices=("text", "recordio", "indexed_recordio"))
+    spl.add_argument("--dump", action="store_true", help="echo records to stdout")
+    spl.set_defaults(fn=_cmd_split)
+
+    def add_codec_opts(sp) -> None:
+        from ..io.codec import available_codecs
+
+        sp.add_argument("--codec", default="none", choices=["none"] + available_codecs(),
+                        help="compress records into blocks (none = v1 frames)")
+        sp.add_argument("--level", default=None, type=int,
+                        help="codec compression level (codec default)")
+
+    rio = sub.add_parser("recordio", help="pack/unpack line records")
+    rio.add_argument("action", choices=("pack", "unpack"))
+    rio.add_argument("src")
+    rio.add_argument("dst", nargs="?", default="",
+                     help="output URI (pack); unpack prints to stdout")
+    rio.add_argument("--index", default="", help="also write a count index (pack only)")
+    add_codec_opts(rio)
+    rio.set_defaults(fn=_cmd_recordio)
+
+    rr = sub.add_parser("rowrec", help="convert a text dataset to rowrec .rec")
+    rr.add_argument("src", help="source URI (?format= honored)")
+    rr.add_argument("dst", help="output .rec URI")
+    rr.add_argument("--format", default="auto", choices=("auto", "libsvm", "csv", "libfm"))
+    rr.add_argument("--index", default="", help="also write a count index")
+    rr.add_argument("--part", default=0, type=int, help="convert only this shard of src")
+    rr.add_argument("--num-parts", default=1, type=int)
+    add_codec_opts(rr)
+    rr.set_defaults(fn=_cmd_rowrec)
+
+    rcx = sub.add_parser("recompress", help="convert a .rec between codecs in one stream pass")
+    rcx.add_argument("src", help="source .rec URI (v1 or compressed)")
+    rcx.add_argument("dst", help="output .rec URI")
+    rcx.add_argument("--index", default="", help="write a fresh index sidecar for dst")
+    rcx.add_argument("--block-bytes", default=None, type=int,
+                     help="raw bytes buffered per compressed block")
+    add_codec_opts(rcx)
+    # recompress compresses unless told otherwise; --codec none converts
+    # a compressed file back to v1 frames
+    rcx.set_defaults(fn=_cmd_recompress, codec="zlib")
+
+    dp = sub.add_parser("dump", help="decode a rowrec .rec back to libsvm text")
+    dp.add_argument("src", help=".rec URI (shardable)")
+    dp.add_argument("--part", default=0, type=int)
+    dp.add_argument("--num-parts", default=1, type=int)
+    dp.add_argument("--limit", default=0, type=int, help="stop after N rows (0 = all)")
+    dp.set_defaults(fn=_cmd_dump)
+
+    ck = sub.add_parser("ckpt", help="inspect/prune checkpoint directories (any URI)")
+    ck.add_argument("action", choices=["ls", "show", "prune"])
+    ck.add_argument("base", help="checkpoint base URI")
+    ck.add_argument("--step", type=int, default=None,
+                    help="step for 'show' (default: newest)")
+    ck.add_argument("--keep", type=int, default=3, help="retention count for 'prune'")
+    ck.set_defaults(fn=_cmd_ckpt)
 
     info = sub.add_parser(
         "info",

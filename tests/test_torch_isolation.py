@@ -99,6 +99,17 @@ TRACKER_MODULES = [
     "dmlc_core_tpu_torch.stream.writer",
     "dmlc_core_tpu_torch.stream.source",
     "dmlc_core_tpu_torch.io.lookup",
+    # parameter structs, registries and configs, the row-block iterators,
+    # thread lifecycles and the common helpers: host code without torch
+    "dmlc_core_tpu_torch.params",
+    "dmlc_core_tpu_torch.params.parameter",
+    "dmlc_core_tpu_torch.params.registry",
+    "dmlc_core_tpu_torch.params.config",
+    "dmlc_core_tpu_torch.examples.parameter_demo",
+    "dmlc_core_tpu_torch.data.row_iter",
+    "dmlc_core_tpu_torch.data.row_block",
+    "dmlc_core_tpu_torch.concurrency.thread_group",
+    "dmlc_core_tpu_torch.utils.common",
 ]
 
 # the modules of the indexed, shuffled path, the checkpoints, the example
