@@ -19,12 +19,17 @@ Phases (any failure exits non-zero and prints no result line):
    chunks of the gradient scatters, B a multiple of no block's rows nor
    B*K of the scatters' tiles), on the scatters' own edge inputs (every
    row naming the same K rows; every entry naming its own row, so a
-   tile's table holds a whole tile of keys) and on a dense gradient that
-   is not 16-byte aligned (through the C entry point); then the kernel,
-   the plain version and a one-call PyTorch yardstick timed with CUDA
-   events on Criteo-shaped inputs, beside the time of an empty launch
-   (``floor_us``) and, for the scatters, of the zero-fill of their dense
-   gradient (``zero_fill_us``);
+   tile holds a whole tile of runs) and on a dense gradient that is not
+   16-byte aligned; the scatters' determinism gate: K2 and K4 launched
+   20 times each on three batches (Criteo rows, every entry naming one
+   row, NaN values beside out-of-range indices), every output
+   bit-identical to the first launch's, and again from two host threads
+   on one stream; then the kernel, the plain version and a one-call
+   PyTorch yardstick timed with CUDA events on Criteo-shaped inputs,
+   beside the time of an empty launch (``floor_us``) and, for the
+   scatters, of the zero-fill of their dense gradient (``zero_fill_us``)
+   and of the yardstick under ``torch.use_deterministic_algorithms``
+   (``library_deterministic_ms``: a scatter whose bits are fixed too);
 4. the native producers on the host alone (no card): Criteo rowrec → ELL
    (f16 and f32), Criteo sparse libsvm and libfm → ELL, HIGGS libsvm and
    csv → dense, each held bit for bit against its plain version
@@ -117,7 +122,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``io_stats()``, ``tools trace merge`` holding spans of the tracker and
    both workers with flow arrows between the ranks, ``tools info``
    naming the card;
-11. tracker-leased micro-shards at the Criteo width (2^17 indexed rows,
+11. tracker-leased micro-shards at the Criteo width (2^16 indexed rows,
    ``shuffle=batch``, ``&dynamic_shards=1``, 4
    micro-shards a worker; native producer, pinned staging, K1-K4): (a)
    one worker and a port ``RabitTracker`` in this process, each leased
@@ -272,7 +277,21 @@ Phases (any failure exits non-zero and prints no result line):
    and its producer's host seconds. Last, the port of
    ``dryrun_multichip(4)`` on the card (4 gloo ranks, its own small FM
    on a (2, 2) mesh) and its report;
-19. the ``entry()`` forward on the card against the CPU.
+19. the cluster backends: the Criteo FM at full width, 2 workers on the
+   card for 4 steps over the tree, launched by ``python -m
+   dmlc_core_tpu_torch.tracker.submit`` on the local cluster and then on
+   ``ssh``, ``slurm`` and ``mpi`` side by side, each through a fake
+   binary that runs the payload on this host (``FAKE_BINARIES``, the
+   test suite's, which the CPU tests hold equal): every job ends 0, every rank launches K1-K4 once
+   a step, its ranks are bit-identical and its params within
+   ``PARAM_REL`` of the local job's (whether bit-identical is printed);
+   the same job with one worker, twice, gives bit-identical params (the
+   gradient scatters fix their order of summation); and ``submit
+   --dry-run`` on sge, mesos, kubernetes, tpu-pod, yarn and yarn over
+   ``DMLC_YARN_REST`` prints what the JAX package's submit prints
+   (``tests/data/torch_submit_dry_runs.json``, recorded and checked on
+   the CPU), apart from the AM module string;
+20. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -284,8 +303,10 @@ an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
 ``{"telemetry": {...}}``, a ``{"shards": {...}}``, a ``{"dsserve":
 {...}}``, a ``{"faults": {...}}``, an ``{"autoscale": {...}}``, a
 ``{"remote": {...}}``, a ``{"stream": {...}}``, a ``{"lookup":
-{...}}``, a ``{"parallel": {...}}`` and a ``{"phase_seconds": {...}}`` line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+{...}}``, a ``{"parallel": {...}}``, a ``{"backends": {...}}`` and a
+``{"phase_seconds": {...}}`` line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``, after
+checking that it loaded no module of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -299,6 +320,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -336,9 +358,85 @@ SCATTER_KINDS = ("contention", "distinct")
 # scale is the sum of the magnitudes of the terms summed (the sums run in
 # another order, and the pair term ½Σ(s² − q) cancels, so its rounding
 # error scales with s², not with the result); gradients: <= GRAD_REL ·
-# max|plain| (f32 atomics on hot rows add in an order that changes from
-# run to run)
+# max|plain| (the scatters sum a row's entries in another order than the
+# plain index_add_, and the partials of a row that several tiles name
+# exactly, rounded once)
 FWD_REL, FWD_ABS, GRAD_REL = 1e-5, 1e-6, 1e-4
+# the scatters' determinism gate: launches of K2 and of K4 on each of its
+# batches, every output bit-identical to the first launch's
+DETERMINISM_LAUNCHES = 20
+# top-level packages this script and the port must never load
+FOREIGN_MODULES = ("jax", "jaxlib", "flax", "dmlc_core_tpu")
+
+# stand-ins for ssh, srun and mpirun that run the payload on this host
+# (the same scripts as the test suite's, tests/test_backend_fakes.py)
+FAKE_BINARIES = {
+    "ssh": """#!/bin/sh
+# ssh stand-in: skip options (-o X, -p N), then host, then the command
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -o|-p) shift 2 ;;
+    -*) shift ;;
+    *) break ;;
+  esac
+done
+host="$1"; shift
+exec sh -c "$@"
+""",
+    "srun": """#!/usr/bin/env python3
+import os, subprocess, sys
+
+args = sys.argv[1:]
+ntasks = 1
+cmd = []
+for i, a in enumerate(args):
+    if a.startswith("--ntasks="):
+        ntasks = int(a.split("=", 1)[1])
+    elif a.startswith("--nodes="):
+        pass
+    elif a.startswith("--export="):
+        spec = a.split("=", 1)[1]
+        for kv in spec.split(",")[1:]:  # first token is ALL
+            k, v = kv.split("=", 1)
+            os.environ[k] = v
+    else:
+        cmd = args[i:]
+        break
+procs = []
+for rank in range(ntasks):
+    env = dict(os.environ)
+    env["SLURM_PROCID"] = str(rank)
+    procs.append(subprocess.Popen(cmd, env=env))
+codes = [p.wait() for p in procs]  # wait for ALL tasks, like real srun
+sys.exit(next((c for c in codes if c), 0))
+""",
+    "mpirun": """#!/usr/bin/env python3
+# mpirun stand-in (openmpi arg surface): `mpirun -n N -x K=V ... cmd`
+# spawns N local copies with the -x env applied, waits for all.
+import os, subprocess, sys
+
+args = sys.argv[1:]
+n = 1
+env = dict(os.environ)
+cmd = []
+i = 0
+while i < len(args):
+    a = args[i]
+    if a == "--version":
+        print("mpirun (Open MPI) 4.1-fake"); sys.exit(0)
+    if a == "-n":
+        n = int(args[i + 1]); i += 2
+    elif a == "-x":
+        k, v = args[i + 1].split("=", 1); env[k] = v; i += 2
+    elif a == "--hostfile":
+        i += 2
+    else:
+        cmd = args[i:]; break
+procs = [subprocess.Popen(cmd, env=env) for _ in range(n)]
+codes = [p.wait() for p in procs]
+sys.exit(next((c for c in codes if c), 0))
+""",
+}
 
 
 def fail(msg: str) -> None:
@@ -451,22 +549,17 @@ def shifted(t):
 
 
 def check_unaligned_scatters(idx, val, v, s, g, err: dict) -> None:
-    """K2 and K4 through their C entry points into zeroed dense gradients
-    that are not 16-byte aligned (the wrappers' own are), against the
-    plain versions."""
-    from dmlc_core_tpu_torch.ops import _build, fm as opfm, sparse as ops
+    """K2 and K4 into zeroed dense gradients that are not 16-byte aligned
+    (the wrappers' own are), against the plain versions."""
+    from dmlc_core_tpu_torch.ops import fm as opfm, sparse as ops
 
     d, e = v.shape
-    f16 = int(val.dtype == torch.float16)
     gw = shifted(torch.zeros(d, device=v.device))
     gv = shifted(torch.zeros(d, e, device=v.device))
     if not (gw.data_ptr() % 16 and gv.data_ptr() % 16):
         fail("the shifted dense gradients are 16-byte aligned")
-    b, k = idx.shape
-    _build.launch("ell_matvec_bwd", v.device, idx.data_ptr(), val.data_ptr(), f16,
-                  g.data_ptr(), gw.data_ptr(), b, k, d)
-    _build.launch("fm_pair_bwd", v.device, idx.data_ptr(), val.data_ptr(), f16,
-                  v.data_ptr(), s.data_ptr(), g.data_ptr(), gv.data_ptr(), b, k, e, d)
+    ops.ell_matvec_bwd_into(idx, val, g, gw)
+    opfm.fm_pair_bwd_into(idx, val, v, s, g, gv)
     err["ell_matvec_bwd"] = max(err["ell_matvec_bwd"], close_enough(
         gw, ops.ell_matvec_bwd_plain(idx, val, g, d), "grad", "K2 unaligned gw"))
     err["fm_pair_bwd"] = max(err["fm_pair_bwd"], close_enough(
@@ -526,6 +619,84 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def two_threads(kern, bits, what: str) -> dict:
+    """``kern`` launched DETERMINISM_LAUNCHES times from each of two host
+    threads on one stream, interleaved as the threads run: every output
+    must equal ``bits`` (int32)."""
+    got = {t: [] for t in range(2)}
+
+    def launch(t):
+        for _ in range(DETERMINISM_LAUNCHES):
+            got[t].append(kern())
+
+    threads = [threading.Thread(target=launch, args=(t,)) for t in got]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if not all(torch.equal(o.view(torch.int32), bits) for outs in got.values() for o in outs):
+        fail(f"{what} from two threads on one stream differs from one thread's launch")
+    return {"launches": 2 * DETERMINISM_LAUNCHES, "bit_identical": True}
+
+
+def scatter_determinism(rng, dev, v, g) -> dict:
+    """K2 and K4 launched DETERMINISM_LAUNCHES times each on three batches
+    at the slice's B, K and D: Criteo rows (13 dense columns in every
+    row), a batch whose every entry names one row, and ``edge_inputs``
+    (out-of-range indices) with NaN values in 8 rows. Every launch's
+    output must equal the first's bit for bit (compared as int32), and the
+    first must lie within tolerance of the plain version. On the Criteo
+    batch, two host threads then launch each on one stream, every output
+    again bit-identical. Returns, per batch and kernel, the launches and
+    the largest |kernel - plain|."""
+    from dmlc_core_tpu_torch.ops import fm as opfm, sparse as ops
+
+    idx_c, val_c = criteo_rows(rng, B, D)
+    idx_n, val_n = edge_inputs(rng, dev, False)
+    val_n[200:208, 20] = float("nan")
+    batches = {
+        "criteo": (torch.from_numpy(idx_c.astype(np.int32)).to(dev),
+                   torch.from_numpy(val_c).to(dev)),
+        "one_row": (torch.full((B, K), int(rng.integers(D)), dtype=torch.int32, device=dev),
+                    torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32)).to(dev)),
+        "nan_oob": (idx_n, val_n),
+    }
+    out = {}
+    for name, (idx, val) in batches.items():
+        s = opfm.fm_pair_fwd_plain(idx, val, v)[1]
+        pairs = {
+            "ell_matvec_bwd": (lambda: ops.ell_matvec_bwd_kernel(idx, val, g, D),
+                               lambda: ops.ell_matvec_bwd_plain(idx, val, g, D)),
+            "fm_pair_bwd": (lambda: opfm.fm_pair_bwd_kernel(idx, val, v, s, g),
+                            lambda: opfm.fm_pair_bwd_plain(idx, val, v, s, g)),
+        }
+        out[name] = {}
+        for kname, (kern, plain) in pairs.items():
+            first = kern()
+            err = close_enough(first, plain(), "grad", f"{kname} determinism {name}")
+            bits = first.view(torch.int32)
+            for i in range(1, DETERMINISM_LAUNCHES):
+                if not torch.equal(kern().view(torch.int32), bits):
+                    fail(f"{kname} on the {name} batch: launch {i} differs from launch 0")
+            out[name][kname] = {"launches": DETERMINISM_LAUNCHES, "bit_identical": True,
+                                "max_abs_err": err}
+            if name == "criteo":
+                out[name][kname]["two_threads_one_stream"] = two_threads(kern, bits, kname)
+    return out
+
+
+def deterministic(fn):
+    """``fn()`` under ``torch.use_deterministic_algorithms(True)``, the
+    mode restored after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def kernel_phase(dev, flush):
     """Compare K1-K4 with their plain versions on edge inputs, then time
     kernel / plain / library on Criteo-shaped inputs, beside an empty
@@ -558,10 +729,14 @@ def kernel_phase(dev, flush):
             check_kernels(idx_s, val_s, torch.randn(d, generator=gen, device=dev),
                           torch.randn(d, E, generator=gen, device=dev), g,
                           f"{tag} {kind}", err)
+    determinism = scatter_determinism(rng, dev, v, g)
     torch.cuda.synchronize()
     for e_err in by_e.values():
         for name in KERNEL_NAMES:
             err[name] = max(err[name], e_err[name])
+    for per_kernel in determinism.values():
+        for name, d in per_kernel.items():
+            err[name] = max(err[name], d["max_abs_err"])
 
     # timing inputs: the main path's shape and data (f32 values)
     idx_np, val_np = criteo_rows(rng, B, D)
@@ -616,6 +791,13 @@ def kernel_phase(dev, flush):
             "floor_us": floor_ms * 1e3,
             "zero_fill_us": None if zero_fill is None else time_ms(zero_fill, flush) * 1e3,
         })
+        if name in determinism["criteo"]:
+            out[-1]["determinism"] = {b: d[name] for b, d in determinism.items()}
+            try:
+                out[-1]["library_deterministic_ms"] = deterministic(lambda: time_ms(lib, flush))
+            except RuntimeError as e:  # a torch without a deterministic index_add_
+                out[-1]["library_deterministic_ms"] = None
+                out[-1]["library_deterministic_error"] = str(e)[:200]
     return out
 
 
@@ -931,7 +1113,8 @@ def profile_steps(model, batch, lr: float, n: int = 8):
         "device_ms_per_step": busy / n * 1e3, "device_busy_share": busy / wall,
         # K1-K4 by name (their share of the step is this over the above)
         "kernel_ms_per_step": {
-            name: sum(t for key, t in dev if f"{name}_kernel" in key) * 1e-3 / n
+            name: sum(t for key, t in dev
+                      if any(part in key for part in kernel_parts(name))) * 1e-3 / n
             for name in KERNEL_NAMES},
         "top": [{"name": k[:90], "ms_per_step": t * 1e-3 / n}
                 for k, t in sorted(dev, key=lambda kt: -kt[1])[:8]],
@@ -1479,9 +1662,9 @@ DRILL_FAULTS = "kill_seq=4,kill_rank=2,kill_phase=start"
 HIGGS_WORKERS = 2
 # final params against the one-process simulation, across two clean runs
 # and kill against clean: max |a - b| <= PARAM_REL · max|b| per tensor
-# (tests/test_torch_slice.py's tolerance; K2 and K4 add with f32 atomics
-# in an order that changes from run to run, so no two runs on the card
-# are bit-identical). Across the ranks of one run: bit for bit.
+# (tests/test_torch_slice.py's tolerance: a replay folds the ranks'
+# gradients in another order, and a relaunched rank bootstraps from a
+# peer's checkpoint). Across the ranks of one run: bit for bit.
 PARAM_REL = 1e-4
 JOB_TIMEOUT = 300
 
@@ -1565,8 +1748,8 @@ w.shutdown()
 '''
 
 
-def submit_job(args, env=None, timeout: float = JOB_TIMEOUT):
-    """``python -m dmlc_core_tpu_torch.tracker.submit --cluster local
+def submit_job(args, env=None, timeout: float = JOB_TIMEOUT, cluster: str = "local"):
+    """``python -m dmlc_core_tpu_torch.tracker.submit --cluster <cluster>
     --host-ip 127.0.0.1 args`` from the checkout's root, in a process
     group of its own that is killed whole past ``timeout``; fails on a
     non-zero exit. Returns (stdout, wall seconds)."""
@@ -1576,7 +1759,7 @@ def submit_job(args, env=None, timeout: float = JOB_TIMEOUT):
     full_env = dict(os.environ, PYTHONPATH=repo, **(env or {}))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit", "--cluster", "local",
+        [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit", "--cluster", cluster,
          "--host-ip", "127.0.0.1", *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=full_env, cwd=repo,
         start_new_session=True)
@@ -1591,7 +1774,7 @@ def submit_job(args, env=None, timeout: float = JOB_TIMEOUT):
     if proc.returncode != 0:
         fail(f"launched job {args[:6]} exited {proc.returncode}:\n{stdout[-3000:]}\n"
              f"{stderr[-3000:]}")
-    print(f"collective: job {' '.join(args[:4])} ... done in {wall:.1f} s", file=sys.stderr)
+    print(f"{cluster}: job {' '.join(args[:4])} ... done in {wall:.1f} s", file=sys.stderr)
     return stdout, wall
 
 
@@ -1691,7 +1874,7 @@ def full_width_jobs(rec, dev, tmp, steps=COLL_STEPS, num_features=D, embed_dim=E
         check_gap(gap, f"collective {path} against the one-process simulation")
         out[path] = {"wall_s": wall, "ranks": ranks, "vs_simulation": gap}
     # for two ranks both paths add the same two numbers, so tree against
-    # ring is a clean-against-clean gap: the atomics' noise alone
+    # ring is a clean-against-clean gap
     out["tree_vs_ring"] = param_gap(finals["ring"], finals["tree"])
     return out, launches
 
@@ -1780,15 +1963,26 @@ def registry_delta(before, after, kind, key, field=None):
     return (now or 0) - (was or 0)
 
 
+def kernel_parts(name: str):
+    """The device kernels one launch of kernel ``name`` runs, as
+    substrings of their mangled names: the gradient scatters run their
+    tile kernel, then their flush."""
+    return (f"{name}_kernel",) + ((f"{name}_flush_kernel",) if name.endswith("_bwd") else ())
+
+
 def trace_kernels(events):
-    """Device µs of K1-K4 in a torch Chrome trace: kernel events matched
-    by substring of their mangled names."""
+    """Device µs of K1-K4 a launch in a torch Chrome trace: kernel events
+    matched by substring of their mangled names; a scatter's µs add its
+    tile kernel's and its flush's, and its events count the tile
+    kernel's."""
     out = {}
     for name in KERNEL_NAMES:
-        durs = [e["dur"] for e in events if e.get("cat") == "kernel"
-                and f"{name}_kernel" in e.get("name", "")]
-        out[name] = {"events": len(durs), "us_mean": float(np.mean(durs)) if durs else None,
-                     "us_median": float(np.median(durs)) if durs else None}
+        durs = [[e["dur"] for e in events if e.get("cat") == "kernel"
+                 and part in e.get("name", "")] for part in kernel_parts(name)]
+        n = len(durs[0])
+        out[name] = {"events": n,
+                     "us_mean": sum(sum(d) for d in durs) / n if n else None,
+                     "us_median": sum(float(np.median(d)) for d in durs if d) if n else None}
     return out
 
 
@@ -2089,7 +2283,7 @@ def ptxas_summary(log: str):
         r"(\d+) bytes spill loads\s+ptxas info\s+: Used (\d+) registers"
         r"(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", log, re.S):
         name, stores, loads, regs, smem = m.groups()
-        short = re.search(r"\d((?:ell_matvec|fm_pair|empty)\w*?_kernel(?:I\w*?E)?)E*v", name)
+        short = re.search(r"\d((?:ell_matvec|fm_pair|empty)\w*?_kernel(?:I\w*?E)?)(?:E*v|E)", name)
         out.append({"function": short.group(1) if short else name,
                     "registers": int(regs), "spill_bytes": int(stores) + int(loads),
                     "smem_bytes": int(smem or 0)})
@@ -2097,7 +2291,7 @@ def ptxas_summary(log: str):
 
 
 # the shards phase: tracker-leased micro-shards of SHARD_ROWS indexed
-# rows (the shuffle phase's rows cut to half, for time; shuffle=batch),
+# rows (the shuffle phase's rows cut to a quarter, for time; shuffle=batch),
 # SHARD_OVERSPLIT a worker; (a) one
 # worker in this process, in turns with a static drain of the same file,
 # (b) SHARD_WORKERS workers through the launcher beside the same job over
@@ -2110,7 +2304,7 @@ def ptxas_summary(log: str):
 # left with no lease to take blocks its trainer, and through the lockstep
 # allreduce the holder of the last shard, until that lease expires
 SHARD_OVERSPLIT, SHARD_WORKERS, SHARD_PAUSE, SHARD_TTL, SHARD_LR = 4, 2, 2, 120, 0.5
-SHARD_ROWS = 1 << 17
+SHARD_ROWS = 1 << 16
 SHARD_OPEN_TTL = 30
 SHARD_EXAMPLE_ROWS = 8 * 2 * 2048  # 2 batches a micro-shard at 2 workers x 4
 
@@ -5013,6 +5207,139 @@ def parallel_phase(dev, card: str):
     return out, launches
 
 
+# the backends phase: BACKEND_WORKERS workers at the Criteo width take
+# BACKEND_STEPS steps each over their part of BACKEND_ROWS indexed rows,
+# launched through submit on the local cluster, then on each of
+# BACKEND_CLUSTERS side by side (FAKE_BINARIES' ssh, srun and mpirun on
+# PATH run the payload on this host), allreducing [grads, 1]
+# over the tree a step; then the same job with one worker, twice side by
+# side
+BACKEND_CLUSTERS = ("ssh", "slurm", "mpi")
+BACKEND_WORKERS, BACKEND_STEPS = 2, 4
+BACKEND_ROWS = BACKEND_WORKERS * 2 * BACKEND_STEPS * B
+# the clusters whose submit --dry-run is held to the JAX package's output,
+# recorded on the CPU into DRY_RUN_GOLDEN (tests/test_torch_launch.py holds
+# the JAX submit and the port's to it); "yarn-rest": yarn with
+# DMLC_YARN_REST set, whose context names the port's AM module
+DRY_RUN_CLUSTERS = ("sge", "mesos", "kubernetes", "tpu-pod", "yarn", "yarn-rest")
+DRY_RUN_GOLDEN = os.path.join("tests", "data", "torch_submit_dry_runs.json")
+PORT_AM, JAX_AM = "dmlc_core_tpu_torch.tracker.yarn_am", "dmlc_core_tpu.tracker.yarn_am"
+
+
+def submit_dry_run(module: str, cluster: str) -> str:
+    """The stdout of ``python -m <module> --cluster <cluster> ... --dry-run``
+    (``module``: a package's ``tracker.submit``) for a 2-worker job, run
+    from the checkout's root with every knob its output reads pinned."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DMLC_YARN_REST", "MESOS_MASTER", "DMLC_SUBMIT_CLUSTER")}
+    env.update(PYTHONPATH=repo, DMLC_MAX_ATTEMPT="3", DMLC_YARN_PYTHON="python3")
+    if cluster == "yarn-rest":
+        env["DMLC_YARN_REST"] = "http://rm.invalid:8088"
+    flags = {"mesos": ["--mesos-master", "master:5050"],
+             "tpu-pod": ["--tpu-name", "pod", "--tpu-zone", "us-central2-b"]}.get(cluster, [])
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--cluster", cluster.replace("-rest", ""),
+         "--num-workers", "2", "--num-servers", "0" if cluster == "tpu-pod" else "1",
+         "--host-ip", "127.0.0.1", "--dry-run", *flags, "python", "train.py", "--name", "run 1"],
+        capture_output=True, text=True, env=env, cwd=repo, timeout=120)
+    if proc.returncode != 0:
+        fail(f"{module} --cluster {cluster} --dry-run exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def backends_phase(dev):
+    """The Criteo FM through the cluster backends: BACKEND_WORKERS workers
+    on the card launched by submit on the local cluster and on each of
+    BACKEND_CLUSTERS over the same file, each rank launching K1-K4 once a
+    step, its ranks bit-identical and its params within PARAM_REL of the
+    local job's (and whether bit-identical printed); the 1-worker local job
+    twice, bit-identical; then each of DRY_RUN_CLUSTERS' dry runs equal to
+    the JAX package's output, apart from the AM module string. Returns the
+    ``{"backends": ...}`` line and the workers' launches."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        bindir = os.path.join(tmp, "bin")
+        os.mkdir(bindir)
+        for name, body in FAKE_BINARIES.items():
+            with open(os.path.join(bindir, name), "w") as f:
+                f.write(body)
+            os.chmod(os.path.join(bindir, name), 0o755)
+        hosts = os.path.join(tmp, "hosts")
+        with open(hosts, "w") as f:
+            f.write("127.0.0.1\n127.0.0.1\n")
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"),
+                            *criteo_data(np.random.default_rng(5), BACKEND_ROWS, D))
+        script = os.path.join(tmp, "coll_worker.py")
+        with open(script, "w") as f:
+            f.write(COLL_WORKER.format(repo=repo))
+        env = {"PATH": f"{bindir}:{os.environ.get('PATH', '')}"}
+
+        def job(cluster, workers, tag):
+            """(rank 0's params, the job's line, its ranks' launches)."""
+            prefix = os.path.join(tmp, f"backend_{tag}")
+            extra = ["--host-file", hosts] if cluster == "ssh" else []
+            _, wall = submit_job(
+                [*extra, "--num-workers", str(workers), sys.executable, script, rec, prefix,
+                 "tree", str(BACKEND_STEPS), str(COLL_LR), dev.type, str(D), str(E), str(B),
+                 str(K)], env=env, cluster=cluster)
+            params = rank_files(prefix, workers)
+            ranks, ran = [], dict.fromkeys(KERNEL_NAMES, 0)
+            for r in range(workers):
+                with open(f"{prefix}.rank{r}.json") as f:
+                    res = json.load(f)
+                if any(res["launches"][k] != BACKEND_STEPS for k in KERNEL_NAMES):
+                    fail(f"backend {tag} rank {r}: launches {res['launches']}, "
+                         f"want {BACKEND_STEPS} each")
+                for k in KERNEL_NAMES:
+                    ran[k] += res["launches"][k]
+                if not all(np.isfinite(res["losses"])):
+                    fail(f"backend {tag} rank {r}: losses {res['losses']}")
+                ranks.append({"rank": r, "launches": res["launches"],
+                              "step_ms": statistics.median(res["split_s"]["step"]) * 1e3,
+                              "loss_first": res["losses"][0], "loss_last": res["losses"][-1]})
+            return params, {"wall_s": wall, "ranks": ranks}, ran
+
+        def jobs(specs):
+            """The jobs (cluster, workers, tag) side by side on the card,
+            their launches added up."""
+            with ThreadPoolExecutor(len(specs)) as pool:
+                done = list(pool.map(lambda spec: job(*spec), specs))
+            for _, _, ran in done:
+                for k in KERNEL_NAMES:
+                    launches[k] += ran[k]
+            return [(params, line) for params, line, _ in done]
+
+        [(ref, out["local"])] = jobs([("local", BACKEND_WORKERS, "local")])
+        for cluster, (params, line) in zip(BACKEND_CLUSTERS, jobs(
+                [(c, BACKEND_WORKERS, c) for c in BACKEND_CLUSTERS])):
+            gap = param_gap(params, ref)
+            check_gap(gap, f"backend {cluster} against the local job")
+            out[cluster] = dict(line, vs_local=gap, bit_identical_to_local=all(
+                params[k].tobytes() == ref[k].tobytes() for k in ref))
+        (once, _), (twice, _) = jobs([("local", 1, f"one_worker_{i}") for i in range(2)])
+        if any(once[k].tobytes() != twice[k].tobytes() for k in once):
+            fail("two runs of the same 1-worker job gave params that differ: "
+                 f"{param_gap(twice, once)}")
+        out["one_worker_twice_bit_identical"] = True
+    with open(os.path.join(repo, DRY_RUN_GOLDEN)) as f:
+        golden = json.load(f)
+    for cluster in DRY_RUN_CLUSTERS:
+        got = submit_dry_run("dmlc_core_tpu_torch.tracker.submit", cluster)
+        if cluster == "yarn-rest":
+            if PORT_AM not in got:
+                fail(f"the yarn REST dry run names no {PORT_AM}")
+            got = got.replace(PORT_AM, JAX_AM)
+        if got != golden[cluster]:
+            fail(f"submit --cluster {cluster} --dry-run differs from the JAX package's:\n"
+                 f"{got[:1500]}")
+    out["dry_runs_equal_to_jax"] = list(DRY_RUN_CLUSTERS)
+    return out, launches
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -5041,6 +5368,7 @@ def run_only(names, dev, smi_line: str, timed) -> None:
         "stream": lambda: stream_phase(dev, smi_line)[0],
         "lookup": lambda: lookup_phase(smi_line),
         "parallel": lambda: parallel_phase(dev, smi_line)[0],
+        "backends": lambda: backends_phase(dev)[0],
         "entry": lambda: entry_phase(dev),
     }
     unknown = [n for n in names if n not in calls]
@@ -5126,6 +5454,7 @@ def main(argv=None) -> None:
     stream, stream_launches = timed("stream", stream_phase, dev, smi_line)
     lookup = timed("lookup", lookup_phase, smi_line)
     parallel, par_launches = timed("parallel", parallel_phase, dev, smi_line)
+    backends, backend_launches = timed("backends", backends_phase, dev)
     timed("entry", entry_phase, dev)
     torch.cuda.synchronize()
     seconds["total"] = time.perf_counter() - t0
@@ -5138,7 +5467,7 @@ def main(argv=None) -> None:
              + shard_launches[row["name"]] + dsserve_launches[row["name"]]
              + fault_launches[row["name"]] + autoscale_launches[row["name"]]
              + remote_launches[row["name"]] + stream_launches[row["name"]]
-             + par_launches[row["name"]]
+             + par_launches[row["name"]] + backend_launches[row["name"]]
              + examples["train_online_fm"]["launches"][row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
@@ -5167,7 +5496,11 @@ def main(argv=None) -> None:
     print(json.dumps({"stream": stream}))
     print(json.dumps({"lookup": lookup}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"backends": backends}))
     print(json.dumps({"phase_seconds": seconds}))
+    foreign = sorted(n for n in sys.modules if n.split(".")[0] in FOREIGN_MODULES)
+    if foreign:
+        fail(f"the run loaded modules of JAX or of the JAX package: {foreign[:20]}")
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

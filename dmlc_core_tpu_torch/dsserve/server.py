@@ -713,6 +713,10 @@ class DsServeServer:
         _CLIENTS.inc()
         ring = None
         ack_thread = None
+        # lease mode: (keep alive, give back) for the shards whose FIN
+        # went out, run once the client has closed its end (see
+        # _stream_leased)
+        after_close: list = []
         try:
             conn.settimeout(30.0)
             kind, meta, _payload, _seq, _ep = wire.recv_frame(conn)
@@ -743,7 +747,7 @@ class DsServeServer:
                 ack_thread.start()
             plane = _DataPlane(ring, _WireCompressor(), _SendThrottle())
             if cfg.mode == "lease":
-                self._stream_leased(conn, cfg, plane)
+                self._stream_leased(conn, cfg, plane, after_close)
             else:
                 self._stream_static(conn, cfg, plane)
         except (Error, ValueError, KeyError) as e:
@@ -770,7 +774,9 @@ class DsServeServer:
             # a wedged client from pinning the ring forever (it then
             # degrades to TCP through the reconnect path, exactly-once
             # intact).
-            if ack_thread is not None:
+            if after_close:
+                self._await_close(conn, ack_thread, [k for k, _ in after_close])
+            elif ack_thread is not None:
                 ack_thread.join(timeout=default_send_timeout())
             try:
                 conn.close()
@@ -778,6 +784,37 @@ class DsServeServer:
                 pass
             if ring is not None:
                 ring.close()
+            for _keep, give_back in after_close:
+                give_back()
+
+    @staticmethod
+    def _await_close(conn, ack_thread, keep_alive) -> None:
+        """Wait, at most the send timeout, until the client closes a
+        finished stream: it has then committed every shard it got a FIN
+        for, since it commits each FIN before it reads the next frame.
+        The shm ack reader ends at that close; without one, read the
+        connection to its end. ``keep_alive`` renews the leases
+        meanwhile, so none expires under a slow commit."""
+        deadline = time.monotonic() + default_send_timeout()
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return
+            step = min(left, 0.25)
+            if ack_thread is not None:
+                ack_thread.join(timeout=step)
+                if not ack_thread.is_alive():
+                    return
+            else:
+                try:
+                    conn.settimeout(step)
+                    wire.recv_frame(conn)
+                except socket.timeout:
+                    pass
+                except (OSError, ConnectionError, Error):
+                    return
+            for renew in keep_alive:
+                renew()
 
     def _send_slots(
         self, conn, producer, shard: int, epoch: int, seq0: int,
@@ -901,11 +938,17 @@ class DsServeServer:
             producer.close()
 
     def _stream_leased(
-        self, conn, cfg: _StreamConfig, plane: _DataPlane
+        self, conn, cfg: _StreamConfig, plane: _DataPlane, after_close: list
     ) -> None:
         """Shard-service leaseholder loop: lease → produce → stream → SHARD_FIN
         until the epoch's ledger drains. The client commits dones; this
-        side only keeps its leases renewed while it streams.
+        side only keeps its leases renewed while it streams, and at the
+        end gives back what it leased: at once the shards it never
+        finished, and through ``after_close`` (kept renewed until the
+        client has closed the connection, then released) those whose FIN
+        it sent, so a release can never overtake the client's commit of
+        a FIN'd shard and hand it to another server (a shard streamed and
+        committed twice).
 
         The lease loop, producer construction AND parsing all run on
         ONE producer-ahead thread chained through a single bounded
@@ -932,6 +975,7 @@ class DsServeServer:
         # forever. Releasing an already-committed shard is a ledger
         # no-op, so the clean end of an epoch costs only cheap RPCs.
         leased: set = set()
+        finned: set = set()  # the shards whose SHARD_FIN was sent
         state = {"ttl": 30.0, "last_renew": 0.0}
         produced = [0]  # producer-thread slot ticks (gauge rewind)
         # queue + producer hand + the slot being sent must stay under
@@ -1019,6 +1063,7 @@ class DsServeServer:
                 elif kind == "fin":
                     _k, shard, num_shards = item
                     self.shards_streamed += 1
+                    finned.add(shard)
                     wire.send_frame(
                         conn, wire.KIND_SHARD_FIN,
                         {"shard": shard, "num_shards": num_shards},
@@ -1049,13 +1094,23 @@ class DsServeServer:
             # mid-relaunch) — a dropped release costs a whole lease TTL
             # of queue-time, but stream teardown must not hang out the
             # full crash-recovery window per shard
-            for shard in sorted(leased):
-                try:
-                    lease_client.release(
-                        epoch, shard, cfg.fileset, retry_secs=5.0
-                    )
-                except (OSError, ConnectionError):
-                    pass
+            def release(shards) -> None:
+                for shard in sorted(shards):
+                    try:
+                        lease_client.release(
+                            epoch, shard, cfg.fileset, retry_secs=5.0
+                        )
+                    except (OSError, ConnectionError):
+                        pass
+
+            # a FIN'd shard goes back only after the client's commit
+            # had its chance: released first, it would be re-served
+            # while that commit is still in flight
+            release(leased - finned)
+            if finned:
+                after_close.append((
+                    lambda: self._maybe_renew(lease_client, epoch, state),
+                    lambda: release(finned)))
 
     @staticmethod
     def _maybe_renew(lease_client, epoch: int, state: Dict) -> None:

@@ -38,9 +38,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C signature of each kernel's entry point (see the .cu file)
 KERNELS = {
     "ell_matvec_fwd": [_P, _P, _I, _P, _P, _I, _I, _L, _P],
-    "ell_matvec_bwd": [_P, _P, _I, _P, _P, _I, _I, _L, _P],
+    # the scatters take their scratch last: tile rows, partials, runs,
+    # records, accumulators, flags (ops/_common.launch_scatter)
+    "ell_matvec_bwd": [_P, _P, _I, _P, _P, _I, _I, _L, *[_P] * 6, _P],
     "fm_pair_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P],
-    "fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P],
+    "fm_pair_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _L, *[_P] * 6, _P],
 }
 # entry points that are no kernel of any path (not counted)
 _UNCOUNTED = {"empty_launch": [_P], "scatter_smem_bytes": [_I, _I]}
@@ -148,9 +150,9 @@ def empty_launch(device: torch.device) -> None:
 
 
 def scatter_smem_bytes(k: int) -> Dict[str, int]:
-    """Dynamic shared memory of one block of each gradient scatter at ``k``
-    entries a row, which the compiler's register and shared memory report
-    does not include."""
+    """Dynamic shared memory of one tile block of each gradient scatter at
+    ``k`` entries a row (K2 has none), which the compiler's register and
+    shared memory report does not include."""
     lib = _library()
     return {"ell_matvec_bwd": lib.scatter_smem_bytes(0, k),
             "fm_pair_bwd": lib.scatter_smem_bytes(1, k)}

@@ -22,15 +22,19 @@
 // ~11 MB, a few microseconds at the card's memory rate: they are bound
 // by memory traffic, and in practice by launch latency, by the chain of
 // dependent DRAM round trips a gather costs (index, then row), and by
-// the atomics on hot rows (the 13 dense Criteo columns appear in every
+// the adds on hot rows (the 13 dense Criteo columns appear in every
 // row). The forward gathers (K1, K3) issue all of a row's loads before
 // using any, so a row costs two round trips, not one per entry. The
-// gradient scatters (K2, K4) sum each tile of the batch in shared memory
-// first, so a row costs one global reduction per tile, not one per entry.
+// gradient scatters (K2, K4) fix their order of summation by the inputs
+// alone, so the same inputs give the same bits on every launch: a tile of
+// the batch sorts its entries by row and sums each row's entries in entry
+// order (one partial per tile and row, not one add per entry), and the
+// partials of a row that several tiles name are added exactly in 64-bit
+// fixed point with integer atomics, then rounded to f32 once.
 //
 // empty_launch launches a kernel that does nothing: its time is the
 // floor any launch timed the same way pays, printed beside the bounds.
-// scatter_smem_bytes reports the dynamic shared memory of a K2 or K4
+// scatter_smem_bytes reports the dynamic shared memory of a K4 tile
 // block, which the compiler's -Xptxas -v report does not show.
 
 #include <cuda_fp16.h>
@@ -99,11 +103,6 @@ __device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
                "l"(gmem), "n"(BYTES) : "memory");
-}
-
-// Asks L2 to fetch the line holding `p` (no register, no wait).
-__device__ __forceinline__ void prefetch_l2(const float* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // Waits for every cp.async this thread issued.
@@ -214,89 +213,208 @@ void launch_ell_matvec_fwd(const int32_t* idx, const V* val, const float* w,
         idx, val, w, out, B, K, D);
 }
 
-// The gradient scatters K2 and K4 share one design: tile-local
-// aggregation in shared memory, with no grouping by destination. A block
-// takes a tile of kTile consecutive entries of the flat [B, K] batch (not
-// whole rows, so shared memory is bounded for any K), one entry a thread.
-// Each valid entry wraps its index and inserts the row j it names into an
-// open-addressing hash table in shared memory (64-bit keys, so any j < D;
-// capacity 2*kTile, so the table never fills and a probe ends). The thread
-// that claims a key with atomicCAS takes the next compact slot from a
-// shared counter, so values need kTile slots, not one per table entry.
-// After a barrier every entry adds its contribution into its slot with
-// shared-memory f32 atomics, and after another every occupied slot is
-// flushed once into the dense gradient with global reductions. A row that
-// several entries of a tile name (the 13 dense Criteo columns are in every
-// row: a tile of 256 entries names each ~6.5 times) costs one global
-// reduction per tile instead of one per entry. A NaN contribution makes its
-// slot NaN, and the flush carries it to the same gradient entries a
-// per-entry atomic would; invalid indices insert nothing and add nothing.
+// The gradient scatters K2 and K4 share one design in two launches, and
+// every bit they write is fixed by their inputs alone: no float is added
+// in an order the hardware picks, so two runs on the same inputs give the
+// same gradient.
 //
-// kTile = 256, so a block has 256 threads. These kernels are bound by the
-// latency of a thread's chain (index load, gather, insert, barrier, shared
-// atomics, barrier, flush), not by the global atomics a larger tile would
-// save: at the Criteo slice (B*K = 79,872) 312 blocks of 256 fit on the
-// 132 SMs in one wave, and tiles of 128 and of 512 were both slower
-// (ops/scatter_variants.py times each choice; PERF.md has the numbers).
+// The tile launch. A block takes a tile of kTile consecutive entries of
+// the flat [B, K] batch (not whole rows, so shared memory is bounded for
+// any K), one entry a thread, and sorts the tile's keys (row j << 8 |
+// entry) with a bitonic network (shuffles within a warp, shared memory
+// across warps). Equal rows then lie in runs, in entry order, and a
+// thread a run sums the run's contributions in that order into the
+// tile's partial of row j, stored at slot t * kTile + r of the tile lists
+// (t the tile, r the run). A row that several entries of a tile name (the
+// 13 dense Criteo columns are in every row: a tile of 256 entries names
+// each ~6.5 times) costs one partial per tile instead of one add per
+// entry. Each partial also counts itself in its row's record (four int32
+// at meta[4j]: the partials naming j, 1 + the largest biased exponent
+// among them, the lowest slot naming j, the partials flushed) with
+// integer atomics, whose results do not depend on their order.
+//
+// The flush launch, a thread a partial (K4: 16 lanes). A row named by
+// one partial stores it. The partials of a row named by several tiles
+// are added exactly, in 64-bit fixed point: each is scaled by 2^k, where
+// k puts the row's largest partial times its partial count below 2^62
+// (one rounding to an integer each, at 2^-62 of that bound, where an f32
+// add rounds at 2^-24 of its result), and added with integer atomics
+// into the accumulator of the row's lowest slot; an infinity or NaN sets
+// a flag there instead. The last partial to flush the row (its record's
+// count) converts the exact sum to f32 once, stores it, and zeroes the
+// accumulator, the flags and the record, so the scratch (zeroed once by
+// the wrapper) is clean for the next call with no memset. A NaN
+// contribution makes its run's partial NaN, and the flags carry it to
+// the same gradient entries an f32 add would (NaN, or +inf with -inf:
+// NaN; else the infinity); invalid indices insert no key and add nothing.
+// The order of summation thus comes from the inputs alone: within a tile
+// the entry order, across tiles none is needed (integer adds commute).
+//
+// kTile = 256, so a block has 256 threads: at the Criteo slice (B*K =
+// 79,872) 312 blocks of 256 fit on the 132 SMs in one wave. Tiles of 128
+// and 512 are timed by ops/scatter_variants.py (PERF.md has the numbers).
 constexpr int kTile = 256;
-constexpr int kTableCap = 2 * kTile;  // a power of two >= 2 * kTile
-constexpr int kTableLog = 9;
-static_assert(kTableCap == 1 << kTableLog, "table capacity");
-constexpr unsigned long long kEmptyKey = ~0ull;
+constexpr int kTileLog = 8;
+static_assert(kTile == 1 << kTileLog, "tile size");
+constexpr int kTileWarps = kTile / 32;
+constexpr unsigned long long kNoKey = ~0ull;
+// a record keeps kSlotBias - slot, so an atomicMax finds the lowest slot
+// and a zeroed record names none (the wrappers keep B*K below 2^30)
+constexpr int kSlotBias = 1 << 30;
 
-// A tile's hash table in shared memory: keys[pos] is the row claimed at
-// table position pos, slot_at[pos] its compact slot, key_of[slot] the row
-// of each slot, *count the slots claimed.
-struct TileTable {
-  unsigned long long* keys;  // [kTableCap]
-  unsigned long long* key_of;  // [kTile]
-  int* slot_at;  // [kTableCap]
-  int* count;
+// The scratch of a scatter: the tile lists the tile launch writes
+// (rows[slot], parts[slot * E], runs[tile]), and the zeroed records
+// (meta), fixed-point accumulators (acc) and flags the flush leaves
+// zeroed. The records are interleaved so that neighbouring rows fall in
+// different 128-byte lines: the integer atomics on one line serialise,
+// and the hot rows are neighbours (the 13 dense Criteo columns are rows
+// 0-12), so each hot row takes its 3 atomics a tile on a line of its own.
+struct TileLists {
+  long long* rows;
+  float* parts;
+  int* runs;
+  int* meta;  // 4 int32 a row, at record(row)
+  unsigned long long* acc;  // [slot][E]
+  int* flags;  // [slot][E]
+  long long rec_stride;  // ceil(D / 16)
+};
 
-  static constexpr __host__ __device__ size_t bytes() {
-    return kTableCap * 8 + kTile * 8 + kTableCap * 4 + 16;
-  }
-  // Carves the table from `p` (8-byte aligned) and returns what follows.
-  __device__ unsigned char* carve(unsigned char* p) {
-    keys = reinterpret_cast<unsigned long long*>(p);
-    key_of = keys + kTableCap;
-    slot_at = reinterpret_cast<int*>(key_of + kTile);
-    count = slot_at + kTableCap;
-    return p + bytes();
-  }
-  // Empties the table; the block syncs before the first insert.
-  __device__ void clear() {
-    for (int h = threadIdx.x; h < kTableCap; h += kTile) keys[h] = kEmptyKey;
-    if (threadIdx.x == 0) *count = 0;
-  }
-  // The table position of row j, claiming it (and a slot) if it is new;
-  // `claimed` says whether this call did. The key is read before any CAS:
-  // a tile names its hot rows many times.
-  __device__ int insert(int64_t j, bool& claimed) {
-    const unsigned long long key = static_cast<unsigned long long>(j);
-    unsigned h = static_cast<unsigned>((key * 0x9E3779B97F4A7C15ull) >>
-                                       (64 - kTableLog));
-    const volatile unsigned long long* seen = keys;
-    for (;;) {
-      unsigned long long k = seen[h];
-      if (k == kEmptyKey) {
-        k = atomicCAS(keys + h, kEmptyKey, key);
-        if (k == kEmptyKey) {
-          const int slot = atomicAdd(count, 1);
-          slot_at[h] = slot;
-          key_of[slot] = key;
-          claimed = true;
-          return static_cast<int>(h);
-        }
+__device__ __forceinline__ int* record(const TileLists& L, long long row) {
+  return L.meta + 4 * ((row & 15) * L.rec_stride + (row >> 4));
+}
+
+// Sorts one key a thread across the block's kTile threads, ascending: a
+// bitonic network, its stages within a warp by shuffles and the others
+// through `buf`. Leaves the sorted keys in buf; ends with a barrier.
+__device__ void sort_tile(unsigned long long key, unsigned long long* buf) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 2; k <= kTile; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned long long other;
+      if (j >= 32) {
+        buf[tid] = key;
+        __syncthreads();
+        other = buf[tid ^ j];
+        __syncthreads();
+      } else {
+        other = __shfl_xor_sync(kFull, key, j);
       }
-      if (k == key) {
-        claimed = false;
-        return static_cast<int>(h);
-      }
-      h = (h + 1) & (kTableCap - 1);
+      // the lower of a pair keeps the smaller key where its run of k
+      // ascends (bit k of tid clear), the larger where it descends
+      const bool keep_min = ((tid & j) == 0) == ((tid & k) == 0);
+      key = keep_min == (other < key) ? other : key;
     }
   }
-};
+  buf[tid] = key;
+  __syncthreads();
+}
+
+// The runs of equal rows in a tile's sorted keys (kNoKey sorts last): run
+// r covers the sorted positions [start[r], start[r + 1]). Returns the
+// number of runs; ends with a barrier.
+__device__ int tile_runs(const unsigned long long* sk, int* start, int* heads) {
+  const int p = threadIdx.x, lane = p & 31;
+  const unsigned long long key = sk[p];
+  const bool head = key != kNoKey && (p == 0 || (sk[p - 1] >> kTileLog) != (key >> kTileLog));
+  const unsigned ball = __ballot_sync(kFull, head);
+  if (lane == 0) heads[p >> 5] = __popc(ball);
+  const int valid = __syncthreads_count(key != kNoKey);
+  int r = __popc(ball & ((1u << lane) - 1)), runs = 0;
+  for (int w = 0; w < kTileWarps; ++w) {
+    r += w < (p >> 5) ? heads[w] : 0;
+    runs += heads[w];
+  }
+  if (head) start[r] = p;
+  if (p == 0) start[runs] = valid;
+  __syncthreads();
+  return runs;
+}
+
+// 1 + the biased exponent of a finite nonzero x, so |x| < 2^(e - 127); 0
+// for zero, the infinities and NaN.
+__device__ __forceinline__ int expo_of(float x) {
+  const int b = static_cast<int>((__float_as_uint(x) >> 23) & 0xff);
+  return b == 0xff || x == 0.f ? 0 : b + 1;
+}
+
+// Counts the partial at `slot` in the record `m` of its row, with its
+// exponent `ex` (expo_of).
+__device__ __forceinline__ void note_partial(int* m, long long slot, int ex) {
+  atomicAdd(m, 1);
+  if (ex) atomicMax(m + 1, ex);
+  atomicMax(m + 2, kSlotBias - static_cast<int>(slot));
+}
+
+// The flush of the partials of tile blockIdx.x into the dense `out`, G
+// lanes a partial (K4: 16, K2: 1), lane c moving columns Wc to Wc + W - 1
+// of every 16 (W = 16 / G; K2: column 0), so a partial's lanes touch
+// contiguous words: at G = 16 one instruction adds a partial's 16
+// columns into one 128-byte line of accumulators (ops/scatter_variants.py
+// times G = 4 against it); block y takes partials y * kTile / G on.
+template <int G>
+__device__ void flush_tile(const TileLists& L, int E, float* out) {
+  static_assert(16 % G == 0, "a partial's lanes cover 16 columns");
+  constexpr int W = G == 1 ? 1 : 16 / G;  // columns a lane moves together
+  const int r = blockIdx.y * (kTile / G) + threadIdx.x / G;
+  if (r >= L.runs[blockIdx.x]) return;  // uniform across a partial's lanes
+  const int lane = threadIdx.x % G;
+  const long long slot = static_cast<long long>(blockIdx.x) * kTile + r;
+  const long long row = L.rows[slot];
+  int* m = record(L, row);
+  const int4 rec = *reinterpret_cast<const int4*>(m);  // partials, exponent, lowest slot, flushed
+  const float* part = L.parts + slot * E;
+  float* dst = out + row * E;
+  if (rec.x == 1) {  // one partial: it is the sum
+    for (int e0 = W * lane; e0 < E; e0 += W * G)
+      for (int e = e0; e < e0 + W && e < E; ++e) dst[e] = part[e];
+    if (lane == 0) *reinterpret_cast<int4*>(m) = make_int4(0, 0, 0, 0);
+    return;
+  }
+  // rec.x <= 2^lg partials, each |x| < 2^(rec.y - 127): |sum| * 2^k < 2^62;
+  // k lies in [-66 - lg, 188], so 2^k is two exact float steps and 2^-k
+  // one exact double
+  const int lg = 32 - __clz(rec.x - 1);
+  const int k = rec.y ? 189 - lg - rec.y : 0;
+  const float up_a = __int_as_float((k / 2 + 127) << 23);
+  const float up_b = __int_as_float((k - k / 2 + 127) << 23);
+  const double down = __longlong_as_double(static_cast<long long>(1023 - k) << 52);
+  const long long owner = (kSlotBias - rec.z) * static_cast<long long>(E);
+  for (int e0 = W * lane; e0 < E; e0 += W * G) for (int e = e0; e < e0 + W && e < E; ++e) {
+    const float x = part[e];
+    const long long at = owner + e;
+    if (isnan(x))
+      atomicOr(L.flags + at, 1);
+    else if (isinf(x))
+      atomicOr(L.flags + at, x > 0.f ? 2 : 4);
+    else if (x != 0.f)
+      atomicAdd(L.acc + at, static_cast<unsigned long long>(__float2ll_rn(x * up_a * up_b)));
+  }
+  // the adds land before the count that lets the last partial read them
+  __threadfence();
+  int last;
+  if constexpr (G == 1) {
+    last = atomicAdd(m + 3, 1) == rec.x - 1;
+  } else {
+    const unsigned group = ((1u << G) - 1) << (threadIdx.x & (32 - G));  // this partial's lanes
+    __syncwarp(group);
+    last = lane == 0 && atomicAdd(m + 3, 1) == rec.x - 1;
+    last = __shfl_sync(group, last, 0, G);
+  }
+  if (!last) return;
+  __threadfence();
+  for (int e0 = W * lane; e0 < E; e0 += W * G) for (int e = e0; e < e0 + W && e < E; ++e) {
+    const long long at = owner + e;
+    const long long q = static_cast<long long>(atomicExch(L.acc + at, 0ull));
+    const int f = atomicExch(L.flags + at, 0);
+    dst[e] = (f & 1) || f == 6 ? CUDART_NAN_F
+             : f == 2          ? CUDART_INF_F
+             : f == 4          ? -CUDART_INF_F
+                               : static_cast<float>(__ll2double_rn(q) * down);
+  }
+  if (lane == 0) *reinterpret_cast<int4*>(m) = make_int4(0, 0, 0, 0);
+}
 
 // Batch rows of a tile's entries: entry i of the tile that starts at flat
 // entry t0 lies in row row(i). One 64-bit division a thread, then a 32-bit
@@ -316,38 +434,47 @@ struct TileRows {
 // gradient of K1 w.r.t. w (jax.grad of dmlc_core_tpu/ops/sparse.py:17
 // ell_matvec, a scatter-add). Bound: reads idx and val once, g once, and
 // writes the dense gw (the wrapper's zero-fill included): 1.445 us at the
-// Criteo slice over 3.35 TB/s, below the launch floor. What held the slice-1
-// kernel back: one thread and one f32 atomic per entry, and 26.6 k of its
-// 80 k atomics land on the 13 hot words, which share one 128-byte line and
-// serialise there. Design: the shared tile aggregation above, with one
-// value per slot. A thread loads its entry's idx, val and g[b], inserts
-// it, adds g*val into its slot after a barrier, and the block flushes each
-// slot with one scalar global reduction: the 13 hot words take 312
-// reductions each instead of 2048.
+// Criteo slice over 3.35 TB/s, below the launch floor. What held the
+// slice-1 kernel back: one thread and one f32 atomic per entry, 26.6 k of
+// its 80 k atomics on the 13 hot words, which share one 128-byte line and
+// serialise there; a later kernel summed tiles in shared memory first,
+// still with f32 atomics in the hardware's order. Design: the two
+// launches above with one value a partial. A thread loads its entry's
+// idx, val and g[b]; the tile's sort gives each row's partial, and the 13
+// hot words take 312 integer adds each.
 template <typename V>
 __global__ void __launch_bounds__(kTile)
 ell_matvec_bwd_kernel(const int32_t* __restrict__ idx,
                       const V* __restrict__ val,
-                      const float* __restrict__ g, float* __restrict__ gw,
-                      int B, int K, int64_t D) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  TileTable tb;
-  float* sum = reinterpret_cast<float*>(tb.carve(smem));  // [kTile]
-  tb.clear();
-  sum[threadIdx.x] = 0.f;
+                      const float* __restrict__ g, int B, int K, int64_t D,
+                      TileLists L) {
+  __shared__ unsigned long long sk[kTile];
+  __shared__ float term[kTile];
+  __shared__ int start[kTile + 1];
+  __shared__ int heads[kTileWarps];
   const int64_t n = static_cast<int64_t>(B) * K;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int64_t t = t0 + threadIdx.x;
   const int64_t j = t < n ? wrap_index(idx[t], D) : -1;
-  const float c = t < n ? g[TileRows(t0, K).row(threadIdx.x)] * to_f32(val[t]) : 0.f;
-  __syncthreads();  // the table is empty
-  bool claimed;
-  const int pos = j >= 0 ? tb.insert(j, claimed) : -1;
-  __syncthreads();  // every slot is claimed
-  if (pos >= 0) atomicAdd(sum + tb.slot_at[pos], c);
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) < *tb.count)
-    atomicAdd(gw + tb.key_of[threadIdx.x], sum[threadIdx.x]);
+  term[threadIdx.x] = t < n ? g[TileRows(t0, K).row(threadIdx.x)] * to_f32(val[t]) : 0.f;
+  sort_tile(j >= 0 ? static_cast<unsigned long long>(j) << kTileLog | threadIdx.x : kNoKey, sk);
+  const int runs = tile_runs(sk, start, heads);
+  const int r = threadIdx.x;
+  if (r < runs) {
+    float sum = 0.f;
+    for (int p = start[r]; p < start[r + 1]; ++p) sum += term[sk[p] & (kTile - 1)];
+    const long long row = static_cast<long long>(sk[start[r]] >> kTileLog);
+    const long long slot = t0 + r;
+    L.rows[slot] = row;
+    L.parts[slot] = sum;
+    note_partial(record(L, row), slot, expo_of(sum));
+  }
+  if (r == 0) L.runs[blockIdx.x] = runs;
+}
+
+__global__ void __launch_bounds__(kTile)
+ell_matvec_bwd_flush_kernel(TileLists L, float* __restrict__ gw) {
+  flush_tile<1>(L, 1, gw);
 }
 
 // K3: with xv[b,k,e] = val[b,k] * v[idx[b,k], e],
@@ -501,34 +628,30 @@ void launch_fm_pair_fwd(const int32_t* idx, const V* val, const float* v,
 // slice over 3.35 TB/s, most of it the zero-fill. What held the slice-1
 // kernel back: one thread and one scalar f32 atomic per (b,k,e), 1.28 M
 // atomics, of which 426 k land on the 13 hot rows (208 floats, 7 L2 lines)
-// and serialise there. Design: the shared tile aggregation above, with
-// kChunk floats per slot. Columns past kChunk are further chunks on the
-// grid's second dimension (a block loops over its chunks, reusing its
-// table), so shared memory is bounded for any E. A thread loads its entry's
-// idx, val and g[b] and issues the gather of its row of v as cp.async
-// copies into the entry's own row of a staging buffer (16 bytes each where
-// E*4 is a multiple of 16, else 4); the block copies the few rows of s its
-// tile spans (8 at K = 39) the same way, so each s word is read once per
-// tile, not once per entry. Only then is the key inserted, so every copy
-// is in flight while the table fills, and a thread that claims a slot asks
-// L2 for the slot's row of gv. After the wait and a barrier, lanes over
-// (entry, column) compute all their g*x*(s - x*v) terms, then add them into
-// the slots (16 lanes cover one entry's 16 columns, so a warp's shared
-// atomics touch two slot rows), and the flush adds each slot
-// row with float4 reductions (red.global.add.v4.f32, the sm_90 float4
-// atomicAdd) where gv is 16-byte aligned and E*4 is a multiple of 16, else
-// with scalar ones: a unique row costs 4 vector reductions at E = 16
-// instead of 16 scalar atomics, a hot row one set per tile instead of one
-// per batch row.
-constexpr int kChunk = 16;  // columns of gv a block aggregates at once
+// and serialise there; a later kernel summed tiles in shared memory with
+// float atomics in the hardware's order. Design: the two launches above
+// with E floats a partial, in chunks of kChunk columns on the grid's
+// second dimension (a block loops over its chunks, keeping its sort), so
+// shared memory is bounded for any E. A thread loads its entry's idx, val
+// and g[b] and issues the gather of its row of v as cp.async copies into
+// the entry's own row of a staging buffer (16 bytes each where E*4 is a
+// multiple of 16, else 4); the block copies the few rows of s its tile
+// spans (8 at K = 39) the same way, so each s word is read once per tile,
+// not once per entry. The copies fly while the keys sort. Then lanes over
+// (entry, column) turn each staged row into its terms g*x*(s - x*v) in
+// place, and lanes over (run, column) sum each run's terms in entry order
+// into its partial; the kChunk lanes of a run take the run's largest
+// exponent with shuffles before one atomic. The flush moves E floats a
+// partial (57 k partials at the Criteo slice).
+constexpr int kChunk = 16;  // columns of gv a block sums at once
 constexpr int kStride = kTile / kChunk;  // entries a pass of lanes covers
-static_assert(kTile % kChunk == 0, "a thread keeps one column");
+static_assert(kTile % kChunk == 0 && kChunk == 16, "a run's lanes are half a warp");
 
-// An entry of K4's tile: its table position (-1: no contribution), its row
-// relative to the tile's first, its value and g * value.
+// An entry of K4's tile: its row relative to the tile's first, its value
+// and g * value.
 struct alignas(16) FmEntry {
-  int pos, row;
-  float x, gx;
+  int row;
+  float x, gx, pad;
 };
 
 // rows of s a tile spans
@@ -537,29 +660,28 @@ inline int fm_tile_rows(int K) {
   return r < kTile ? r : kTile;
 }
 
-// slot sums, gathered rows of v, the table, the entries, the rows of s
+// staged rows of v (then the terms), the entries, the rows of s
 inline size_t fm_pair_bwd_smem(int K) {
-  return 2 * kTile * kChunk * 4 + TileTable::bytes() + kTile * sizeof(FmEntry) +
+  return kTile * kChunk * 4 + kTile * sizeof(FmEntry) +
          static_cast<size_t>(fm_tile_rows(K)) * kChunk * 4;
 }
 
-// COPY: bytes a cp.async moves (16 or 4); RED4: float4 flush.
-template <typename V, int COPY, bool RED4>
+// COPY: bytes a cp.async moves (16 or 4).
+template <typename V, int COPY>
 __global__ void __launch_bounds__(kTile)
 fm_pair_bwd_kernel(const int32_t* __restrict__ idx,
                    const V* __restrict__ val,
                    const float* __restrict__ v, const float* __restrict__ s,
-                   const float* __restrict__ g, float* __restrict__ gv,
-                   int B, int K, int E, int64_t D) {
+                   const float* __restrict__ g, int B, int K, int E, int64_t D,
+                   TileLists L) {
   constexpr int CW = COPY / 4;  // floats a copy moves
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sum = reinterpret_cast<float*>(smem);  // [kTile][kChunk]
-  float* vrow = sum + kTile * kChunk;           // [kTile][kChunk]
-  TileTable tb;
-  FmEntry* ent = reinterpret_cast<FmEntry*>(tb.carve(
-      reinterpret_cast<unsigned char*>(vrow + kTile * kChunk)));  // [kTile]
+  float* vrow = reinterpret_cast<float*>(smem);                      // [kTile][kChunk]
+  FmEntry* ent = reinterpret_cast<FmEntry*>(vrow + kTile * kChunk);  // [kTile]
   float* srow = reinterpret_cast<float*>(ent + kTile);  // [tile rows][kChunk]
-  tb.clear();
+  __shared__ unsigned long long sk[kTile];
+  __shared__ int start[kTile + 1];
+  __shared__ int heads[kTileWarps];
   const int64_t n = static_cast<int64_t>(B) * K;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const TileRows rows(t0, K);
@@ -569,6 +691,8 @@ fm_pair_bwd_kernel(const int32_t* __restrict__ idx,
   me.row = rows.rel(threadIdx.x);
   me.x = t < n ? to_f32(val[t]) : 0.f;
   me.gx = t < n ? g[rows.row0 + me.row] * me.x : 0.f;
+  me.pad = 0.f;
+  ent[threadIdx.x] = me;
   // rows of s the tile's entries lie in
   const int live = n - t0 < kTile ? static_cast<int>(n - t0) : kTile;
   const int nrows = rows.rel(live - 1) + 1;
@@ -587,67 +711,66 @@ fm_pair_bwd_kernel(const int32_t* __restrict__ idx,
       if (c < ec) copy_async<COPY>(srow + r * kChunk + c, s + (rows.row0 + r) * E + c0 + c);
     }
   };
-  auto zero_sums = [&]() {
-    for (int u = threadIdx.x; u < kTile * kChunk / 4; u += kTile)
-      reinterpret_cast<float4*>(sum)[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  };
   int c0 = blockIdx.y * kChunk;
-  issue(c0);
-  __syncthreads();  // the table is empty
-  bool claimed = false;
-  me.pos = j >= 0 ? tb.insert(j, claimed) : -1;
-  ent[threadIdx.x] = me;
-  zero_sums();
-  // lanes over (entry, column): this thread adds column e of entries
-  // threadIdx.x / kChunk + q * kStride
+  issue(c0);  // in flight while the keys sort
+  sort_tile(j >= 0 ? static_cast<unsigned long long>(j) << kTileLog | threadIdx.x : kNoKey, sk);
+  const int runs = tile_runs(sk, start, heads);
+  // lanes over (entry, column): this thread computes column e of entries
+  // threadIdx.x / kChunk + q * kStride, and sums column e of runs
   const int e = threadIdx.x % kChunk;
   const int i0 = threadIdx.x / kChunk;
+  const unsigned group = 0xffffu << (threadIdx.x & 16);  // a run's lanes
+  bool notes = blockIdx.y == 0;  // this block counts the tile's partials
   for (;;) {
     const int ec = min(kChunk, E - c0);  // columns in this chunk
-    // the slot's row of gv, fetched into L2 while the copies land, so the
-    // flush's reductions find it there
-    if (claimed)
-      for (int c = 0; c < ec; c += 8) prefetch_l2(gv + j * E + c0 + c);
     wait_async();
-    __syncthreads();  // slots claimed, rows landed, entries written, sums zeroed
-    // every contribution first, then the atomics: the compiler cannot move
-    // a shared load past an atomic on the same memory
-    int at[kChunk];
-    float add[kChunk];
+    __syncthreads();  // the rows landed
+    // x * v rounded as s's own term was (no fused multiply-add), so a row
+    // whose s is that one term gets the exact zero gradient
 #pragma unroll
     for (int q = 0; q < kChunk; ++q) {
       const int i = i0 + q * kStride;
       const FmEntry en = ent[i];
-      at[q] = en.pos >= 0 && e < ec ? tb.slot_at[en.pos] * kChunk + e : -1;
-      // x * v rounded as s's own term was (no fused multiply-add), so a row
-      // whose s is that one term gets the exact zero gradient
-      add[q] = en.gx * (srow[en.row * kChunk + e] - __fmul_rn(en.x, vrow[i * kChunk + e]));
+      float* term = vrow + i * kChunk + e;
+      *term = en.gx * (srow[en.row * kChunk + e] - __fmul_rn(en.x, *term));
     }
+    __syncthreads();  // the terms are complete
+    for (int w = threadIdx.x; w < runs * kChunk; w += kTile) {
+      const int r = w / kChunk;
+      const long long slot = t0 + r;
+      float sum = 0.f;
+      for (int p = start[r]; p < start[r + 1]; ++p)
+        sum += vrow[(sk[p] & (kTile - 1)) * kChunk + e];
+      if (e < ec) L.parts[slot * E + c0 + e] = sum;
+      int ex = e < ec ? expo_of(sum) : 0;
 #pragma unroll
-    for (int q = 0; q < kChunk; ++q)
-      if (at[q] >= 0) atomicAdd(sum + at[q], add[q]);
-    __syncthreads();  // sums complete; the staged rows are free
-    const int next = c0 + gridDim.y * kChunk;
-    if (next < E) issue(next);  // in flight during the flush
-    const int slots = *tb.count;
-    if constexpr (RED4) {
-      for (int u = threadIdx.x; u < slots * (kChunk / 4); u += kTile) {
-        const int slot = u / (kChunk / 4), c = 4 * (u % (kChunk / 4));
-        if (c < ec)
-          atomicAdd(reinterpret_cast<float4*>(gv + tb.key_of[slot] * E + c0 + c),
-                    *reinterpret_cast<const float4*>(sum + slot * kChunk + c));
-      }
-    } else {
-      for (int u = threadIdx.x; u < slots * kChunk; u += kTile) {
-        const int slot = u / kChunk, c = u % kChunk;
-        if (c < ec) atomicAdd(gv + tb.key_of[slot] * E + c0 + c, sum[u]);
+      for (int o = kChunk / 2; o > 0; o >>= 1)
+        ex = max(ex, __shfl_xor_sync(group, ex, o, kChunk));
+      if (e == 0) {
+        const long long row = static_cast<long long>(sk[start[r]] >> kTileLog);
+        if (notes) {
+          L.rows[slot] = row;
+          note_partial(record(L, row), slot, ex);
+        } else if (ex) {
+          atomicMax(record(L, row) + 1, ex);
+        }
       }
     }
+    if (notes && threadIdx.x == 0) L.runs[blockIdx.x] = runs;
+    notes = false;
+    const int next = c0 + gridDim.y * kChunk;
     if (next >= E) break;
-    __syncthreads();  // the flush has read the sums
-    zero_sums();
+    __syncthreads();  // the sums have read the terms
+    issue(next);
     c0 = next;
   }
+}
+
+constexpr int kFlushLanes = 16;  // K4's lanes a partial
+
+__global__ void __launch_bounds__(kTile)
+fm_pair_bwd_flush_kernel(TileLists L, int E, float* __restrict__ gv) {
+  flush_tile<kFlushLanes>(L, E, gv);
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel first.
@@ -662,48 +785,56 @@ inline unsigned tiles_for(int B, int K) {
   return static_cast<unsigned>((static_cast<int64_t>(B) * K + kTile - 1) / kTile);
 }
 
-template <typename V, int COPY, bool RED4>
+template <typename V, int COPY>
 cudaError_t launch_fm_pair_bwd_as(const int32_t* idx, const V* val,
                                   const float* v, const float* s,
                                   const float* g, float* gv, int B, int K,
-                                  int E, int64_t D, cudaStream_t st) {
-  auto kernel = fm_pair_bwd_kernel<V, COPY, RED4>;
+                                  int E, int64_t D, const TileLists& L,
+                                  cudaStream_t st) {
+  auto kernel = fm_pair_bwd_kernel<V, COPY>;
   const size_t bytes = fm_pair_bwd_smem(K);
-  const cudaError_t rc = allow_smem(kernel, bytes);
+  cudaError_t rc = allow_smem(kernel, bytes);
   if (rc != cudaSuccess) return rc;
+  const unsigned tiles = tiles_for(B, K);
   const int chunks = (E + kChunk - 1) / kChunk;  // a block loops past 65535
-  const dim3 grid(tiles_for(B, K), chunks < 65535 ? chunks : 65535);
-  kernel<<<grid, kTile, bytes, st>>>(idx, val, v, s, g, gv, B, K, E, D);
+  kernel<<<dim3(tiles, chunks < 65535 ? chunks : 65535), kTile, bytes, st>>>(
+      idx, val, v, s, g, B, K, E, D, L);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  fm_pair_bwd_flush_kernel<<<dim3(tiles, kFlushLanes), kTile, 0, st>>>(L, E, gv);
   return cudaGetLastError();
 }
 
-// 16-byte copies where rows of v and s are a whole number of them, float4
-// reductions where gv's rows are.
+// 16-byte copies where rows of v and s are a whole number of them.
 template <typename V>
 cudaError_t launch_fm_pair_bwd(const int32_t* idx, const V* val,
                                const float* v, const float* s, const float* g,
                                float* gv, int B, int K, int E, int64_t D,
-                               cudaStream_t st) {
-  const bool copy16 = E % 4 == 0 && aligned(v, 16) && aligned(s, 16);
-  const bool red4 = E % 4 == 0 && aligned(gv, 16);
-  if (copy16 && red4)
-    return launch_fm_pair_bwd_as<V, 16, true>(idx, val, v, s, g, gv, B, K, E, D, st);
-  if (copy16)
-    return launch_fm_pair_bwd_as<V, 16, false>(idx, val, v, s, g, gv, B, K, E, D, st);
-  if (red4)
-    return launch_fm_pair_bwd_as<V, 4, true>(idx, val, v, s, g, gv, B, K, E, D, st);
-  return launch_fm_pair_bwd_as<V, 4, false>(idx, val, v, s, g, gv, B, K, E, D, st);
+                               const TileLists& L, cudaStream_t st) {
+  if (E % 4 == 0 && aligned(v, 16) && aligned(s, 16))
+    return launch_fm_pair_bwd_as<V, 16>(idx, val, v, s, g, gv, B, K, E, D, L, st);
+  return launch_fm_pair_bwd_as<V, 4>(idx, val, v, s, g, gv, B, K, E, D, L, st);
 }
-
-constexpr size_t kMatvecBwdSmem = TileTable::bytes() + kTile * 4;
 
 template <typename V>
 cudaError_t launch_ell_matvec_bwd(const int32_t* idx, const V* val,
                                   const float* g, float* gw, int B, int K,
-                                  int64_t D, cudaStream_t st) {
-  ell_matvec_bwd_kernel<V><<<tiles_for(B, K), kTile, kMatvecBwdSmem, st>>>(
-      idx, val, g, gw, B, K, D);
+                                  int64_t D, const TileLists& L,
+                                  cudaStream_t st) {
+  const unsigned tiles = tiles_for(B, K);
+  ell_matvec_bwd_kernel<V><<<tiles, kTile, 0, st>>>(idx, val, g, B, K, D, L);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  ell_matvec_bwd_flush_kernel<<<tiles, kTile, 0, st>>>(L, gw);
   return cudaGetLastError();
+}
+
+inline TileLists tile_lists(void* rows, void* parts, void* runs, void* meta,
+                            void* acc, void* flags, int64_t D) {
+  return {static_cast<long long*>(rows), static_cast<float*>(parts),
+          static_cast<int*>(runs), static_cast<int*>(meta),
+          static_cast<unsigned long long*>(acc), static_cast<int*>(flags),
+          (D + 15) / 16};
 }
 
 }  // namespace
@@ -730,16 +861,18 @@ int ell_matvec_fwd(const void* idx, const void* val, int val_f16,
 
 int ell_matvec_bwd(const void* idx, const void* val, int val_f16,
                    const void* g, void* gw, int B, int K, int64_t D,
-                   void* stream) {
+                   void* rows, void* parts, void* runs, void* meta, void* acc,
+                   void* flags, void* stream) {
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const float* gf = static_cast<const float*>(g);
   float* o = static_cast<float*>(gw);
+  const TileLists L = tile_lists(rows, parts, runs, meta, acc, flags, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (val_f16)
     return static_cast<int>(launch_ell_matvec_bwd(
-        ix, static_cast<const __half*>(val), gf, o, B, K, D, st));
+        ix, static_cast<const __half*>(val), gf, o, B, K, D, L, st));
   return static_cast<int>(launch_ell_matvec_bwd(
-      ix, static_cast<const float*>(val), gf, o, B, K, D, st));
+      ix, static_cast<const float*>(val), gf, o, B, K, D, L, st));
 }
 
 int fm_pair_fwd(const void* idx, const void* val, int val_f16, const void* v,
@@ -761,24 +894,26 @@ int fm_pair_fwd(const void* idx, const void* val, int val_f16, const void* v,
 
 int fm_pair_bwd(const void* idx, const void* val, int val_f16, const void* v,
                 const void* s, const void* g, void* gv, int B, int K, int E,
-                int64_t D, void* stream) {
+                int64_t D, void* rows, void* parts, void* runs, void* meta,
+                void* acc, void* flags, void* stream) {
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const float* vf = static_cast<const float*>(v);
   const float* sf = static_cast<const float*>(s);
   const float* gf = static_cast<const float*>(g);
   float* o = static_cast<float*>(gv);
+  const TileLists L = tile_lists(rows, parts, runs, meta, acc, flags, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (val_f16)
     return static_cast<int>(launch_fm_pair_bwd(
-        ix, static_cast<const __half*>(val), vf, sf, gf, o, B, K, E, D, st));
+        ix, static_cast<const __half*>(val), vf, sf, gf, o, B, K, E, D, L, st));
   return static_cast<int>(launch_fm_pair_bwd(
-      ix, static_cast<const float*>(val), vf, sf, gf, o, B, K, E, D, st));
+      ix, static_cast<const float*>(val), vf, sf, gf, o, B, K, E, D, L, st));
 }
 
-// Dynamic shared memory of a K2 (fm = 0) or K4 (fm = 1) block at K, in
-// bytes.
+// Dynamic shared memory of a K2 (fm = 0: none) or K4 (fm = 1) tile block
+// at K, in bytes.
 int scatter_smem_bytes(int fm, int K) {
-  return static_cast<int>(fm ? fm_pair_bwd_smem(K) : kMatvecBwdSmem);
+  return static_cast<int>(fm ? fm_pair_bwd_smem(K) : 0);
 }
 
 int empty_launch(void* stream) {

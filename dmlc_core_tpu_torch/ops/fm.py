@@ -14,11 +14,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import check_ell, on_cuda, require, wrap_index
+from ._common import check_ell, launch_scatter, on_cuda, require, wrap_index
 
 __all__ = [
     "fm_pair",
     "fm_pair_bwd",
+    "fm_pair_bwd_into",
     "fm_pair_bwd_kernel",
     "fm_pair_bwd_plain",
     "fm_pair_fwd",
@@ -70,21 +71,28 @@ def fm_pair_fwd_kernel(indices, values, v):
     return pair, s
 
 
-def fm_pair_bwd_kernel(indices, values, v, s, g):
-    """K4 on CUDA tensors: the zeroed dense gradient is allocated here."""
+def fm_pair_bwd_into(indices, values, v, s, g, gv):
+    """K4 on CUDA tensors into the zeroed dense gradient ``gv`` (f32[D,E],
+    contiguous): the same inputs give the same bits on every launch."""
     B, K = check_ell(indices, values)
     require(v, "v", (torch.float32,), (None, None))
     D, E = int(v.shape[0]), int(v.shape[1])
     require(s, "s", (torch.float32,), (B, E))
     require(g, "g", (torch.float32,), (B,))
-    gv = torch.zeros(D, E, dtype=torch.float32, device=v.device)
+    require(gv, "gv", (torch.float32,), (D, E))
     if B and K and E:
-        _build.launch(
-            "fm_pair_bwd", v.device, indices.data_ptr(), values.data_ptr(),
-            int(values.dtype == torch.float16), v.data_ptr(), s.data_ptr(),
-            g.data_ptr(), gv.data_ptr(), B, K, E, D,
-        )
+        launch_scatter(
+            "fm_pair_bwd", v.device,
+            (indices.data_ptr(), values.data_ptr(), int(values.dtype == torch.float16),
+             v.data_ptr(), s.data_ptr(), g.data_ptr(), gv.data_ptr(), B, K, E, D),
+            D, B * K, E)
     return gv
+
+
+def fm_pair_bwd_kernel(indices, values, v, s, g):
+    """K4 on CUDA tensors: the zeroed dense gradient is allocated here."""
+    gv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    return fm_pair_bwd_into(indices, values, v, s, g, gv)
 
 
 def fm_pair_fwd(indices, values, v):

@@ -5,13 +5,15 @@
 Each variant is ``csrc/ell_kernels.cu`` with named text substitutions (a
 design choice undone, or one phase removed), compiled with ``_build``'s
 nvcc flags into ``.build/variants/`` at the checkout root, all builds
-started together. Each is timed at the Criteo slice (B=2048, K=39, E=16,
+started together; a substitution whose text is no longer in the source
+stops the run. Each is timed at the Criteo slice (B=2048, K=39, E=16,
 D=2^20, f32 values, 13 dense columns in every row) as the FM step runs
-it: the dense gradient zero-filled, then the kernel, 20 times under
-torch.profiler, twice; the kernels' mean device µs per call are printed
-as one JSON line per variant, with the largest difference of its
-gradients from the committed kernel's. A variant that removes a phase
-computes wrong gradients: it times what the phase costs, nothing else.
+it: the dense gradient zero-filled, then the scatter (its tile kernel
+and its flush), 20 times under torch.profiler, twice; the scatters' mean
+device µs per call are printed as one JSON line per variant, with the
+largest difference of its gradients from the committed kernel's. A
+variant that removes a phase computes wrong gradients: it times what
+the phase costs, nothing else.
 It needs the card and the CUDA toolkit, and ends with the card's name
 and power limit.
 """
@@ -32,34 +34,38 @@ from . import _build
 B, K, E, D = 2048, 39, 16, 1 << 20
 N_DENSE = 13
 
-_HOIST = """#pragma unroll
-    for (int q = 0; q < kChunk; ++q)
-      if (at[q] >= 0) atomicAdd(sum + at[q], add[q]);
-"""
-_ADD = "add[q] = en.gx * (srow[en.row * kChunk + e] - __fmul_rn(en.x, vrow[i * kChunk + e]));"
 _S_COPY = """    for (int u = threadIdx.x; u < nrows * (kChunk / CW); u += kTile) {
       const int r = u / (kChunk / CW), c = u % (kChunk / CW) * CW;
       if (c < ec) copy_async<COPY>(srow + r * kChunk + c, s + (rows.row0 + r) * E + c0 + c);
     }
 """
-# name -> [(text in the source, its replacement)]
+# name -> [(text in the source, its replacement)]; a text that is no longer
+# in the source stops the run
 VARIANTS = {
     "committed": [],
     "tile 128": [("constexpr int kTile = 256;", "constexpr int kTile = 128;"),
-                 ("constexpr int kTableLog = 9;", "constexpr int kTableLog = 8;")],
+                 ("constexpr int kTileLog = 8;", "constexpr int kTileLog = 7;")],
     "tile 512": [("constexpr int kTile = 256;", "constexpr int kTile = 512;"),
-                 ("constexpr int kTableLog = 9;", "constexpr int kTableLog = 10;")],
+                 ("constexpr int kTileLog = 8;", "constexpr int kTileLog = 9;")],
     "s per entry": [(_S_COPY, ""), ("srow[en.row * kChunk + e]",
                                     "__ldg(s + (rows.row0 + en.row) * E + c0 + e)")],
-    "atomics not hoisted": [(_HOIST, ""), (_ADD, _ADD + "\n      if (at[q] >= 0) atomicAdd(sum + at[q], add[q]);")],
-    "no L2 prefetch": [("""    if (claimed)
-      for (int c = 0; c < ec; c += 8) prefetch_l2(gv + j * E + c0 + c);
-""", "")],
-    "no flush (wrong)": [("const int slots = *tb.count;", "const int slots = 0;"),
-                         ("if (static_cast<int>(threadIdx.x) < *tb.count)", "if (false)")],
-    "no shared atomics (wrong)": [
-        ("if (at[q] >= 0) atomicAdd(sum + at[q], add[q]);", "if (at[q] >= 0) sum[at[q]] += add[q];"),
-        ("if (pos >= 0) atomicAdd(sum + tb.slot_at[pos], c);", "if (pos >= 0) sum[tb.slot_at[pos]] += c;")],
+    # a row named by one partial goes through the fixed-point sum too (the
+    # same bits: one partial converts back exactly)
+    "every row in fixed point": [("if (rec.x == 1) {  // one partial: it is the sum",
+                                  "if (false) {  // one partial: it is the sum")],
+    "records not interleaved": [
+        ("  return L.meta + 4 * ((row & 15) * L.rec_stride + (row >> 4));",
+         "  return L.meta + 4 * row;")],
+    "4 flush lanes a partial": [("constexpr int kFlushLanes = 16;", "constexpr int kFlushLanes = 4;")],
+    "no fence before the count (unsafe)": [
+        ("  // the adds land before the count that lets the last partial read them\n"
+         "  __threadfence();\n", "")],
+    "no sort (wrong)": [
+        ("  sort_tile(j >= 0 ? static_cast<unsigned long long>(j) << kTileLog | threadIdx.x : kNoKey, sk);\n",
+         "  sk[threadIdx.x] = j >= 0 ? static_cast<unsigned long long>(j) << kTileLog | threadIdx.x : kNoKey;\n"
+         "  __syncthreads();\n")],
+    "no flush (wrong)": [("  ell_matvec_bwd_flush_kernel<<<tiles, kTile, 0, st>>>(L, gw);\n", ""),
+                         ("  fm_pair_bwd_flush_kernel<<<dim3(tiles, kFlushLanes), kTile, 0, st>>>(L, E, gv);\n", "")],
 }
 
 
@@ -107,6 +113,19 @@ def inputs(dev):
     return idx_t, val_t, v, s, g
 
 
+def scratch(dev):
+    """Zeroed scratch for one variant's scatters, sized for tiles of 128
+    to 512 entries (its records, accumulators and flags stay its own: a
+    variant without the flush leaves them dirty)."""
+    slots, tiles = B * K + 512, B * K // 128 + 1
+    return {"rows": torch.empty(slots, dtype=torch.int64, device=dev),
+            "parts": torch.empty(slots * E, device=dev),
+            "runs": torch.empty(tiles, dtype=torch.int32, device=dev),
+            "meta": torch.zeros(4 * 16 * -(-D // 16), dtype=torch.int32, device=dev),
+            "acc": torch.zeros(slots * E, dtype=torch.int64, device=dev),
+            "flags": torch.zeros(slots * E, dtype=torch.int32, device=dev)}
+
+
 def time_variant(so: Path, dev, data) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -116,11 +135,13 @@ def time_variant(so: Path, dev, data) -> dict:
     for name, argtypes in _build.KERNELS.items():
         getattr(lib, name).argtypes = argtypes
     stream = torch.cuda.current_stream(dev).cuda_stream
+    held = scratch(dev)  # alive for every call below
+    work = [t.data_ptr() for t in held.values()]
 
     def k4():
         gv = torch.zeros(D, E, device=dev)
         rc = lib.fm_pair_bwd(idx.data_ptr(), val.data_ptr(), 0, v.data_ptr(), s.data_ptr(),
-                             g.data_ptr(), gv.data_ptr(), B, K, E, D, stream)
+                             g.data_ptr(), gv.data_ptr(), B, K, E, D, *work, stream)
         if rc:
             raise SystemExit(f"scatter_variants: fm_pair_bwd failed to launch: {rc}")
         return gv
@@ -128,7 +149,7 @@ def time_variant(so: Path, dev, data) -> dict:
     def k2():
         gw = torch.zeros(D, device=dev)
         rc = lib.ell_matvec_bwd(idx.data_ptr(), val.data_ptr(), 0, g.data_ptr(),
-                                gw.data_ptr(), B, K, D, stream)
+                                gw.data_ptr(), B, K, D, *work, stream)
         if rc:
             raise SystemExit(f"scatter_variants: ell_matvec_bwd failed to launch: {rc}")
         return gw
@@ -138,17 +159,20 @@ def time_variant(so: Path, dev, data) -> dict:
         k4()
         k2()
     torch.cuda.synchronize()
-    us = {"fm_pair_bwd": [], "ell_matvec_bwd": []}
+    parts = {"tile": "_kernel", "flush": "_flush_kernel"}
+    us = {name: {part: [] for part in parts} for name in ("fm_pair_bwd", "ell_matvec_bwd")}
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
                 k4()
                 k2()
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            for name in us:
-                if ev.device_type == DeviceType.CUDA and f"{name}_kernel" in ev.key:
-                    us[name].append(ev.self_device_time_total / ev.count)
+        # a call's device µs in its tile kernel and in its flush
+        for name, split in us.items():
+            for part, suffix in parts.items():
+                split[part].append(sum(
+                    ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA and f"{name}{suffix}" in ev.key) / 20)
     return {"us": us, "grads": grads}
 
 

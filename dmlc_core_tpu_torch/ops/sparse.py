@@ -13,12 +13,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._common import check_ell, on_cuda, require, wrap_index
+from ._common import check_ell, launch_scatter, on_cuda, require, wrap_index
 
 __all__ = [
     "ell_matmul",
     "ell_matvec",
     "ell_matvec_bwd",
+    "ell_matvec_bwd_into",
     "ell_matvec_bwd_kernel",
     "ell_matvec_bwd_plain",
     "ell_matvec_fwd",
@@ -62,18 +63,26 @@ def ell_matvec_fwd_kernel(indices, values, w):
     return out
 
 
-def ell_matvec_bwd_kernel(indices, values, g, num_features: int):
-    """K2 on CUDA tensors: the zeroed dense gradient is allocated here."""
+def ell_matvec_bwd_into(indices, values, g, gw):
+    """K2 on CUDA tensors into the zeroed dense gradient ``gw`` (f32[D],
+    contiguous): the same inputs give the same bits on every launch."""
     B, K = check_ell(indices, values)
     require(g, "g", (torch.float32,), (B,))
-    gw = torch.zeros(num_features, dtype=torch.float32, device=g.device)
+    require(gw, "gw", (torch.float32,), (None,))
     if B and K:
-        _build.launch(
-            "ell_matvec_bwd", g.device, indices.data_ptr(), values.data_ptr(),
-            int(values.dtype == torch.float16), g.data_ptr(), gw.data_ptr(),
-            B, K, num_features,
-        )
+        D = int(gw.shape[0])
+        launch_scatter(
+            "ell_matvec_bwd", g.device,
+            (indices.data_ptr(), values.data_ptr(), int(values.dtype == torch.float16),
+             g.data_ptr(), gw.data_ptr(), B, K, D),
+            D, B * K, 1)
     return gw
+
+
+def ell_matvec_bwd_kernel(indices, values, g, num_features: int):
+    """K2 on CUDA tensors: the zeroed dense gradient is allocated here."""
+    gw = torch.zeros(num_features, dtype=torch.float32, device=g.device)
+    return ell_matvec_bwd_into(indices, values, g, gw)
 
 
 def ell_matvec_fwd(indices, values, w):

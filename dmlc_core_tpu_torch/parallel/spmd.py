@@ -21,9 +21,7 @@ partitioned ``model.sgd_step`` computes on the global batch:
   and ``b`` over ``model``): every rank of that line computed the
   gradient of the same rows, so only the rank at coordinate 0 adds its
   own and the others add zeros. The sum is then the data ranks' sum,
-  the same bits on every rank of the group, although K2 flushes with
-  atomics and two ranks' gradients of the same rows may differ in the
-  last bits.
+  the same bits on every rank of the group.
 - **The pair term with ``v`` on ``model``.** Each rank runs K3 on its
   contiguous ``[D, E/n]`` block and gets a partial ``½Σ_e(s²−q)`` f32[B];
   ``_SumOver`` adds the partials over ``model`` in forward and passes the

@@ -11,11 +11,12 @@ Ported: ``protocol``, ``topology``, ``supervisor``, ``client``
 (``RabitWorker``), ``tracker`` (``RabitTracker``, ``PSTracker``,
 ``submit``), ``collective``, ``shardsvc`` (the dynamic shard service and
 ``ShardLeaseClient``), ``journal`` (the control-plane journal behind the
-supervised tracker), ``opts``, ``launcher``, ``submit`` and the ``local``
+supervised tracker), ``opts``, ``launcher``, ``submit``, the ``local``
 backend with ``TrackerSupervisor``, the dsserve tier (``DsServeTier``,
-``--dsserve``) and its ``ElasticActuator``, and ``autoscale`` (the
-controller that scales that tier, ``--autoscale``). Not ported: the other
-cluster backends (``ROADMAP.md`` §1 item 9b).
+``--dsserve``) and its ``ElasticActuator``, ``autoscale`` (the
+controller that scales that tier, ``--autoscale``), the cluster backends
+``ssh``, ``mpi``, ``sge``, ``slurm``, ``yarn``, ``mesos``, ``kubernetes``
+and ``tpu-pod``, and ``yarn_am`` (the YARN application master).
 """
 
 from .topology import get_link_map, get_ring, get_tree

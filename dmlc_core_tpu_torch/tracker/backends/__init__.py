@@ -1,16 +1,17 @@
 """Cluster launch backends (the port of
 ``dmlc_core_tpu/tracker/backends/__init__.py``).
 
-Only ``local`` is ported: supervised subprocesses on this host. Every
-other cluster the options accept (ssh, mpi, sge, slurm, yarn, mesos,
-kubernetes, tpu-pod) raises in ``get_backend``; they come after
-``ROADMAP.md`` §1 item 9.
+Each module exposes ``submit(args)`` (args from tracker.opts) and pure
+``build_*`` helpers that return the command lines to run, so backends are
+testable without a cluster (and honor ``--dry-run``): ``local``
+(supervised subprocesses on this host), ``ssh``, ``mpi``, ``sge``,
+``slurm``, ``yarn`` (with the in-container AM ``tracker/yarn_am.py``),
+``mesos``, ``kubernetes`` and ``tpu-pod``.
 """
 
 from typing import Callable, Dict
 
 from ...utils.logging import Error
-from ..opts import CLUSTERS
 
 
 def run_tracker_submit(args, launch_all, pscmd=None, abort_check=None) -> None:
@@ -38,14 +39,31 @@ def format_env_exports(envs: Dict[str, object]) -> str:
 
 
 def get_backend(cluster: str) -> Callable:
-    """The submit function of ``cluster``: ``local`` resolves, every
-    other cluster raises, naming the ``ROADMAP.md`` item."""
-    if cluster == "local":
-        from . import local
+    """The submit function of ``cluster``, for every cluster the options
+    accept; the modules are imported on demand."""
+    from . import (  # local imports keep optional deps lazy
+        kubernetes,
+        local,
+        mesos,
+        mpi,
+        sge,
+        slurm,
+        ssh,
+        tpu_pod,
+        yarn,
+    )
 
-        return local.submit
-    if cluster in CLUSTERS:
-        raise Error(
-            f"the {cluster!r} cluster backend is not ported: only 'local' is "
-            "(the other backends come after ROADMAP.md §1 item 9)")
-    raise Error(f"Unknown submission cluster type {cluster!r}")
+    table: Dict[str, Callable] = {
+        "local": local.submit,
+        "ssh": ssh.submit,
+        "mpi": mpi.submit,
+        "sge": sge.submit,
+        "slurm": slurm.submit,
+        "yarn": yarn.submit,
+        "mesos": mesos.submit,
+        "kubernetes": kubernetes.submit,
+        "tpu-pod": tpu_pod.submit,
+    }
+    if cluster not in table:
+        raise Error(f"Unknown submission cluster type {cluster!r}")
+    return table[cluster]

@@ -3,9 +3,7 @@
 
 Same surface as the reference CLI (tracker/dmlc_tracker/opts.py) plus the
 JAX package's ``tpu-pod`` cluster. Unknown trailing args join the
-command, and ``--cluster`` falls back to $DMLC_SUBMIT_CLUSTER. Every
-flag parses; ``backends.get_backend`` refuses the clusters the port
-lacks, naming the ``ROADMAP.md`` item that brings them.
+command, and ``--cluster`` falls back to $DMLC_SUBMIT_CLUSTER.
 """
 
 from __future__ import annotations

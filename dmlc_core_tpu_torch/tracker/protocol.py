@@ -173,22 +173,25 @@ def bind_first_free(
     bind, tracker.py:144-149). Raises ``OSError`` when the whole range
     is taken."""
     family = socket.getaddrinfo(host_ip, None)[0][0]
-    sock = socket.socket(family, socket.SOCK_STREAM)
-    # a supervised tracker relaunches on the SAME pinned port moments
-    # after its predecessor was SIGKILLed: without SO_REUSEADDR the
-    # predecessor's TIME_WAIT remnants would make the rebind flaky
-    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     for p in range(port, port_end):
+        # a fresh socket a port: two trackers may both bind a port before
+        # either listens (SO_REUSEADDR), and the loser's listen fails with
+        # EADDRINUSE on a socket that is bound already, which a second
+        # bind refuses (EINVAL)
+        sock = socket.socket(family, socket.SOCK_STREAM)
+        # a supervised tracker relaunches on the SAME pinned port moments
+        # after its predecessor was SIGKILLed: without SO_REUSEADDR the
+        # predecessor's TIME_WAIT remnants would make the rebind flaky
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         try:
             sock.bind((host_ip, p))
             sock.listen(backlog)
             return sock, p
         except OSError as e:
+            sock.close()
             if e.errno in (98, 48):  # EADDRINUSE (linux, mac)
                 continue
-            sock.close()
             raise
-    sock.close()
     raise OSError(f"no free tracker port in [{port},{port_end})")
 
 

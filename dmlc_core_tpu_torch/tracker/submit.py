@@ -2,10 +2,9 @@
 ``dmlc_core_tpu/tracker/submit.py``).
 
 ``python -m dmlc_core_tpu_torch.tracker.submit --cluster local -n 2 cmd ...``
-takes the same arguments as ``dmlc_core_tpu.tracker.submit``. Only the
-``local`` cluster is ported (``backends.get_backend`` raises on the
-others); its backend takes every flag, ``--block-cache`` included.
-``--shard-oversplit``,
+takes the same arguments as ``dmlc_core_tpu.tracker.submit``, and every
+cluster dispatches (``backends.get_backend``): local, ssh, mpi, sge,
+slurm, yarn, mesos, kubernetes and tpu-pod. ``--shard-oversplit``,
 ``--shard-lease-ttl``, ``--tracker-journal`` and ``--autoscale*``
 export their env (``DMLC_SHARD_OVERSPLIT``, ``DMLC_SHARD_LEASE_TTL``,
 ``DMLC_TRACKER_JOURNAL``, ``DMLC_AUTOSCALE``,

@@ -511,6 +511,49 @@ def test_inprocess_retire_mid_drain_exactly_once(corpus, tracker):
     assert summary["completed"] == summary["n_shards"] and summary["duplicates"] == 0
 
 
+def test_retire_keeps_finned_leases_until_the_client_commits(corpus, tracker, monkeypatch):
+    """A retiring server gives back the micro-shards whose SHARD_FIN it
+    sent only once its client has closed the stream (renewing them
+    meanwhile), so its release never overtakes the client's commit and
+    hands the shard to the sibling. With every commit slowed (as a loaded
+    host slows them), the in-process retire still streams each
+    micro-shard once: no duplicate done, and the two servers' FINs add
+    up to the shard count."""
+    from dmlc_core_tpu_torch.tracker import shardsvc
+
+    rec, idx = corpus
+    real_done = shardsvc.ShardLeaseClient.done
+
+    def slow_done(self, *args, **kwargs):
+        time.sleep(0.3)
+        return real_done(self, *args, **kwargs)
+
+    monkeypatch.setattr(shardsvc.ShardLeaseClient, "done", slow_done)
+    s1 = DsServeServer(rank=101).start()
+    s2 = DsServeServer(rank=102).start()
+    try:
+        c = DsServeBatches(f"dsserve://127.0.0.1:{s1.port},127.0.0.1:{s2.port}"
+                           f"{uri_of(rec, idx)}", spec_of(), mode="lease")
+        seen = []
+
+        def on_slot(shard, seq, payload):
+            seen.append(shard)
+            if len(seen) == 2:
+                s1.retire()
+
+        c.on_slot = on_slot
+        rows = sum(b.n_valid for b in c)
+        c.close()
+        assert s1.retiring
+    finally:
+        s1.close()
+        s2.close()
+    summary = tracker.shards.summary()
+    assert rows == N_ROWS
+    assert summary["completed"] == summary["n_shards"] and summary["duplicates"] == 0
+    assert s1.shards_streamed + s2.shards_streamed == summary["n_shards"]
+
+
 # -- the hold budget and discovery -------------------------------------------------------
 
 

@@ -57,6 +57,17 @@ TRACKER_MODULES = [
     "dmlc_core_tpu_torch.tracker.submit",
     "dmlc_core_tpu_torch.tracker.backends",
     "dmlc_core_tpu_torch.tracker.backends.local",
+    # the cluster backends and the YARN application master: launchers
+    # that build commands and run binaries, without torch
+    "dmlc_core_tpu_torch.tracker.backends.ssh",
+    "dmlc_core_tpu_torch.tracker.backends.mpi",
+    "dmlc_core_tpu_torch.tracker.backends.sge",
+    "dmlc_core_tpu_torch.tracker.backends.slurm",
+    "dmlc_core_tpu_torch.tracker.backends.mesos",
+    "dmlc_core_tpu_torch.tracker.backends.kubernetes",
+    "dmlc_core_tpu_torch.tracker.backends.tpu_pod",
+    "dmlc_core_tpu_torch.tracker.backends.yarn",
+    "dmlc_core_tpu_torch.tracker.yarn_am",
     # the telemetry the tracker records into, the profiler hooks and the
     # tools: torch only once a caller imports it
     "dmlc_core_tpu_torch.telemetry",
@@ -156,6 +167,35 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(lines["LOADED"]) >= 30  # every module was imported
     assert NEW_MODULES <= set(lines["NAMES"].split())
     assert lines["BAD"] == "[]"
+
+
+def test_chip_smoke_imports_only_the_port_at_any_depth():
+    """Every import in chip_smoke.py, inside functions and in the scripts
+    it writes for its worker processes too, names the standard library,
+    numpy, torch, the port or chip_smoke itself: no test module (whose
+    conftest imports jax), nothing of JAX or of the JAX package; and no
+    path of the tests is put on sys.path. The script's fake binaries are
+    the test suite's."""
+    import re
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import chip_smoke
+    import test_backend_fakes
+
+    src = (REPO / "chip_smoke.py").read_text()
+    names = set()
+    for m in re.finditer(r"^\s*(?:from\s+([\w.]+)\s+import\b|import\s+([\w., ]+?)\s*(?:#.*)?$)",
+                         src, re.M):
+        parts = [m.group(1)] if m.group(1) else m.group(2).split(",")
+        names |= {p.strip().split(" ")[0].split(".")[0] for p in parts}
+    assert {"json", "numpy", "torch", "dmlc_core_tpu_torch"} <= names
+    assert names - set(sys.stdlib_module_names) == {
+        "numpy", "torch", "dmlc_core_tpu_torch", "chip_smoke"}
+    assert not re.search(r"sys\.path\.(insert|append)\([^\n]*tests", src)
+    assert set(chip_smoke.FOREIGN_MODULES) >= {"jax", "jaxlib", "dmlc_core_tpu"}
+    assert chip_smoke.FAKE_BINARIES == {"ssh": test_backend_fakes.FAKE_SSH,
+                                        "srun": test_backend_fakes.FAKE_SRUN,
+                                        "mpirun": test_backend_fakes.FAKE_MPIRUN}
 
 
 _TRACKER_PROBE = """

@@ -8,12 +8,13 @@ Inputs include duplicates, padding, wrapped negatives and out-of-range
 indices, with f32 and f16 values, at the slice's shape and at the edge
 shapes the designs branch on (K, E, B, and operands that are not 16-byte
 aligned), and the gradient scatters' own edge inputs: every row naming
-the same rows, every entry naming its own row (a tile's table full), E in
-several column chunks, and dense gradients that are not 16-byte
-aligned. Tolerances: forward 1e-6 + 1e-5 of the summed
-terms' magnitudes (sums in another order; the pair term ½Σ(s² − q)
-cancels, so its rounding error scales with s²); gradients 1e-4 of max |g|
-(f32 atomics add in an order that changes from run to run)."""
+the same rows, every entry naming its own row (a tile of distinct rows),
+E in several column chunks, and dense gradients that are not 16-byte
+aligned; the scatters give the same bits on every launch. Tolerances:
+forward 1e-6 + 1e-5 of the summed terms' magnitudes (sums in another
+order; the pair term ½Σ(s² − q) cancels, so its rounding error scales
+with s²); gradients 1e-4 of max |g| (the scatters sum in another order
+than the plain index_add_)."""
 
 import numpy as np
 import pytest
@@ -176,23 +177,64 @@ def test_gradient_scatters_on_their_edge_inputs(cuda, kind, E, vdtype):
 
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.float16])
 def test_gradient_scatters_on_unaligned_gradients(cuda, vdtype):
-    """K2 and K4 through their C entry points into zeroed dense gradients
-    that start one element past a 16-byte boundary (the wrappers' own are
-    aligned): K4 takes its scalar flush."""
+    """K2 and K4 into zeroed dense gradients that start one element past
+    a 16-byte boundary (the wrappers' own are aligned)."""
     B, K, D, E = 203, 39, 1000, 16
     idx, val, _, v, g = inputs(cuda, B, K, D, E, vdtype, seed=4)
     _, s = tfm.fm_pair_fwd_plain(idx, val, v)
     gw = shifted(torch.zeros(D, device=cuda))
     gv = shifted(torch.zeros(D, E, device=cuda))
     assert gw.data_ptr() % 16 and gv.data_ptr() % 16
-    f16 = int(vdtype == torch.float16)
-    _build.launch("ell_matvec_bwd", cuda, idx.data_ptr(), val.data_ptr(), f16,
-                  g.data_ptr(), gw.data_ptr(), B, K, D)
-    _build.launch("fm_pair_bwd", cuda, idx.data_ptr(), val.data_ptr(), f16, v.data_ptr(),
-                  s.data_ptr(), g.data_ptr(), gv.data_ptr(), B, K, E, D)
+    tops.ell_matvec_bwd_into(idx, val, g, gw)
+    tfm.fm_pair_bwd_into(idx, val, v, s, g, gv)
     grad_close(gw, tops.ell_matvec_bwd_plain(idx, val, g, D))
     grad_close(gv, tfm.fm_pair_bwd_plain(idx, val, v, s, g))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["contention", "distinct"])
+def test_gradient_scatters_give_the_same_bits_on_every_launch(cuda, kind):
+    """K2 and K4 fix their order of summation by their inputs alone:
+    launched 10 times on the same inputs, every gradient is bit-identical
+    (compared as int32) to the first."""
+    idx, val, v, g = scatter_inputs(cuda, kind, 16, torch.float32)
+    D = v.shape[0]
+    _, s = tfm.fm_pair_fwd_plain(idx, val, v)
+    for kernel in (lambda: tops.ell_matvec_bwd_kernel(idx, val, g, D),
+                   lambda: tfm.fm_pair_bwd_kernel(idx, val, v, s, g)):
+        first = kernel().view(torch.int32)
+        assert all(torch.equal(kernel().view(torch.int32), first) for _ in range(9))
+
+
+def test_gradient_scatters_from_two_threads_on_one_stream(cuda):
+    """Two host threads scattering on one stream with the same inputs,
+    K2 and K4 in turn: each call keeps its tile and flush launches
+    together, so every gradient equals the one-thread result bit for bit
+    (the calls share the stream's scratch)."""
+    import threading
+
+    idx, val, v, g = scatter_inputs(cuda, "contention", 16, torch.float32)
+    D = v.shape[0]
+    _, s = tfm.fm_pair_fwd_plain(idx, val, v)
+    want = (tops.ell_matvec_bwd_kernel(idx, val, g, D).view(torch.int32),
+            tfm.fm_pair_bwd_kernel(idx, val, v, s, g).view(torch.int32))
+    got = {0: [], 1: []}
+
+    def scatter(t):
+        for _ in range(50):
+            got[t].append((tops.ell_matvec_bwd_kernel(idx, val, g, D),
+                           tfm.fm_pair_bwd_kernel(idx, val, v, s, g)))
+
+    threads = [threading.Thread(target=scatter, args=(t,)) for t in got]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for calls in got.values():
+        for gw, gv in calls:
+            assert torch.equal(gw.view(torch.int32), want[0])
+            assert torch.equal(gv.view(torch.int32), want[1])
 
 
 def _criteo_libsvm(path, n, d, seed=5):

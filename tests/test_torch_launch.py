@@ -543,10 +543,61 @@ def test_autoscale_flags_export_env_as_jax(monkeypatch, capsys, flag, env):
     assert capsys.readouterr().out.count("[dry-run] local task 0") == 2
 
 
-@pytest.mark.parametrize("cluster", ["ssh", "mpi", "slurm", "tpu-pod"])
-def test_submit_refuses_unported_clusters(cluster):
-    with pytest.raises(Error, match=r"ROADMAP.md §1 item 9"):
-        submit.main(["--cluster", cluster, "--num-workers", "1", "--dry-run", "true"])
+# the flags each cluster's dry run needs beyond the job's
+DRY_RUN_FLAGS = {
+    "local": [], "ssh": ["--host-file", "HOSTS"], "mpi": [], "sge": [], "slurm": [],
+    "mesos": ["--mesos-master", "master:5050"], "kubernetes": [], "yarn": [],
+    "yarn-rest": [], "tpu-pod": ["--tpu-name", "pod", "--tpu-zone", "us-central2-b"],
+}
+
+
+@pytest.mark.parametrize("cluster", sorted(DRY_RUN_FLAGS))
+def test_submit_dry_run_prints_the_jax_output(tmp_path, monkeypatch, capsys, cluster):
+    """``submit --dry-run`` on every cluster prints what the JAX submit
+    prints: commands, scripts, manifests and the YARN REST context, which
+    differs in the AM module string alone (``yarn-rest``: yarn with
+    ``DMLC_YARN_REST`` set)."""
+    jax_submit = importlib.import_module("dmlc_core_tpu.tracker.submit")
+    hosts = tmp_path / "hosts"
+    hosts.write_text("10.0.0.1\n10.0.0.2:2222\n")
+    if cluster == "yarn-rest":
+        monkeypatch.setenv("DMLC_YARN_REST", "http://rm.invalid:8088")
+    else:
+        monkeypatch.delenv("DMLC_YARN_REST", raising=False)
+    monkeypatch.delenv("MESOS_MASTER", raising=False)
+    monkeypatch.setenv("DMLC_TRACE_ID", "")  # recorded, so submit's export is undone
+    flags = [str(hosts) if f == "HOSTS" else f for f in DRY_RUN_FLAGS[cluster]]
+    argv = ["--cluster", cluster.replace("-rest", ""), "--num-workers", "2",
+            "--num-servers", "0" if cluster == "tpu-pod" else "1", "--host-ip", "127.0.0.1",
+            "--dry-run", *flags, "python", "train.py", "--name", "run 1"]
+    outs = []
+    for main in (submit.main, jax_submit.main):
+        main(argv)
+        outs.append(capsys.readouterr().out)
+    port, jax = outs
+    assert port and "[dry-run]" in port or cluster == "kubernetes"
+    if cluster == "yarn-rest":
+        assert "-m dmlc_core_tpu_torch.tracker.yarn_am" in port
+        port = port.replace("dmlc_core_tpu_torch.tracker.yarn_am", "dmlc_core_tpu.tracker.yarn_am")
+    assert port == jax
+
+
+@pytest.mark.parametrize("cluster", ["sge", "mesos", "kubernetes", "tpu-pod", "yarn",
+                                     "yarn-rest"])
+def test_dry_run_golden_is_the_jax_output(cluster):
+    """``tests/data/torch_submit_dry_runs.json``, which ``chip_smoke.py``'s
+    backends phase holds the port's dry runs to on the card (where the
+    JAX package does not run), is what the JAX submit prints now, and
+    what the port's prints apart from the AM module string."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    assert cluster in chip_smoke.DRY_RUN_CLUSTERS
+    golden = json.loads((REPO / chip_smoke.DRY_RUN_GOLDEN).read_text())[cluster]
+    assert chip_smoke.submit_dry_run("dmlc_core_tpu.tracker.submit", cluster) == golden
+    port = chip_smoke.submit_dry_run("dmlc_core_tpu_torch.tracker.submit", cluster)
+    assert (chip_smoke.PORT_AM in port) == (cluster == "yarn-rest")
+    assert port.replace(chip_smoke.PORT_AM, chip_smoke.JAX_AM) == golden
 
 
 # -- checkpoints under the launcher -----------------------------------------------

@@ -332,3 +332,55 @@ def test_scatter_variants_apply_to_the_kernel_source():
     for name, subs in scatter_variants.VARIANTS.items():
         assert all(old in src for old, _ in subs), name
         assert scatter_variants._source(subs) != src or not subs, name
+
+
+def test_scatter_launches_on_one_stream_never_interleave(monkeypatch):
+    """Two host threads scattering on one stream: each call's launch
+    (its tile and flush kernels, enqueued in one call that releases the
+    GIL) runs whole before the other's starts, every call passes the
+    stream's kept scratch (tile lists included), and a refused launch
+    drops that scratch so the next call zeroes a new one. The launch is a
+    stand-in here; the kernels' own two-thread check is in
+    test_torch_kernels_gpu.py."""
+    import threading
+    import time
+    import types
+
+    from dmlc_core_tpu_torch.ops import _build
+
+    events, ptrs, refuse = [], [], []
+
+    def fake_launch(name, device, *args):
+        events.append(("start", threading.get_ident()))
+        time.sleep(0.005)
+        ptrs.append(args[-6:])
+        events.append(("end", threading.get_ident()))
+        if refuse:
+            raise Error("refused")
+
+    stream = types.SimpleNamespace(cuda_stream=12345)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    monkeypatch.setattr(_common, "_kept", {})
+    dev = torch.device("cpu")
+
+    def scatter():
+        for _ in range(8):
+            _common.launch_scatter("fm_pair_bwd", dev, (), 40, 300, 4)
+
+    threads = [threading.Thread(target=scatter) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(events) == 32
+    for i in range(0, 32, 2):
+        assert events[i][0] == "start" and events[i + 1] == ("end", events[i][1])
+    assert len(set(ptrs)) == 1  # every call took the one kept set
+    _, kept = _common._kept[(None, 12345)]
+    assert [kept[p].numel() for p in ("rows", "parts", "runs", "meta", "acc", "flags")] == \
+        [512, 512 * 4, 2, 4 * 48, 512 * 4, 512 * 4]
+    refuse.append(True)
+    with pytest.raises(Error):
+        _common.launch_scatter("fm_pair_bwd", dev, (), 40, 300, 4)
+    assert kept == {}

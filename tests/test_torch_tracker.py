@@ -3,9 +3,10 @@ package's (``dmlc_core_tpu.tracker``) on the CPU: the topology maps, the
 wire bytes, the submit options, the rendezvous over real sockets in both
 directions (port workers under a JAX tracker, JAX workers under a port
 tracker, and a mixed world), the tracker's defences against hostile
-clients (copies of ``tests/test_tracker.py``), and the refusals of what
-the port lacks, each naming its ``ROADMAP.md`` item. Every tracker and
-thread is joined with a timeout and closed on the way out."""
+clients (copies of ``tests/test_tracker.py``), every cluster's backend
+resolving as in the JAX package, and the refusal of an unknown cluster.
+Every tracker and thread is joined with a timeout and closed on the way
+out."""
 
 import random
 import socket
@@ -174,13 +175,48 @@ def test_get_opts_errors_equal_jax(monkeypatch):
     assert port_opts.get_opts(["--num-workers", "1", "true"]).cluster == "ssh"
 
 
-# -- refusals ------------------------------------------------------------------
+def test_bind_scan_takes_the_next_port_when_listen_loses_the_race(monkeypatch):
+    """Two trackers scanning one range may both bind a port before either
+    listens (SO_REUSEADDR); the loser's listen fails with EADDRINUSE, and
+    the scan must go on to the next port with a fresh socket (a second
+    bind of the bound one fails with EINVAL, which ended a supervised
+    tracker under a loaded test run)."""
+    import errno
+
+    with socket.socket() as probe:  # a free port to start the scan at
+        probe.bind(("127.0.0.1", 0))
+        start = probe.getsockname()[1]
+    real_listen = socket.socket.listen
+    ports = []
+
+    def listen(sock, *args):
+        ports.append(sock.getsockname()[1])
+        if len(ports) == 1:
+            raise OSError(errno.EADDRINUSE, "another tracker listened first")
+        return real_listen(sock, *args)
+
+    monkeypatch.setattr(socket.socket, "listen", listen)
+    sock, port = protocol.bind_first_free("127.0.0.1", start, start + 50)
+    try:
+        assert port > start and ports[-1] == port
+    finally:
+        sock.close()
 
 
-@pytest.mark.parametrize("cluster", [c for c in port_opts.CLUSTERS if c != "local"])
-def test_unported_clusters_raise_naming_the_roadmap_item(cluster):
-    with pytest.raises(Error, match=r"ROADMAP.md §1 item 9"):
-        get_backend(cluster)
+# -- backends and refusals -----------------------------------------------------
+
+
+@pytest.mark.parametrize("cluster", port_opts.CLUSTERS)
+def test_get_backend_resolves_as_jax(cluster):
+    """Every cluster the options accept resolves, in both packages, to
+    the submit of a backend module of the same name."""
+    from dmlc_core_tpu.tracker.backends import get_backend as jax_get_backend
+
+    assert port_opts.CLUSTERS == jax_opts.CLUSTERS
+    port, jax = get_backend(cluster), jax_get_backend(cluster)
+    assert port.__name__ == jax.__name__ == "submit"
+    assert port.__module__.startswith("dmlc_core_tpu_torch.tracker.backends.")
+    assert port.__module__.replace("dmlc_core_tpu_torch.", "dmlc_core_tpu.") == jax.__module__
 
 
 def test_unknown_cluster_raises():
