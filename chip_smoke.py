@@ -291,7 +291,25 @@ Phases (any failure exits non-zero and prints no result line):
    ``DMLC_YARN_REST`` prints what the JAX package's submit prints
    (``tests/data/torch_submit_dry_runs.json``, recorded and checked on
    the CPU), apart from the AM module string;
-20. the ``entry()`` forward on the card against the CPU.
+20. the library interface at the Criteo width (``api``): a libsvm file
+   of N_BATCHES batches of rows (the slice phase's generator). (a)
+   ``create_parser(type="libsvm")``, threaded, read for two epochs with
+   ``before_first()`` between them: epoch 2's blocks equal epoch 1's (a
+   digest a block) and ``bytes_read()`` never falls within an epoch and
+   ends each at the file's size; (b) its blocks through
+   ``FixedShapeBatcher`` → ``StagingPipeline`` → FM SGD, beside the same
+   FM over the native producer for two epochs, both from one set of
+   params made on the CPU and placed by ``staging.device_put``: the
+   batches byte-equal, the params bit-identical, K1-K4 launched on both;
+   (c) ``create_row_block_iter`` read twice through ``before_first``
+   with a ``set_log_sink`` sink: its progress lines' megabytes are the
+   10 MB rule over the split's chunks (the source's bytes); (d) over the
+   same rows written as indexed rowrec (``write_indexed``), a whole
+   epoch of ``next_batch(B)`` equals one of ``next_batch_ex(B)`` under
+   ``shuffle=batch``, and ``StagingPipeline.io_stats()`` over the native
+   producer carries the split's counters and ``"staging"``. It prints
+   both arms' staged rows/s and step ms and the phase's seconds;
+21. the ``entry()`` forward on the card against the CPU.
 
 The native parse core (``dmlc_core_tpu_torch/native/fastparse.cc``) is
 built with g++ beside the kernels' nvcc build, and its stamped source hash
@@ -303,8 +321,8 @@ an ``{"examples": {...}}``, a ``{"collective": {...}}``, a
 ``{"telemetry": {...}}``, a ``{"shards": {...}}``, a ``{"dsserve":
 {...}}``, a ``{"faults": {...}}``, an ``{"autoscale": {...}}``, a
 ``{"remote": {...}}``, a ``{"stream": {...}}``, a ``{"lookup":
-{...}}``, a ``{"parallel": {...}}``, a ``{"backends": {...}}`` and a
-``{"phase_seconds": {...}}`` line, the
+{...}}``, a ``{"parallel": {...}}``, a ``{"backends": {...}}``, an
+``{"api": {...}}`` and a ``{"phase_seconds": {...}}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``, after
 checking that it loaded no module of JAX or of the JAX package.
 """
@@ -5340,6 +5358,219 @@ def backends_phase(dev):
     return out, launches
 
 
+API_EPOCHS = 2
+# the row iterators log every this many bytes of source read
+API_LOG_STEP = 10 << 20
+
+
+def block_digest(blk) -> str:
+    """A RowBlock's arrays (and which are absent) as one hash."""
+    h = hashlib.blake2b()
+    for name in ("offset", "label", "index", "value", "weight", "qid", "field"):
+        a = getattr(blk, name)
+        h.update(name.encode() + (b"-" if a is None else str(a.dtype).encode() + a.tobytes()))
+    return h.hexdigest()
+
+
+class ParserEpochs:
+    """A ``create_parser`` parser's blocks through ``FixedShapeBatcher``
+    for ``n`` epochs, ``before_first()`` between them; for each epoch the
+    digest of every block and ``bytes_read()`` after every ``parse_next``
+    (taken on the staging thread, which drives the parser)."""
+
+    def __init__(self, parser, spec, n: int) -> None:
+        self.parser, self.spec, self.n = parser, spec, n
+        self.digests, self.bytes = [], []
+
+    def _blocks(self):
+        digests, seen = [], []
+        self.digests.append(digests)
+        self.bytes.append(seen)
+        while True:
+            got = self.parser.parse_next()
+            if got is None:
+                return
+            seen.append(self.parser.bytes_read())
+            for blk in got:
+                if blk.size:
+                    digests.append(block_digest(blk))
+                    yield blk
+
+    def __iter__(self):
+        from dmlc_core_tpu_torch.staging.batcher import FixedShapeBatcher
+
+        for e in range(self.n):
+            if e:
+                self.parser.before_first()
+            yield from FixedShapeBatcher(self.spec).batches(self._blocks())
+
+    def close(self) -> None:
+        self.parser.close()
+
+
+def api_parser_arms(svm: str, size: int, spec, dev, lr: float):
+    """Gates (a) and (b): the threaded ``create_parser`` over the libsvm
+    file for API_EPOCHS epochs → ``FixedShapeBatcher`` →
+    ``StagingPipeline`` → FM SGD, beside the same FM over the native
+    producer for as many epochs; both FMs start from one set of params
+    made on the CPU and placed by ``staging.device_put``."""
+    from dmlc_core_tpu_torch.data import create_parser
+    from dmlc_core_tpu_torch.models import FactorizationMachine
+    from dmlc_core_tpu_torch.staging import device_put
+
+    init = FactorizationMachine(D, E, device="cpu",
+                                generator=torch.Generator().manual_seed(18)).params()
+    init = {k: p.detach().numpy().copy() for k, p in init.items()}
+
+    def fm():
+        model = FactorizationMachine(D, E, device=dev)
+        model.load_state_dict(device_put(init, dev))
+        return model
+
+    arms, params = {}, {}
+    source = ParserEpochs(create_parser(svm, type="libsvm"), spec, API_EPOCHS)
+    model = fm()
+    arms["parser"], _, _ = drive("api_parser", model, source, dev, lr, digests=True)
+    params["parser"] = {k: p.detach().cpu().numpy() for k, p in model.params().items()}
+    model = fm()
+    arms["native"], _, _ = drive("api_native", model, Epochs(
+        native_source(svm + "?format=libsvm", spec), API_EPOCHS), dev, lr, digests=True)
+    params["native"] = {k: p.detach().cpu().numpy() for k, p in model.params().items()}
+    # (a) epoch 2's blocks are epoch 1's; bytes_read ends at the file's
+    # size and never falls within an epoch
+    if len(source.digests) != API_EPOCHS or source.digests[1] != source.digests[0]:
+        fail("api: the parser's second epoch gave other blocks than its first")
+    for e, seen in enumerate(source.bytes):
+        if seen != sorted(seen) or seen[-1] != size:
+            fail(f"api: epoch {e} bytes_read {seen[:4]}...{seen[-2:]}, file {size} bytes")
+    # (b) byte-equal batches, bit-identical params
+    if arms["parser"]["digests"] != arms["native"]["digests"]:
+        fail("api: the parser path's batches differ from the native producer's")
+    diff = [k for k in params["native"]
+            if params["parser"][k].tobytes() != params["native"][k].tobytes()]
+    if diff:
+        fail(f"api: params after {API_EPOCHS} epochs differ between the arms: {diff} "
+             f"{param_gap(params['parser'], params['native'])}")
+    launches = {k: arms["parser"]["launches"][k] + arms["native"]["launches"][k]
+                for k in KERNEL_NAMES}
+    line = {"epochs": API_EPOCHS, "blocks_an_epoch": len(source.digests[0]),
+            "parse_next_an_epoch": len(source.bytes[0]),
+            "bytes_read_after_each_epoch": [seen[-1] for seen in source.bytes],
+            "epoch2_equals_epoch1": True, "batches_byte_equal": True,
+            "params_bit_identical": True}
+    for name, st in arms.items():
+        st.pop("digests")
+        line[name] = {k: st[k] for k in ("steps", "staged_rows_per_sec", "step_ms",
+                                         "wait_share", "wall_s", "loss_first",
+                                         "loss_last", "launches")}
+    return line, launches
+
+
+def api_row_iter(svm: str, size: int):
+    """Gate (c): ``create_row_block_iter`` read twice through
+    ``before_first`` with a ``set_log_sink`` sink; its progress lines'
+    megabytes are those the 10 MB rule gives over the split's chunks (the
+    source's bytes, not the parsed blocks')."""
+    from dmlc_core_tpu_torch.data import create_row_block_iter
+    from dmlc_core_tpu_torch.io import split as io_split
+    from dmlc_core_tpu_torch.utils.logging import set_log_sink
+
+    lines = []
+    set_log_sink(lambda sev, msg: lines.append((sev, msg)))
+    try:
+        it = create_row_block_iter(svm)
+        epochs = []
+        for _ in range(API_EPOCHS):
+            it.before_first()
+            epochs.append([block_digest(b) for b in it])
+        it.close()
+    finally:
+        set_log_sink(None)
+    if epochs[1] != epochs[0]:
+        fail("api: the row iterator's second pass differs from its first")
+    sp = io_split.create(svm, type="text", threaded=False)
+    want, total, at = [], 0, API_LOG_STEP
+    for chunk in iter(sp.next_chunk, None):
+        total += len(chunk)
+        if total >= at:
+            want.append(total >> 20)
+            at += API_LOG_STEP
+    sp.close()
+    got = [int(m.group(1)) for _, msg in lines if (m := re.match(r"(\d+)MB read", msg))]
+    if total != size or got != want or not lines or lines[-1][0] != "INFO" \
+            or not lines[-1][1].startswith("finish reading at"):
+        fail(f"api: row iterator log lines {lines}, want MB {want} of {size} bytes")
+    return {"log_lines": [msg for _, msg in lines], "mb_logged": got}
+
+
+def api_next_batch(rec: str, rows: int, spec, dev):
+    """Gate (d): over the indexed rowrec file, a whole epoch of
+    ``next_batch(B)`` equals one of ``next_batch_ex(B)``; then
+    ``StagingPipeline.io_stats()`` over the native producer carries the
+    split's counters and ``"staging"``."""
+    from dmlc_core_tpu_torch.io import split as io_split
+    from dmlc_core_tpu_torch.staging.fused import ell_batches
+    from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
+
+    uri = f"{rec}?index={rec}.idx&shuffle=batch&seed=7"
+    drains = {}
+    for method in ("next_batch", "next_batch_ex"):
+        sp = io_split.create(uri, type="recordio", threaded=False)
+        if not isinstance(sp, io_split.InputSplit):
+            fail(f"api: {type(sp).__name__} is no InputSplit")
+        out, n = [], 0
+        while (chunk := getattr(sp, method)(B)) is not None:
+            out.append(hashlib.blake2b(chunk).hexdigest())
+            n += sum(1 for _ in sp.extract_records(chunk))
+        sp.close()
+        drains[method] = (out, n)
+    if drains["next_batch"] != drains["next_batch_ex"] or drains["next_batch"][1] != rows:
+        fail(f"api: next_batch and next_batch_ex drains differ: "
+             f"{[(len(d), n) for d, n in drains.values()]}")
+    src = ell_batches(uri, spec)
+    pipe = StagingPipeline(src, device=dev)
+    for _ in pipe:
+        pass
+    st = pipe.io_stats()
+    if not drain_close(pipe, src):
+        fail("api: staging pipeline did not close cleanly")
+    staging = st.get("staging", {})
+    if (st.get("records") != rows or st.get("mode") != "batch"
+            or staging.get("packed_batches") != rows // B):
+        fail(f"api: StagingPipeline.io_stats() lacks the split's counters: {st}")
+    return {"batches": len(drains["next_batch"][0]), "records": rows,
+            "next_batch_equals_next_batch_ex": True, "io_stats": st}
+
+
+def api_phase(dev, card: str):
+    """The library interface on the card at full width: a libsvm Criteo
+    file of N_BATCHES batches of rows (the slice phase's generator) read
+    for two epochs by ``create_parser`` and trained beside the native
+    producer (gates a, b), the row iterator's progress through a log sink
+    (c), and ``next_batch`` over the shuffle phase's kind of indexed file
+    (d). Returns the ``{"api": ...}`` line and its K1-K4 launches."""
+    from dmlc_core_tpu_torch.staging.batcher import BatchSpec
+
+    t0 = time.perf_counter()
+    rows = N_BATCHES * B
+    spec = BatchSpec(batch_size=B, max_nnz=K, value_dtype=np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        idx, val, labels = criteo_data(np.random.default_rng(18), rows, D)
+        svm = write_file(os.path.join(tmp, "criteo.libsvm"),
+                         criteo_text(idx, val, labels, "libsvm"))
+        size = os.path.getsize(svm)
+        out = {"rows": rows, "file_bytes": size, "card": card}
+        out["parser"], launches = api_parser_arms(svm, size, spec, dev, 0.5)
+        out["row_iter"] = api_row_iter(svm, size)
+        rec = write_indexed(os.path.join(tmp, "criteo.rec"), idx, val, labels)
+        out["next_batch"] = api_next_batch(rec, rows, spec, dev)
+    if any(launches[k] == 0 for k in KERNEL_NAMES):
+        fail(f"api: the phase did not launch every kernel: {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def entry_phase(dev) -> None:
     from dmlc_core_tpu_torch.entry import entry
 
@@ -5369,6 +5600,7 @@ def run_only(names, dev, smi_line: str, timed) -> None:
         "lookup": lambda: lookup_phase(smi_line),
         "parallel": lambda: parallel_phase(dev, smi_line)[0],
         "backends": lambda: backends_phase(dev)[0],
+        "api": lambda: api_phase(dev, smi_line)[0],
         "entry": lambda: entry_phase(dev),
     }
     unknown = [n for n in names if n not in calls]
@@ -5455,6 +5687,7 @@ def main(argv=None) -> None:
     lookup = timed("lookup", lookup_phase, smi_line)
     parallel, par_launches = timed("parallel", parallel_phase, dev, smi_line)
     backends, backend_launches = timed("backends", backends_phase, dev)
+    api, api_launches = timed("api", api_phase, dev, smi_line)
     timed("entry", entry_phase, dev)
     torch.cuda.synchronize()
     seconds["total"] = time.perf_counter() - t0
@@ -5468,7 +5701,7 @@ def main(argv=None) -> None:
              + fault_launches[row["name"]] + autoscale_launches[row["name"]]
              + remote_launches[row["name"]] + stream_launches[row["name"]]
              + par_launches[row["name"]] + backend_launches[row["name"]]
-             + examples["train_online_fm"]["launches"][row["name"]])
+             + api_launches[row["name"]] + examples["train_online_fm"]["launches"][row["name"]])
         if n == 0:
             fail(f"kernel {row['name']} was not launched on the main path")
         row["launches"] = n
@@ -5497,6 +5730,7 @@ def main(argv=None) -> None:
     print(json.dumps({"lookup": lookup}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"backends": backends}))
+    print(json.dumps({"api": api}))
     print(json.dumps({"phase_seconds": seconds}))
     foreign = sorted(n for n in sys.modules if n.split(".")[0] in FOREIGN_MODULES)
     if foreign:

@@ -38,7 +38,6 @@ package's ``coordination_only`` rule).
 
 from __future__ import annotations
 
-import logging
 import os
 import re
 import threading
@@ -52,7 +51,7 @@ from .io.filesystem import FileInfo, FileSystem
 from .io.stream import Stream
 from .parallel.mesh import process_shard, store_barrier
 from .parallel.spmd import Placed, place
-from .utils.logging import Error, check
+from .utils.logging import Error, check, log_info
 
 __all__ = [
     "AsyncSave",
@@ -63,7 +62,6 @@ __all__ = [
     "save_pytree_sharded",
 ]
 
-logger = logging.getLogger("dmlc_core_tpu_torch.checkpoint")
 
 _MAGIC = b"DMLCTPU1"
 _MANIFEST = "MANIFEST.bin"
@@ -613,8 +611,8 @@ class Checkpointer:
             _remove(self._path(step))
             _remove(self._meta_path(step))
             self._prune()
-            logger.info("%ssharded checkpoint step %d -> %s", tag, step,
-                        self._path(step, sharded=True))
+            log_info(f"{tag}sharded checkpoint step {step} -> "
+                     f"{self._path(step, sharded=True)}")
 
     def save_async(self, step: int, tree: Any,
                    meta: Optional[Dict[str, Any]] = None) -> AsyncSave:
@@ -699,7 +697,7 @@ class Checkpointer:
         if had_shadow:
             _remove(sharded_path, tree_ok=True)
         self._prune()
-        logger.info("%scheckpoint step %d -> %s", tag, step, path)
+        log_info(f"{tag}checkpoint step {step} -> {path}")
         return path
 
     def _resolve(self, step: Optional[int]) -> Tuple[int, bool]:

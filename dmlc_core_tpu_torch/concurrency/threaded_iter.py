@@ -1,10 +1,11 @@
 """ThreadedIter: bounded producer-consumer prefetch (the port of
 ``dmlc_core_tpu/concurrency/threaded_iter.py``; the dsserve server runs
-its production ahead of the socket send on one).
+its production ahead of the socket send on one, ``data.ThreadedParser``
+its parse and ``DiskRowIter`` its page reads).
 
 Reference: include/dmlc/threadediter.h. The port's staging stages use the
-lighter ``utils/prefetch.Prefetcher``; this class keeps the JAX package's
-restartable contract for the code ported with it.
+lighter, one-pass ``utils/prefetch.Prefetcher``; this class keeps the JAX
+package's restartable contract for the code that rewinds.
 
 Python rethink: the reference's cell-recycling protocol
 (threadediter.h:443-488) exists to avoid malloc/free churn of C++ buffers;

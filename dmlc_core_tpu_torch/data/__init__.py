@@ -1,7 +1,9 @@
-"""Sparse rows and their parsers: the CSR ``RowBlock``, the binary
-``rowrec`` format, the libsvm/libfm/csv text parsers, the native parse
-core they run on (``native.py``), the parser factory and the row-block
-iterators (``row_iter.py``: eager, or replayed from a ``#cachefile``)."""
+"""Sparse rows and their parsers: the CSR ``RowBlock`` and its ``Row``
+views, the binary ``rowrec`` format, the libsvm/libfm/csv text parsers
+and their ``*ParserParam`` options, the native parse core they run on
+(``native.py``), the parser factory over ``PARSER_REGISTRY`` and the
+row-block iterators (``row_iter.py``: eager, or replayed from a
+``#cachefile``)."""
 
 from __future__ import annotations
 
@@ -10,28 +12,39 @@ from typing import Dict, Mapping, Optional
 from ..io import split as io_split
 from ..io.uri import URISpec, rejoin_query, uri_int
 from ..utils.logging import Error, check
-from .csv_parser import CSVParser
-from .libfm_parser import LibFMParser
-from .libsvm_parser import LibSVMParser
-from .parser import Parser, ThreadedParser
-from .row_block import INDEX_T, RowBlock
+from .csv_parser import CSVParser, CSVParserParam
+from .libfm_parser import LibFMParser, LibFMParserParam
+from .libsvm_parser import LibSVMParser, LibSVMParserParam
+from .parser import PARSER_REGISTRY, Parser, ThreadedParser
+from .row_block import INDEX_T, REAL_T, Row, RowBlock, RowBlockContainer
 from .row_iter import BasicRowIter, DiskRowIter, RowBlockIter
-from .rowrec import RowRecParser
+from .rowrec import RowRecParser, write_rowrec
+from .text_parser import TextParserBase
 
 __all__ = [
     "BasicRowIter",
     "CSVParser",
+    "CSVParserParam",
     "DiskRowIter",
+    "INDEX_T",
     "LibFMParser",
+    "LibFMParserParam",
     "LibSVMParser",
+    "LibSVMParserParam",
+    "PARSER_REGISTRY",
     "Parser",
+    "REAL_T",
+    "Row",
     "RowBlock",
+    "RowBlockContainer",
     "RowBlockIter",
     "RowRecParser",
+    "TextParserBase",
     "ThreadedParser",
     "create_parser",
     "create_row_block_iter",
     "parser_options",
+    "write_rowrec",
 ]
 
 # URI options each format takes; any other option raises. rowrec's are
@@ -64,6 +77,39 @@ def parser_options(fmt: str, args: Mapping[str, str]) -> Dict[str, object]:
     return out
 
 
+# -- parser registry (reference data.cc:223-256): entry(uri, args,
+# part_index, num_parts, nthread, index_dtype), ``uri`` with its
+# ``#cachefile`` and without its query, ``args`` from parser_options
+def _text_source(uri: str, part_index: int, num_parts: int):
+    return io_split.create(uri, part_index, num_parts, type="text")
+
+
+@PARSER_REGISTRY.register("libsvm")
+def _create_libsvm(uri, args, part_index, num_parts, nthread=None, index_dtype=INDEX_T):
+    return LibSVMParser(_text_source(uri, part_index, num_parts), args, nthread,
+                        index_dtype)
+
+
+@PARSER_REGISTRY.register("csv")
+def _create_csv(uri, args, part_index, num_parts, nthread=None, index_dtype=INDEX_T):
+    return CSVParser(_text_source(uri, part_index, num_parts), args, nthread, index_dtype)
+
+
+@PARSER_REGISTRY.register("libfm")
+def _create_libfm(uri, args, part_index, num_parts, nthread=None, index_dtype=INDEX_T):
+    return LibFMParser(_text_source(uri, part_index, num_parts), args, nthread,
+                       index_dtype)
+
+
+@PARSER_REGISTRY.register("rowrec")
+def _create_rowrec(uri, args, part_index, num_parts, nthread=None, index_dtype=INDEX_T):
+    # the split options go back on the URI: io.split.create resolves them
+    path, hash_, cache = uri.partition("#")
+    return RowRecParser(io_split.create(path + rejoin_query(args) + hash_ + cache,
+                                        part_index, num_parts, type="recordio"),
+                        index_dtype=index_dtype)
+
+
 def create_parser(
     uri: str,
     part_index: int = 0,
@@ -77,21 +123,20 @@ def create_parser(
     the local files of ``uri`` (one file, a ``;`` list, a directory or a
     regex). 'auto' takes ``?format=`` from the URI, defaulting to
     libsvm; parser options ride the URI, and ``#cachefile`` gives the
-    split a ``CachedInputSplit``. The parser runs on a parse-ahead
+    split a ``CachedInputSplit``. The format names a ``PARSER_REGISTRY``
+    entry, a caller's own too. The parser runs on a parse-ahead
     thread unless ``threaded=False``."""
     spec = URISpec(uri, part_index, num_parts)
     fmt = spec.args.get("format", "libsvm") if type == "auto" else type
-    kwargs = parser_options(fmt, spec.args)
+    entry = PARSER_REGISTRY.find(fmt)
+    if entry is None:
+        raise Error(f"Unknown data type {fmt!r}")
+    # the built-in formats' options are checked; a registered format of
+    # the caller's gets the URI's as they are
+    args = parser_options(fmt, spec.args) if fmt in _OPTIONS else dict(spec.args)
     fragment = uri.partition("#")[2]
-    cache = "#" + fragment if fragment else ""
-    if fmt == "rowrec":
-        base: Parser = RowRecParser(io_split.create(
-            spec.uri + rejoin_query(kwargs) + cache, part_index, num_parts,
-            type="recordio"), index_dtype=index_dtype)
-    else:
-        cls = {"libsvm": LibSVMParser, "libfm": LibFMParser, "csv": CSVParser}[fmt]
-        base = cls(io_split.create(spec.uri + cache, part_index, num_parts, type="text"),
-                   nthread, index_dtype, **kwargs)
+    base = entry(spec.uri + ("#" + fragment if fragment else ""), args, part_index,
+                 num_parts, nthread, index_dtype)
     return ThreadedParser(base) if threaded else base
 
 

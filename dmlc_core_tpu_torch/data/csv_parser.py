@@ -7,22 +7,24 @@ only; ``dtype`` is float32, int32 or int64 (csv_parser.h:95-111).
 
 ``parse_block`` runs the native CSR parse for float32 (the plain parse
 for the integer dtypes); ``parse_block_plain`` is the grammar in Python.
+The options (``args`` or keywords) go through ``CSVParserParam``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 
-from ..utils.logging import Error, check
+from ..params.parameter import Parameter, field
+from ..utils.logging import Error, check, check_eq
 from . import native
 from .row_block import INDEX_T, RowBlock
 from .strtonum import I64_MAX, I64_MIN
 from .text_parser import TextParserBase
 
-__all__ = ["CSVParser"]
+__all__ = ["CSVParser", "CSVParserParam"]
 
 _DTYPES = {"float32": np.float32, "int32": np.int32, "int64": np.int64}
 
@@ -67,43 +69,62 @@ def _parse_cell(cell: bytes, is_float: bool):
     return _clamp_i64(-val if sign == b"-" else val)
 
 
+class CSVParserParam(Parameter):
+    """Reference CSVParserParam (csv_parser.h:23-39)."""
+
+    format = field(str, default="csv", help="File format.")
+    label_column = field(
+        int, default=-1,
+        help="Column index (0-based) that will put into label.",
+    )
+    delimiter = field(
+        str, default=",", help="Delimiter used in the csv file."
+    )
+    weight_column = field(
+        int, default=-1,
+        help="Column index that will put into instance weights.",
+    )
+    dtype = field(
+        str, default="float32", enum={k: k for k in _DTYPES},
+        help="Value dtype (reference DType dispatch, data.cc:138-210).",
+    )
+
+
 class CSVParser(TextParserBase):
     def __init__(
         self,
         source,
+        args: Optional[Mapping[str, object]] = None,
         nthread: Optional[int] = None,
         index_dtype=INDEX_T,
-        label_column: int = -1,
-        weight_column: int = -1,
-        delimiter: str = ",",
-        dtype: str = "float32",
+        **params,
     ) -> None:
-        super().__init__(source, nthread)
-        self.label_column = int(label_column)
-        self.weight_column = int(weight_column)
+        self.param = CSVParserParam()
+        self.param.init({**(args or {}), **params}, allow_unknown=True)
+        check_eq(self.param.format, "csv", "format mismatch")
         check(
-            self.label_column != self.weight_column or self.label_column < 0,
+            self.param.label_column != self.param.weight_column
+            or self.param.label_column < 0,
             "Must have distinct columns for labels and instance weights",
         )
-        check(len(delimiter) == 1, f"delimiter must be one char, got {delimiter!r}")
-        check(dtype in _DTYPES, f"csv dtype {dtype!r} not in {sorted(_DTYPES)}")
-        self.delimiter = delimiter
-        self.dtype_name = dtype
-        self.dtype = _DTYPES[dtype]
+        check_eq(len(self.param.delimiter), 1, "delimiter must be one char")
+        super().__init__(source, nthread)
+        self.dtype = _DTYPES[self.param.dtype]
         self.index_dtype = index_dtype
 
     def parse_block(self, data: bytes) -> RowBlock:
-        if self.dtype_name != "float32":
+        if self.param.dtype != "float32":
             return self.parse_block_plain(data)
         offset, label, weight, index, value = native.parse_csv(
-            data, ord(self.delimiter), self.label_column, self.weight_column)
+            data, ord(self.param.delimiter), self.param.label_column,
+            self.param.weight_column)
         return RowBlock(offset=offset, label=label,
                         index=index.astype(self.index_dtype, copy=False),
                         value=value, weight=weight)
 
     def parse_block_plain(self, data: bytes) -> RowBlock:
-        delim = self.delimiter.encode()
-        lcol, wcol = self.label_column, self.weight_column
+        delim = self.param.delimiter.encode()
+        lcol, wcol = self.param.label_column, self.param.weight_column
         is_float = self.dtype == np.float32
         labels, weights, index, values = [], [], [], []
         offset = [0]
@@ -126,7 +147,7 @@ class CSVParser(TextParserBase):
             if k == 0:
                 # csv_parser.h:123-126: fatal whenever a line has no feature
                 raise Error(
-                    f"Delimiter {self.delimiter!r} is not found in "
+                    f"Delimiter {self.param.delimiter!r} is not found in "
                     "the line. Expected it to separate fields."
                 )
             labels.append(label)

@@ -9,38 +9,58 @@ detection (<0) needs BOTH all field ids and all feature ids > 0
 (libfm_parser.h:132-144).
 
 ``parse_block`` runs the native CSR parse; ``parse_block_plain`` is the
-same grammar in Python.
+same grammar in Python. The options (``args`` or keywords) go through
+``LibFMParserParam``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 
+from ..params.parameter import Parameter, field
+from ..utils.logging import check_eq
 from . import native
 from .row_block import INDEX_T, RowBlock
 from .strtonum import parse_pair, parse_triple
 from .text_parser import TextParserBase
 
-__all__ = ["LibFMParser"]
+__all__ = ["LibFMParser", "LibFMParserParam"]
+
+
+class LibFMParserParam(Parameter):
+    """Reference LibFMParserParam (libfm_parser.h:24-39)."""
+
+    format = field(str, default="libfm", help="File format")
+    indexing_mode = field(
+        int,
+        default=0,
+        help=(
+            "If >0, treat all field and feature indices as 1-based. "
+            "If =0, 0-based. If <0, auto-detect."
+        ),
+    )
 
 
 class LibFMParser(TextParserBase):
     def __init__(
         self,
         source,
+        args: Optional[Mapping[str, object]] = None,
         nthread: Optional[int] = None,
         index_dtype=INDEX_T,
-        indexing_mode: int = 0,
+        **params,
     ) -> None:
+        self.param = LibFMParserParam()
+        self.param.init({**(args or {}), **params}, allow_unknown=True)
+        check_eq(self.param.format, "libfm", "format mismatch")
         super().__init__(source, nthread)
-        self.indexing_mode = int(indexing_mode)
         self.index_dtype = index_dtype
 
     def parse_block(self, data: bytes) -> RowBlock:
         offset, label, weight, fields, index, value = native.parse_libfm(
-            data, self.indexing_mode)
+            data, self.param.indexing_mode)
         return RowBlock(offset=offset, label=label,
                         index=index.astype(self.index_dtype, copy=False),
                         value=value, weight=weight, field=fields)
@@ -71,7 +91,7 @@ class LibFMParser(TextParserBase):
             offset.append(len(index))
         field_arr = np.asarray(fields, dtype=np.int64)
         idx_arr = np.asarray(index, dtype=np.int64)
-        mode = self.indexing_mode
+        mode = self.param.indexing_mode
         if mode > 0 or (mode < 0 and len(idx_arr) and idx_arr.min() > 0
                         and len(field_arr) and field_arr.min() > 0):
             idx_arr = idx_arr - 1

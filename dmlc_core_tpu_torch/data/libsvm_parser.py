@@ -10,38 +10,58 @@ reference src/data/libsvm_parser.h). Line grammar::
   block (all ids > 0 means 1-based, as sklearn.load_svmlight_file).
 
 ``parse_block`` runs the native CSR parse; ``parse_block_plain`` is the
-same grammar in Python, the semantic definition the tests hold it to.
+same grammar in Python, the semantic definition the tests hold it to. The
+options (``args`` or keywords) go through ``LibSVMParserParam``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 
+from ..params.parameter import Parameter, field
+from ..utils.logging import check_eq
 from . import native
 from .row_block import INDEX_T, RowBlock
 from .strtonum import parse_float_token, parse_int_token, parse_pair
 from .text_parser import TextParserBase
 
-__all__ = ["LibSVMParser"]
+__all__ = ["LibSVMParser", "LibSVMParserParam"]
+
+
+class LibSVMParserParam(Parameter):
+    """Reference LibSVMParserParam (libsvm_parser.h:24-39)."""
+
+    format = field(str, default="libsvm", help="File format")
+    indexing_mode = field(
+        int,
+        default=0,
+        help=(
+            "If >0, treat all feature indices as 1-based. If =0, 0-based. "
+            "If <0, auto-detect (all ids > 0 means 1-based)."
+        ),
+    )
 
 
 class LibSVMParser(TextParserBase):
     def __init__(
         self,
         source,
+        args: Optional[Mapping[str, object]] = None,
         nthread: Optional[int] = None,
         index_dtype=INDEX_T,
-        indexing_mode: int = 0,
+        **params,
     ) -> None:
+        self.param = LibSVMParserParam()
+        self.param.init({**(args or {}), **params}, allow_unknown=True)
+        check_eq(self.param.format, "libsvm", "format mismatch")
         super().__init__(source, nthread)
-        self.indexing_mode = int(indexing_mode)
         self.index_dtype = index_dtype
 
     def parse_block(self, data: bytes) -> RowBlock:
         offset, label, weight, qid, index, value = native.parse_libsvm(
-            data, self.indexing_mode)
+            data, self.param.indexing_mode)
         return RowBlock(offset=offset, label=label,
                         index=index.astype(self.index_dtype, copy=False),
                         value=value, weight=weight, qid=qid)
@@ -90,7 +110,7 @@ class LibSVMParser(TextParserBase):
             offset.append(len(index))
         idx_arr = np.asarray(index, dtype=np.int64)
         min_feat = int(idx_arr.min()) if len(idx_arr) else None
-        mode = self.indexing_mode
+        mode = self.param.indexing_mode
         if mode > 0 or (mode < 0 and min_feat is not None and min_feat > 0):
             idx_arr = idx_arr - 1
         return RowBlock(

@@ -5,29 +5,25 @@ Reference: src/data/basic_row_iter.h (BasicRowIter: eager full load) and
 src/data/disk_row_iter.h (DiskRowIter: parse once into 64MB serialized
 pages, replay epochs through a ThreadedIter). Public interface mirrors
 RowBlockIter (include/dmlc/data.h:254-274): before_first / next() →
-RowBlock / num_col. The cache file holds the JAX package's bytes.
-
-The progress log counts the bytes of the parsed blocks (the port's
-parsers do not report the source bytes they consumed, which the JAX
-package's log counts).
+RowBlock / num_col. The cache file holds the JAX package's bytes, and
+the progress lines (``log_info``: every 10 MB read, each cache page, the
+end) count ``parser.bytes_read()``, the source bytes, with the JAX
+package's texts.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 from typing import Callable, Iterator, Optional, Union
 
 from ..concurrency.threaded_iter import ThreadedIter
 from ..io.stream import FileStream
-from ..utils.logging import check
+from ..utils.logging import check, log_info
 from ..utils.timer import get_time
 from .parser import Parser
 from .row_block import RowBlock, RowBlockContainer
 
 __all__ = ["RowBlockIter", "BasicRowIter", "DiskRowIter", "PAGE_SIZE"]
-
-logger = logging.getLogger("dmlc_core_tpu_torch.data")
 
 PAGE_SIZE = 64 << 20  # reference disk_row_iter.h:32
 
@@ -56,40 +52,34 @@ class RowBlockIter:
         pass
 
 
-def _log_throughput(nbytes: int, tstart: float, final: bool = False) -> None:
-    mb = nbytes >> 20
-    rate = mb / max(get_time() - tstart, 1e-9)
+def _log_throughput(bytes_read: int, tstart: float, final: bool = False) -> None:
+    tdiff = max(get_time() - tstart, 1e-9)
+    mb = bytes_read >> 20
     if final:
-        logger.info("finish parsing at %.2f MB/sec", rate)
+        log_info(f"finish reading at {mb / tdiff:.2f} MB/sec")
     else:
-        logger.info("%dMB parsed, %.2f MB/sec", mb, rate)
-
-
-def _blocks(parser: Parser) -> Iterator[RowBlock]:
-    while True:
-        blocks = parser.parse_next()
-        if blocks is None:
-            return
-        for b in blocks:
-            if b.size:
-                yield b
+        log_info(f"{mb}MB read, {mb / tdiff:.2f} MB/sec")
 
 
 class BasicRowIter(RowBlockIter):
     """Eager full in-memory load (reference basic_row_iter.h), logging
-    every 10 MB parsed."""
+    every 10 MB of source read."""
 
     def __init__(self, parser: Parser) -> None:
         container = RowBlockContainer()
         tstart = get_time()
-        parsed, log_at = 0, 10 << 20
-        for b in _blocks(parser):
-            container.push_block(b)
-            parsed += b.mem_cost_bytes()
-            if parsed >= log_at:
-                _log_throughput(parsed, tstart)
+        log_at = 10 << 20
+        while True:
+            blocks = parser.parse_next()
+            if blocks is None:
+                break
+            for b in blocks:
+                if b.size:
+                    container.push_block(b)
+            if parser.bytes_read() >= log_at:
+                _log_throughput(parser.bytes_read(), tstart)
                 log_at += 10 << 20
-        _log_throughput(parsed, tstart, final=True)
+        _log_throughput(parser.bytes_read(), tstart, final=True)
         self._block = container.to_block()
         self._num_col = container.max_index + 1 if self._block.nnz else 0
         self._served = False
@@ -148,14 +138,17 @@ class DiskRowIter(RowBlockIter):
 
     def _build_cache(self, parser: Parser, meta: str) -> None:
         tstart = get_time()
-        parsed = 0
         with FileStream(self.cache_file, "w") as fo:
             container = RowBlockContainer()
-            for b in _blocks(parser):
-                container.push_block(b)
-                parsed += b.mem_cost_bytes()
+            while True:
+                blocks = parser.parse_next()
+                if blocks is None:
+                    break
+                for b in blocks:
+                    if b.size:
+                        container.push_block(b)
                 if container.mem_cost_bytes() >= PAGE_SIZE:
-                    _log_throughput(parsed, tstart)
+                    _log_throughput(parser.bytes_read(), tstart)
                     self._num_col = max(self._num_col, container.max_index + 1)
                     container.save(fo)
                     container.clear()
@@ -164,7 +157,7 @@ class DiskRowIter(RowBlockIter):
                 container.save(fo)
         with open(meta, "w") as f:
             f.write(str(self._num_col))
-        _log_throughput(parsed, tstart, final=True)
+        _log_throughput(parser.bytes_read(), tstart, final=True)
 
     def _read_pages(self) -> Iterator[RowBlock]:
         with FileStream(self.cache_file, "r") as fi:

@@ -29,11 +29,22 @@ __all__ = [
     "RowRecParser",
     "decode_record",
     "decode_records",
+    "encode_row",
     "encode_rows",
     "write_rowrec",
 ]
 
 _HEAD = struct.Struct("<ffI")  # label, weight, nnz
+
+
+def encode_row(label: float, indices: np.ndarray, values: Optional[np.ndarray] = None,
+               weight: float = 1.0) -> bytes:
+    """One sparse row → its payload (values of 1 when ``values`` is None)."""
+    idx = np.ascontiguousarray(indices, dtype="<u4")
+    val = (np.ones(len(idx), dtype="<f4") if values is None
+           else np.ascontiguousarray(values, dtype="<f4"))
+    check(len(idx) == len(val), "indices/values length mismatch")
+    return _HEAD.pack(label, weight, len(idx)) + idx.tobytes() + val.tobytes()
 
 
 def encode_rows(block: RowBlock) -> List[bytes]:
@@ -126,7 +137,9 @@ class RowRecParser(Parser):
     chunk of whole records, decoded record by record (the plain version
     the native rowrec producer is held to). Feature ids come as
     ``index_dtype`` (the records' u32 by default; ``create_parser``
-    passes its own, u64 by default, as the JAX parser factory does)."""
+    passes its own, u64 by default, as the JAX parser factory does).
+    ``bytes_read`` counts the chunk bytes taken from the source this
+    epoch; ``before_first`` rewinds the source."""
 
     def __init__(
         self, source, part_index: int = 0, num_parts: int = 1, index_dtype=np.uint32
@@ -134,15 +147,24 @@ class RowRecParser(Parser):
         self._source = (RecordIOSplitter(source, part_index, num_parts)
                         if isinstance(source, str) else source)
         self._index_dtype = np.dtype(index_dtype)
+        self._bytes = 0
 
     def parse_next(self) -> Optional[List[RowBlock]]:
         chunk = self._source.next_chunk()
         if chunk is None:
             return None
+        self._bytes += len(chunk)
         blk = decode_records(RecordIOChunkReader(chunk))
         if blk.index.dtype != self._index_dtype:
             blk.index = blk.index.astype(self._index_dtype)
         return [blk]
+
+    def before_first(self) -> None:
+        self._source.before_first()
+        self._bytes = 0
+
+    def bytes_read(self) -> int:
+        return self._bytes
 
     def close(self) -> None:
         self._source.close()

@@ -1,11 +1,13 @@
 """Text parser base: chunked, multi-threaded line parsing (the port of
 ``dmlc_core_tpu/data/text_parser.py``; reference src/data/text_parser.h).
 
-``parse_next`` pulls one chunk of whole lines from the split, skips a
-UTF-8 BOM at the start of the input, cuts the chunk at line ends into up
-to ``nthread`` slices and parses them in parallel into RowBlocks. The
-native parse releases the GIL, so the slices really run in parallel.
-Worker exceptions reach the caller through ``Future.result()``.
+``fill_data`` pulls one chunk of whole lines from the split, skips a
+UTF-8 BOM at the start of the input (of each epoch), cuts the chunk at
+line ends into up to ``nthread`` slices and parses them in parallel into
+RowBlocks. The native parse releases the GIL, so the slices really run in
+parallel. Worker exceptions reach the caller through ``Future.result()``.
+``bytes_read`` counts the chunks' bytes as the split gave them, BOM
+included.
 """
 
 from __future__ import annotations
@@ -17,21 +19,27 @@ from ..utils.cpus import parse_threads
 from .parser import Parser
 from .row_block import RowBlock
 
-__all__ = ["TextParserBase"]
+__all__ = ["TextParserBase", "default_parser_threads"]
 
 _BOM = b"\xef\xbb\xbf"
 
 
+def default_parser_threads(nthread: Optional[int]) -> int:
+    """Parser fan-out width: every usable CPU (affinity and cgroup quota
+    counted, ``utils/cpus.py``), a request capped at that, and
+    ``DMLC_PARSE_THREADS`` over both."""
+    return parse_threads(nthread)
+
+
 class TextParserBase(Parser):
     """Chunk → line-aligned slices → parallel ``parse_block``
-    (reference text_parser.h:110-146). ``nthread`` goes through
-    ``parse_threads`` (capped at the usable CPUs, ``DMLC_PARSE_THREADS``
-    wins)."""
+    (reference text_parser.h:110-146), ``default_parser_threads(nthread)``
+    wide."""
 
     def __init__(self, source, nthread: Optional[int] = None) -> None:
         self.source = source
-        self.nthread = parse_threads(nthread)
-        self._first_chunk = True
+        self.nthread = default_parser_threads(nthread)
+        self._bytes_read = 0
         self._pool: Optional[ThreadPoolExecutor] = (
             ThreadPoolExecutor(max_workers=self.nthread, thread_name_prefix="parse")
             if self.nthread > 1
@@ -42,13 +50,24 @@ class TextParserBase(Parser):
         """Parse a byte slice of whole lines into one RowBlock."""
         raise NotImplementedError
 
+    def bytes_read(self) -> int:
+        return self._bytes_read
+
+    def before_first(self) -> None:
+        self.source.before_first()
+        self._bytes_read = 0
+
     def parse_next(self) -> Optional[List[RowBlock]]:
+        return self.fill_data()
+
+    def fill_data(self) -> Optional[List[RowBlock]]:
         """One chunk, fanned out across parser threads (reference
         FillData, text_parser.h:110-146)."""
         chunk = self.source.next_chunk()
         if chunk is None:
             return None
-        first_chunk, self._first_chunk = self._first_chunk, False
+        first_chunk = self._bytes_read == 0
+        self._bytes_read += len(chunk)
         if first_chunk and chunk.startswith(_BOM):
             # beginning of input only (text_parser.h:81-95); later chunks
             # may start with these bytes legitimately

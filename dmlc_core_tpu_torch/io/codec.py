@@ -547,6 +547,9 @@ class DecodeContext:
             except Exception:  # the shared tier is best-effort
                 pass
 
+    def decode_block(self, blob) -> Tuple[bytes, int]:
+        return decode_block(blob)
+
     def decode_blocks(self, blobs: List[bytes]) -> List[Tuple[bytes, int]]:
         return decode_blocks(blobs)
 

@@ -14,13 +14,15 @@ Backends register in ``FS_REGISTRY`` by protocol:
   ``io/cloudfs.py``.
 
 The last two modules register their protocols when they are imported;
-``get_instance`` imports both on a miss.
+``get_instance`` imports both on a miss. ``TemporaryDirectory`` is the
+reference's (include/dmlc/filesystem.h:34-158).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import tempfile
 from typing import Callable, Dict, List, NamedTuple
 
 from ..utils.logging import Error
@@ -28,7 +30,7 @@ from .stream import FileStream, MemoryStream, Stream
 from .uri import URI
 
 __all__ = ["FS_REGISTRY", "FileInfo", "FileSystem", "LocalFileSystem",
-           "MemoryFileSystem"]
+           "MemoryFileSystem", "TemporaryDirectory"]
 
 
 class FileInfo(NamedTuple):
@@ -245,3 +247,29 @@ class MemoryFileSystem(FileSystem):
 
 FS_REGISTRY["file://"] = LocalFileSystem.instance
 FS_REGISTRY["mem://"] = MemoryFileSystem
+
+
+class TemporaryDirectory:
+    """A ``mkdtemp`` directory, deleted with everything in it by
+    ``cleanup()``, on leaving a ``with`` block, or when collected (the
+    reference's destructor)."""
+
+    def __init__(self, prefix: str = "dmlctmp") -> None:
+        self.path = tempfile.mkdtemp(prefix=prefix)
+
+    def __enter__(self) -> "TemporaryDirectory":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cleanup()
+
+    def cleanup(self) -> None:
+        if self.path and os.path.isdir(self.path):
+            shutil.rmtree(self.path, ignore_errors=True)
+        self.path = ""
+
+    def __del__(self) -> None:
+        try:
+            self.cleanup()
+        except Exception:
+            pass

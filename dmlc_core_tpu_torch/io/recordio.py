@@ -31,6 +31,7 @@ import numpy as np
 
 from ..utils.logging import Error, check
 from . import codec as _codec
+from .stream import SeekStream
 
 __all__ = [
     "CFLAG_COMPRESSED",
@@ -152,6 +153,11 @@ class RecordIOWriter:
         self.stream.write(framed)
         self.bytes_written += len(framed)
         self.records_written += 1
+
+    def tell(self) -> int:
+        """The stream's position (a SeekStream only)."""
+        check(isinstance(self.stream, SeekStream), "stream is not seekable")
+        return self.stream.tell()
 
     def write_framed_block(self, framed: bytes, offsets) -> None:
         """Write records framed already; ``offsets`` are their frame

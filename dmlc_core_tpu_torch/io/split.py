@@ -75,6 +75,7 @@ __all__ = [
     "CachedInputSplit",
     "DynamicShardSource",
     "IndexedRecordIOSplitter",
+    "InputSplit",
     "InputSplitBase",
     "InputSplitShuffle",
     "LineSplitter",
@@ -201,7 +202,54 @@ def _local(path: str) -> str:
     return path[len("file://"):] if path.startswith("file://") else path
 
 
-class InputSplitBase:
+class InputSplit:
+    """The split interface every split here derives from (reference
+    io.h:155-302): records or chunks of whole records, a rewind, a new
+    partition. ``next_batch(n)`` is a chunk with a record-count hint that
+    only ``IndexedRecordIOSplitter`` (which can seek by record) and the
+    leased ``DynamicShardSource`` honour; every other split returns its
+    next chunk, as the reference's base NextBatch does (io.h:230-232)."""
+
+    def next_record(self) -> Optional[bytes]:
+        """The next record (a text line, or a RecordIO payload), or None
+        at the end of the part."""
+        raise NotImplementedError
+
+    def next_chunk(self) -> Optional[bytes]:
+        """The next run of whole records, or None at the end of the part."""
+        raise NotImplementedError
+
+    def next_batch(self, n_records: int) -> Optional[bytes]:
+        return self.next_chunk()
+
+    def before_first(self) -> None:
+        raise NotImplementedError
+
+    def reset_partition(self, part_index: int, num_parts: int) -> None:
+        raise NotImplementedError
+
+    def total_size(self) -> int:
+        raise NotImplementedError
+
+    def hint_chunk_size(self, nbytes: int) -> None:
+        pass
+
+    def extract_records(self, chunk: bytes) -> Iterator[bytes]:
+        """A chunk from ``next_chunk`` cut back into its records."""
+        raise NotImplementedError
+
+    def __iter__(self) -> Iterator[bytes]:
+        while True:
+            rec = self.next_record()
+            if rec is None:
+                return
+            yield rec
+
+    def close(self) -> None:
+        pass
+
+
+class InputSplitBase(InputSplit):
     """Byte-range sharding of a file set (reference
     src/io/input_split_base.{h,cc}); subclasses say where records start
     (``seek_record_begin``, ``find_last_record_begin``) and how a chunk
@@ -1530,6 +1578,9 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
     def next_chunk(self) -> Optional[bytes]:
         return self.next_batch_ex(self.batch_size)
 
+    def next_batch(self, n_records: int) -> Optional[bytes]:
+        return self.next_batch_ex(n_records)
+
     def next_record(self) -> Optional[bytes]:
         return _next_record(self, self.next_chunk)
 
@@ -1544,7 +1595,7 @@ class IndexedRecordIOSplitter(RecordIOSplitter):
         super().close()
 
 
-class SingleFileSplit:
+class SingleFileSplit(InputSplit):
     """One text file, or standard input for the URI ``-``, read whole
     with no sharding (reference src/io/single_file_split.h)."""
 
@@ -1614,7 +1665,7 @@ def _stop(it: Optional[Prefetcher], what: str) -> None:
         raise Error(f"{what} thread did not stop within {_JOIN_TIMEOUT:.0f} s")
 
 
-class _Wrapper:
+class _Wrapper(InputSplit):
     """A split that serves its base's chunks from a thread: the thread
     starts at the first pull, and the base's records are cut from the
     chunks it hands over."""
@@ -1642,6 +1693,9 @@ class _Wrapper:
 
     def total_size(self) -> int:
         return self._base.total_size()
+
+    def hint_chunk_size(self, nbytes: int) -> None:
+        self._base.hint_chunk_size(nbytes)
 
     def extract_records(self, chunk: bytes) -> Iterator[bytes]:
         return self._base.extract_records(chunk)
@@ -1674,9 +1728,6 @@ class ThreadedInputSplit(_Wrapper):
     def _start(self) -> Prefetcher:
         return Prefetcher(lambda: iter(self._base.next_chunk, None), self.max_capacity,
                           "split-prefetch")
-
-    def hint_chunk_size(self, nbytes: int) -> None:
-        self._base.hint_chunk_size(nbytes)
 
     def before_first(self) -> None:
         """Rewind: the thread stops, the base rewinds, the next pull
@@ -1747,7 +1798,7 @@ class CachedInputSplit(_Wrapper):
         return out
 
 
-class InputSplitShuffle:
+class InputSplitShuffle(InputSplit):
     """Macro-shuffle: cut the file set into ``num_parts ·
     num_shuffle_parts`` sub-parts and visit this part's
     ``num_shuffle_parts`` of them in an order drawn anew each epoch from
@@ -1821,6 +1872,9 @@ class InputSplitShuffle:
     def total_size(self) -> int:
         return self._base.total_size()
 
+    def hint_chunk_size(self, nbytes: int) -> None:
+        self._base.hint_chunk_size(nbytes)
+
     def extract_records(self, chunk: bytes) -> Iterator[bytes]:
         return self._base.extract_records(chunk)
 
@@ -1835,7 +1889,7 @@ class InputSplitShuffle:
 RENEW_FRACTION = 3.0
 
 
-class DynamicShardSource:
+class DynamicShardSource(InputSplit):
     """Tracker-leased dynamic sharding: a split whose shard → worker
     placement the tracker's shard service (``tracker/shardsvc.py``)
     decides at run time, instead of a ``part_index/num_parts`` fixed at
@@ -2028,6 +2082,9 @@ class DynamicShardSource:
 
     def next_chunk(self) -> Optional[bytes]:
         return self._pull(lambda s: s.next_chunk())
+
+    def next_batch(self, n_records: int) -> Optional[bytes]:
+        return self._pull(lambda s: s.next_batch(n_records))
 
     def next_gather_batch(self, n_records: int):
         """Zero-copy gather views, one micro-shard at a time: a call never

@@ -6,6 +6,8 @@ src/io/local_filesys.cc:27-67).
 ``Stream.create(uri, mode)`` opens a URI through the filesystem its
 protocol names (``io/filesystem.FS_REGISTRY``: local paths, ``file://``,
 ``mem://``, ``fault://`` and the remote schemes of ``io/cloudfs.py``).
+``StreamIO`` and ``wrap_text`` give any Stream the standard file
+protocol (the reference's ``dmlc::istream``/``ostream``, io.h:318-443).
 """
 
 from __future__ import annotations
@@ -15,7 +17,15 @@ from typing import Optional, Union
 
 from ..utils.logging import Error, check
 
-__all__ = ["FileStream", "MemoryStream", "SeekStream", "Stream"]
+__all__ = [
+    "FileStream",
+    "MemoryStream",
+    "SeekStream",
+    "Serializable",
+    "Stream",
+    "StreamIO",
+    "wrap_text",
+]
 
 
 class Stream:
@@ -125,3 +135,97 @@ class MemoryStream(_FileLike):
 
     def getvalue(self) -> bytes:
         return self._fp.getvalue()
+
+
+class Serializable:
+    """An object saved to and loaded from a Stream (reference
+    io.h:132-146)."""
+
+    def save(self, stream: Stream) -> None:
+        raise NotImplementedError
+
+    def load(self, stream: Stream) -> None:
+        raise NotImplementedError
+
+
+class StreamIO(_pyio.RawIOBase):
+    """``io.RawIOBase`` over a Stream, so code that wants a file object
+    (``io.BufferedReader``, ``io.TextIOWrapper``, csv, pickle, np.load)
+    reads and writes any filesystem's streams. ``mode`` is 'r', 'w' or
+    'rw', the directions the Stream was opened for; ``close_stream``
+    says whether closing the adapter closes the Stream (by default the
+    caller keeps it, as the reference's adapters do). Failures are the io
+    protocol's: ``io.UnsupportedOperation`` for a direction or a seek the
+    Stream lacks, ``OSError`` for SEEK_END."""
+
+    def __init__(self, stream: Stream, mode: str = "r", close_stream: bool = False) -> None:
+        super().__init__()
+        check(mode in ("r", "w", "rw"), f"StreamIO mode {mode!r}")
+        self._stream = stream
+        self._mode = mode
+        self._close_stream = close_stream
+
+    def readable(self) -> bool:
+        return "r" in self._mode
+
+    def writable(self) -> bool:
+        return "w" in self._mode
+
+    def seekable(self) -> bool:
+        return isinstance(self._stream, SeekStream)
+
+    def readinto(self, b) -> int:
+        if "r" not in self._mode:
+            raise _pyio.UnsupportedOperation("not readable")
+        data = self._stream.read(len(b))
+        n = len(data)
+        b[:n] = data
+        return n
+
+    def write(self, b) -> int:
+        if "w" not in self._mode:
+            raise _pyio.UnsupportedOperation("not writable")
+        return self._stream.write(b)
+
+    def seek(self, pos: int, whence: int = _pyio.SEEK_SET) -> int:
+        if not isinstance(self._stream, SeekStream):
+            raise _pyio.UnsupportedOperation("stream is not seekable")
+        if whence == _pyio.SEEK_SET:
+            target = pos
+        elif whence == _pyio.SEEK_CUR:
+            target = self._stream.tell() + pos
+        else:
+            raise OSError("StreamIO supports SEEK_SET and SEEK_CUR only")
+        self._stream.seek(target)
+        return target
+
+    def tell(self) -> int:
+        if not isinstance(self._stream, SeekStream):
+            raise _pyio.UnsupportedOperation("stream is not seekable")
+        return self._stream.tell()
+
+    def flush(self) -> None:
+        if not self.closed:
+            self._stream.flush()
+
+    def close(self) -> None:
+        if not self.closed:
+            try:
+                super().close()  # flushes first
+            finally:
+                if self._close_stream:
+                    self._stream.close()
+
+
+def wrap_text(stream: Stream, mode: str = "r", **kwargs) -> _pyio.TextIOWrapper:
+    """A text view of ``stream`` ('r', 'w' or 'rw'), buffered; keyword
+    arguments go to ``io.TextIOWrapper`` (encoding, newline, ...).
+    Closing the view closes the Stream."""
+    raw = StreamIO(stream, mode=mode, close_stream=True)
+    if mode == "rw":
+        buf: _pyio.BufferedIOBase = _pyio.BufferedRandom(raw)
+    elif mode == "w":
+        buf = _pyio.BufferedWriter(raw)
+    else:
+        buf = _pyio.BufferedReader(raw)
+    return _pyio.TextIOWrapper(buf, **kwargs)

@@ -33,6 +33,7 @@ __all__ = [
     "alloc_dense_slot",
     "alloc_ell_slot",
     "alloc_packed_slot",
+    "gather_slices",
     "packed_layout",
     "packed_shard_layout",
 ]
@@ -64,6 +65,19 @@ def alloc_packed_slot(sections):
     return buf, views
 
 
+def gather_slices(buf: np.ndarray, starts: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """``buf[starts[i] : starts[i] + sizes[i]]`` back to back in one uint8
+    array, gathered through one index array (``np.repeat``) with no
+    per-slice loop: the numpy form of the shuffled reads' gather."""
+    starts = np.asarray(starts, dtype=np.int64)
+    sizes = np.asarray(sizes, dtype=np.int64)
+    total = int(sizes.sum())
+    if not total:
+        return np.empty(0, dtype=np.uint8)
+    base = np.cumsum(sizes) - sizes
+    return buf[np.arange(total, dtype=np.int64) + np.repeat(starts - base, sizes)]
+
+
 @dataclass(frozen=True)
 class Batch:
     """One fixed-shape host batch; ``n_valid`` rows are real, the rest are
@@ -78,6 +92,10 @@ class Batch:
     nnz: Optional[np.ndarray] = None
     x: Optional[np.ndarray] = None
     packed: Optional[np.ndarray] = None
+
+    @property
+    def batch_size(self) -> int:
+        return len(self.labels)
 
     def as_dict(self) -> Dict[str, np.ndarray]:
         """The arrays that land on the device, by name."""

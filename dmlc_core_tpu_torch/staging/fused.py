@@ -169,7 +169,7 @@ class EllRowRecBatches:
         self._parser.close()
 
 
-class LegacyIndexedSplit:
+class LegacyIndexedSplit(io_split.InputSplit):
     """The plain version of an indexed split (``?index=``): the
     (seed, epoch) permutation rule of ``IndexedRecordIOSplitter`` run by
     ``random.Random.shuffle`` on a Python list, then one seek and one
@@ -253,7 +253,7 @@ class LegacyIndexedSplit:
         self._fp.close()
 
 
-class PlainBlockSplit:
+class PlainBlockSplit(io_split.InputSplit):
     """The plain version of a part of one RecordIO file that may hold
     compressed blocks: the part's bytes (``io.split.part_range``) walked
     frame by frame in Python, one chunk per compressed block, decoded
@@ -1061,6 +1061,16 @@ class GenericBatchStream:
     @property
     def truncated_nnz(self) -> int:
         return self._batcher.truncated_nnz
+
+    def io_stats(self):
+        """The counters of the parser's source split (an indexed read's
+        spans and seeks, retries), or an empty dict, as the native
+        producers report theirs."""
+        parser = getattr(self._parser, "_base", self._parser)
+        source = getattr(parser, "source", getattr(parser, "_source", None))
+        fn = getattr(source, "io_stats", None)
+        out = fn() if fn is not None else None
+        return dict(out) if out else {}
 
     def __iter__(self) -> Iterator[Batch]:
         return self._batcher.batches(iter(self._parser))

@@ -90,6 +90,7 @@ from .batcher import Batch, packed_layout, packed_shard_layout
 __all__ = [
     "StagingPipeline",
     "StagingStats",
+    "device_put",
     "drain_close",
     "packed_layout",
     "stage_batch",
@@ -254,6 +255,30 @@ def host_pinning_stats() -> Dict[str, int]:
     in this process: pool banks and shm segments (0s when none asked)."""
     return _PINNING.stats() if _PINNING is not None else {
         "banks_pinned": 0, "segments_pinned": 0, "segments_unpinned": 0}
+
+
+def device_put(tree, device: DeviceLike = None):
+    """``tree`` (numpy arrays, tensors and numbers, nested in dicts, lists
+    and tuples) with every leaf a tensor on ``device`` (default ``cuda``,
+    raising when there is none): the port's one call site for placing
+    what is not a batch, such as a model's parameters. Nothing falls
+    back to another device; a leaf of another type raises."""
+    dev = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        if isinstance(x, (np.generic, int, float, bool)):
+            return torch.as_tensor(np.asarray(x)).to(dev)
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        raise Error(f"device_put: cannot place a {type(x).__name__}")
+
+    return put(tree)
 
 
 def _torch_dtype(dtype: str) -> torch.dtype:
@@ -498,6 +523,7 @@ class StagingPipeline:
         # the data line's group that the end-of-part exchange runs on
         # (None: a data axis of one rank, nothing to agree on)
         self._line = mesh.group((data_axis,)) if local_rows else None
+        self._source = host_batches
         self._spec = getattr(host_batches, "spec", None)
         self._pad_layout = None
         self._part_ended = False
@@ -802,6 +828,16 @@ class StagingPipeline:
         out["slots_adopted_pinned"] = self.slots_adopted_pinned
         if self._local_rows:
             out["padding_batches"] = self.padding_batches
+        return out
+
+    def io_stats(self) -> Dict[str, Any]:
+        """The batch source's counters (its split's I/O shape, retries and
+        faults) with ``staging_stats()`` under ``"staging"``: the last hop
+        of split → producer → pipeline."""
+        fn = getattr(self._source, "io_stats", None)
+        src = fn() if fn is not None else None
+        out: Dict[str, Any] = dict(src) if src else {}
+        out["staging"] = self.staging_stats()
         return out
 
     def close(self) -> bool:

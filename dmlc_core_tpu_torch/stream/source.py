@@ -59,7 +59,7 @@ def _window_perm(seed: int, epoch: int, gen: int, widx: int, n: int) -> List[int
     return perm
 
 
-class StreamSource:
+class StreamSource(_split.InputSplit):
     """Follow a stream directory as a split."""
 
     def __init__(

@@ -26,7 +26,6 @@ The defaults come from ``DMLC_STREAM_MAX_LAG`` / ``DMLC_STREAM_LAG_POLICY``.
 
 from __future__ import annotations
 
-import logging
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -36,10 +35,9 @@ from ..io.stream import FileStream
 from ..telemetry import default_registry
 from ..telemetry import tracing as _tracing
 from ..utils.env import get_env
-from ..utils.logging import check
+from ..utils.logging import check, log_warning
 from . import manifest as _manifest
 
-logger = logging.getLogger("dmlc_core_tpu_torch.stream")
 
 _FSYNC_POLICIES = ("never", "commit", "rotate")
 _LAG_POLICIES = ("block", "warn")
@@ -157,16 +155,16 @@ class StreamWriter:
             return
         if self.lag_policy == "warn":
             if not self._warned_lag:
-                logger.warning("stream %s: reader lag %d records exceeds "
-                               "DMLC_STREAM_MAX_LAG=%d (lag_policy=warn: writing on)",
-                               self.dir_path, lag, self.max_lag)
+                log_warning(f"stream {self.dir_path}: reader lag {lag} records "
+                            f"exceeds DMLC_STREAM_MAX_LAG={self.max_lag} "
+                            "(lag_policy=warn: writing on)")
                 self._warned_lag = True
             return
         # block: wait until the slowest reader is back inside the bound
         self.backpressure_waits += 1
         t0 = time.monotonic()
-        logger.warning("stream %s: blocking writes, reader lag %d records > max_lag %d",
-                       self.dir_path, lag, self.max_lag)
+        log_warning(f"stream {self.dir_path}: blocking writes — reader lag {lag} "
+                    f"records > max_lag {self.max_lag}")
         with _tracing.span("dmlc:stream_backpressure", lag_records=lag):
             while True:
                 time.sleep(self._lag_poll)
