@@ -500,6 +500,9 @@ def test_daemon_serves_the_other_packages_client(tmp_path, server):
         assert same.get_many(["k1", "k2", "k3"]) == {"k1": b"one" * 10, "k2": b"two" * 10}
         v = other.get_view("k2")
         assert bytes(v.view) == b"two" * 10
+        # same's releases of k1 are one-way; a round trip on its own
+        # connection, which the daemon serves in order, lands them first
+        assert same.ping()
         assert other.flush() == 1  # k1 only: k2 is leased
         v.close()
         st = other.stats()

@@ -30,6 +30,8 @@ from dmlc_core_tpu_torch.telemetry import (
     to_prometheus,
 )
 
+JOIN_S = 60  # every tracker join in this file is bounded
+
 
 # -- registry semantics -------------------------------------------------------
 
@@ -430,7 +432,7 @@ def test_tracker_rejects_out_of_range_metrics_rank():
     time.sleep(0.2)  # give the bogus frames time to be (dropped)
     assert set(tracker.metrics.per_rank()) == {0}
     w.shutdown()
-    tracker.join()
+    assert tracker.join(timeout=JOIN_S), "the tracker never saw every shutdown"
     tracker.close()
 
 
@@ -525,7 +527,7 @@ def test_tracker_metrics_endpoint_multi_worker():
     for t in threads:
         t.join(timeout=30)
     assert not errors, errors
-    tracker.join()
+    assert tracker.join(timeout=JOIN_S), "the tracker never saw every shutdown"
     # end-of-job report is kept on the tracker after completion
     assert tracker.metrics_report is not None
     assert tracker.metrics_report["cluster"]["counters"]["worker.rows"] == 300
@@ -547,7 +549,7 @@ def test_tracker_end_of_job_report_file(tmp_path, monkeypatch):
     while tracker.metrics.updates < 1 and time.perf_counter() < deadline:
         time.sleep(0.02)
     w.shutdown()
-    tracker.join()
+    assert tracker.join(timeout=JOIN_S), "the tracker never saw every shutdown"
     tracker.close()
     report = json.loads(path.read_text())
     assert report["cluster"]["counters"]["job.done"] == 1
@@ -572,7 +574,7 @@ def test_heartbeat_defaults_to_process_registry():
     snap = tracker.metrics.per_rank()[0]
     assert snap["counters"]["test.heartbeat.marker"] >= 7
     w.shutdown()
-    tracker.join()
+    assert tracker.join(timeout=JOIN_S), "the tracker never saw every shutdown"
     tracker.close()
 
 
