@@ -12,7 +12,9 @@
 // (tests/test_torch_native.py, tests/test_torch_text.py and
 // tests/test_torch_fused.py).
 
+#include <algorithm>
 #include <array>
+#include <atomic>
 #include <cerrno>
 #include <charconv>
 #include <cctype>
@@ -20,6 +22,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <string>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 #if defined(__F16C__)
@@ -843,61 +847,195 @@ struct CsvDenseResult {
   int64_t bad_lines;
 };
 
+namespace {
+
+// One csv line into dense row `row` (the rules above); false for a line
+// that gives no row: an empty one, or one whose cells all went to the
+// label or weight column (counted in `bad`).
+struct CsvDenseLine {
+  DenseState st;
+  char delim;
+  int32_t label_column;
+  int32_t weight_column;
+  int64_t bad;
+
+  bool operator()(const char* lb, const char* le, int64_t row) {
+    if (lb == le) return false;  // empty line: skipped, no row
+    std::memset(st.scratch, 0, static_cast<size_t>(st.D) * 4);
+    const char* p = lb;
+    int col = 0;
+    int64_t k = 0;
+    float lab = 0.0f, w = 1.0f;
+    while (p <= le) {
+      const char* ce = static_cast<const char*>(
+          memchr(p, delim, static_cast<size_t>(le - p)));
+      if (!ce) ce = le;
+      const double v = parse_float_prefix(p, ce);
+      if (col == label_column) {
+        lab = static_cast<float>(v);
+      } else if (col == weight_column) {
+        w = static_cast<float>(v);
+      } else {
+        if (k < st.D) {
+          st.scratch[k] = static_cast<float>(v);
+        } else {
+          ++st.truncated;
+        }
+        ++k;
+      }
+      ++col;
+      if (ce == le) break;
+      p = ce + 1;
+    }
+    if (k == 0) {
+      ++bad;
+      return false;
+    }
+    st.labels[row] = lab;
+    st.weights[row] = w;
+    row_flush(st, row);
+    return true;
+  }
+};
+
+}  // namespace
+
 DMLC_API void dmlc_parse_csv_dense(
     const char* buf, int64_t len, int32_t delimiter, int32_t label_column,
     int32_t weight_column, int64_t num_features, int32_t out_f16, void* x,
     float* labels, float* weights, int64_t row_start, int64_t row_capacity,
     int32_t cr_hint, CsvDenseResult* out) {
   std::vector<float> scratch(static_cast<size_t>(num_features));
-  DenseState st{x, labels, weights, scratch.data(), num_features,
-                out_f16 != 0, 0, 0};
-  const char delim = static_cast<char>(delimiter);
-  int64_t bad = 0;
+  CsvDenseLine line{{x, labels, weights, scratch.data(), num_features,
+                     out_f16 != 0, 0, 0},
+                    static_cast<char>(delimiter), label_column, weight_column,
+                    0};
+  DenseResult inner{};
+  const bool has_cr = walk_dense_lines(buf, len, row_start, row_capacity,
+                                       cr_hint, &inner, line);
+  out->rows_written = inner.rows_written;
+  out->bytes_consumed = inner.bytes_consumed;
+  out->truncated = line.st.truncated;
+  out->has_cr = has_cr ? 1 : 0;
+  out->bad_lines = line.bad;
+}
+
+namespace {
+
+// Runs fn(w) for every w in [0, n): on n - 1 new threads and the calling
+// thread, then joins them. A thread that cannot be made leaves its w to
+// the calling thread.
+template <typename Fn>
+void fork_join(int64_t n, Fn&& fn) {
+  std::vector<std::thread> threads;
+  threads.reserve(static_cast<size_t>(std::max<int64_t>(0, n - 1)));
+  int64_t w = 1;
+  for (; w < n; ++w) {
+    try {
+      threads.emplace_back(fn, w);
+    } catch (const std::system_error&) {
+      break;
+    }
+  }
+  for (; w < n; ++w) fn(w);
+  fn(0);
+  for (auto& t : threads) t.join();
+}
+
+}  // namespace
+
+// The same call with its rows split over up to `workers` threads, each
+// row written where the one-thread walk puts it, so every count and every
+// byte of rows [row_start, row_capacity) equals dmlc_parse_csv_dense's.
+// The '\r' probe, when the caller has no hint, runs over `workers` pieces
+// of the buffer at once; one pass of walk_dense_lines then finds the
+// lines that can become rows, and `n` threads parse them in blocks of
+// rows taken in turn, each thread with its own scratch row.
+// A call with room for fewer than 2 * min_rows rows goes to the one-thread
+// walk; one that finds fewer lines parses them on the calling thread.
+// min_rows is SPLIT_MIN_ROWS in data/native.py; tests lower it to split
+// small inputs. A line that gives no row shifts every later one, so a
+// call that meets one is parsed again by the one-thread walk: then the
+// counts and rows [row_start, row_start + rows_written) equal the
+// one-thread call's, and the slots after them may hold rows the split
+// wrote one place late.
+struct CsvSplitResult {
+  CsvDenseResult csv;
+  int64_t workers;  // threads that parsed the rows (1: not split)
+};
+
+DMLC_API void dmlc_parse_csv_dense_split(
+    const char* buf, int64_t len, int32_t delimiter, int32_t label_column,
+    int32_t weight_column, int64_t num_features, int32_t out_f16, void* x,
+    float* labels, float* weights, int64_t row_start, int64_t row_capacity,
+    int32_t cr_hint, int32_t workers, int64_t min_rows, CsvSplitResult* out) {
+  out->workers = 1;
+  const int64_t floor_rows = std::max<int64_t>(1, min_rows);
+  if (workers <= 1 || row_capacity - row_start < 2 * floor_rows) {
+    dmlc_parse_csv_dense(buf, len, delimiter, label_column, weight_column,
+                         num_features, out_f16, x, labels, weights, row_start,
+                         row_capacity, cr_hint, &out->csv);
+    return;
+  }
+  if (cr_hint < 0) {
+    std::vector<char> found(static_cast<size_t>(workers));
+    fork_join(workers, [&](int64_t w) {
+      const int64_t lo = len * w / workers, hi = len * (w + 1) / workers;
+      found[w] = memchr(buf + lo, '\r', static_cast<size_t>(hi - lo)) != nullptr;
+    });
+    cr_hint = std::find(found.begin(), found.end(), 1) != found.end() ? 1 : 0;
+  }
+  std::vector<Line> lines;
+  lines.reserve(static_cast<size_t>(
+      std::min<int64_t>(row_capacity - row_start, len / 2 + 1)));
   DenseResult inner{};
   const bool has_cr = walk_dense_lines(
       buf, len, row_start, row_capacity, cr_hint, &inner,
-      [&](const char* lb, const char* le, int64_t row) {
-        if (lb == le) return false;  // empty line: skipped, no row
-        std::memset(st.scratch, 0, static_cast<size_t>(st.D) * 4);
-        const char* p = lb;
-        int col = 0;
-        int64_t k = 0;
-        float lab = 0.0f, w = 1.0f;
-        while (p <= le) {
-          const char* ce = static_cast<const char*>(
-              memchr(p, delim, static_cast<size_t>(le - p)));
-          if (!ce) ce = le;
-          const double v = parse_float_prefix(p, ce);
-          if (col == label_column) {
-            lab = static_cast<float>(v);
-          } else if (col == weight_column) {
-            w = static_cast<float>(v);
-          } else {
-            if (k < st.D) {
-              st.scratch[k] = static_cast<float>(v);
-            } else {
-              ++st.truncated;
-            }
-            ++k;
-          }
-          ++col;
-          if (ce == le) break;
-          p = ce + 1;
-        }
-        if (k == 0) {
-          ++bad;
-          return false;
-        }
-        st.labels[row] = lab;
-        st.weights[row] = w;
-        row_flush(st, row);
+      [&](const char* lb, const char* le, int64_t) {
+        if (lb == le) return false;  // the empty lines CsvDenseLine skips
+        lines.push_back(Line{lb, le});
         return true;
       });
-  out->rows_written = inner.rows_written;
-  out->bytes_consumed = inner.bytes_consumed;
-  out->truncated = st.truncated;
-  out->has_cr = has_cr ? 1 : 0;
-  out->bad_lines = bad;
+  const int64_t n_lines = static_cast<int64_t>(lines.size());
+  const int64_t n = std::max<int64_t>(
+      1, std::min<int64_t>(workers, n_lines / floor_rows));
+  // blocks of rows taken in turn: a thread slowed by the others on the
+  // host takes fewer of them
+  const int64_t block = std::max<int64_t>(1, n_lines / (8 * n));
+  std::atomic<int64_t> next{0};
+  std::vector<int64_t> truncated(static_cast<size_t>(n));
+  std::vector<int64_t> bad(static_cast<size_t>(n));
+  fork_join(n, [&](int64_t w) {
+    std::vector<float> scratch(static_cast<size_t>(num_features));
+    CsvDenseLine line{{x, labels, weights, scratch.data(), num_features,
+                       out_f16 != 0, 0, 0},
+                      static_cast<char>(delimiter), label_column,
+                      weight_column, 0};
+    for (int64_t lo; (lo = next.fetch_add(block)) < n_lines;) {
+      const int64_t hi = std::min(n_lines, lo + block);
+      for (int64_t i = lo; i < hi; ++i)
+        line(lines[i].b, lines[i].e, row_start + i);
+    }
+    truncated[w] = line.st.truncated;
+    bad[w] = line.bad;
+  });
+  int64_t trunc_sum = 0, bad_sum = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    trunc_sum += truncated[i];
+    bad_sum += bad[i];
+  }
+  if (bad_sum) {
+    dmlc_parse_csv_dense(buf, len, delimiter, label_column, weight_column,
+                         num_features, out_f16, x, labels, weights, row_start,
+                         row_capacity, has_cr ? 1 : 0, &out->csv);
+    return;
+  }
+  out->csv.rows_written = inner.rows_written;
+  out->csv.bytes_consumed = inner.bytes_consumed;
+  out->csv.truncated = trunc_sum;
+  out->csv.has_cr = has_cr ? 1 : 0;
+  out->csv.bad_lines = 0;
+  out->workers = n;
 }
 
 // -- RecordIO frame scan + fused rowrec -> ELL batch --------------------------

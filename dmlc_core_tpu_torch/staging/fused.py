@@ -70,6 +70,7 @@ from ..io.recordio import (
 from ..io.stream import Stream
 from ..io.uri import URISpec, rejoin_query, uri_int
 from ..telemetry import default_registry as _default_registry
+from ..utils.cpus import available_cpus, parse_threads
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from .batcher import (
@@ -116,6 +117,10 @@ _TRUNCATED = _REG.counter(
 )
 _BAD_RECORDS = _REG.counter(
     "staging.bad_records", help="malformed records skipped by fused parsers"
+)
+_PARSE_SPLIT_ROWS = _REG.counter(
+    "staging.parse_split_rows",
+    help="rows parsed by native calls split over more than one thread",
 )
 
 
@@ -608,16 +613,23 @@ class FusedDenseLibSVMBatches(_FusedBaseTextBatches):
 
 
 class FusedDenseCSVBatches(_FusedTextBatches):
-    """csv text → dense [B,D] (``dmlc_parse_csv_dense``), with the cell
-    rules of ``CSVParser``; ``label_column``, ``weight_column`` and
+    """csv text → dense [B,D] (``dmlc_parse_csv_dense_split``), with the
+    cell rules of ``CSVParser``; ``label_column``, ``weight_column`` and
     ``delimiter`` (one ASCII byte) ride the URI or the constructor, and a
-    non-empty line without a delimiter raises."""
+    non-empty line without a delimiter raises.
+
+    Each native call splits its rows over ``parse_workers`` threads, each
+    row in the place one thread gives it, so the batches are those of a
+    one-thread parse: ``DMLC_PARSE_THREADS``, else half the CPUs the
+    process may use (the loop, the staging thread and this producer's
+    own thread keep the rest), shared by the ``_shares`` sub-producers
+    of one ``nthread`` fan-out."""
 
     _format = "csv"
     _layout = "dense"
 
     def __init__(self, uri, spec, part_index=0, num_parts=1, label_column=-1,
-                 weight_column=-1, delimiter=",", ring=10) -> None:
+                 weight_column=-1, delimiter=",", ring=10, *, _shares=1) -> None:
         super().__init__(uri, spec, part_index, num_parts, ring)
         opts = self._options
         check(opts.get("dtype", "float32") == "float32",
@@ -632,12 +644,16 @@ class FusedDenseCSVBatches(_FusedTextBatches):
               f"not {delim!r}")
         self._delim = ord(delim)
         self.bad_lines = 0
+        self.parse_workers = max(
+            1, parse_threads(max(1, available_cpus() // 2)) // _shares)
 
     def _parse(self, chunk, off, fill, cr_hint):
         v = self._views
-        rows, consumed, trunc, cr_hint, bad = native.parse_csv_dense(
+        rows, consumed, trunc, cr_hint, bad, workers = native.parse_csv_dense_split(
             chunk, off, self._delim, self._label_col, self._weight_col,
-            v["x"], v["labels"], v["weights"], fill, cr_hint)
+            v["x"], v["labels"], v["weights"], fill, cr_hint, self.parse_workers)
+        if workers > 1:
+            _PARSE_SPLIT_ROWS.inc(rows)
         self.truncated_nnz += trunc
         if trunc:
             _TRUNCATED.inc(trunc)
@@ -1042,7 +1058,8 @@ def dense_batches(
           f"dense_batches supports libsvm/csv, not {fmt!r}")
     check(spec.layout == "dense", "dense_batches needs layout='dense'")
     if fmt == "csv":
-        return _fan_out(lambda p, n: FusedDenseCSVBatches(uri, spec, p, n, ring=ring),
+        return _fan_out(lambda p, n: FusedDenseCSVBatches(
+                            uri, spec, p, n, ring=ring, _shares=max(1, nthread or 1)),
                         part_index, num_parts, nthread)
     return _fan_out(lambda p, n: FusedDenseLibSVMBatches(uri, spec, p, n,
                                                          indexing_mode, ring),
