@@ -13,10 +13,17 @@ view into ONE contiguous uint8 buffer (``Batch.packed``) whose sections
 start on ``PACK_ALIGN`` boundaries, so the staging pipeline moves a batch
 in a single host→device copy. A partial final batch is zero padded to B
 rows with weight 0, so models use ``weights`` as the validity mask.
+
+A ring producer allocates its ring (``alloc_ring``) on the thread that
+first drains it: numpy buffers, or those of the allocator that thread
+runs under (``ring_host_memory``: the staging pipeline's page-locked
+slots on the card).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional
 
@@ -33,9 +40,11 @@ __all__ = [
     "alloc_dense_slot",
     "alloc_ell_slot",
     "alloc_packed_slot",
+    "alloc_ring",
     "gather_slices",
     "packed_layout",
     "packed_shard_layout",
+    "ring_host_memory",
 ]
 
 # every section starts on an 8-byte boundary (the widest staged dtype),
@@ -47,18 +56,19 @@ def _aligned(nbytes: int) -> int:
     return (nbytes + PACK_ALIGN - 1) & ~(PACK_ALIGN - 1)
 
 
-def alloc_packed_slot(sections):
+def alloc_packed_slot(sections, host=None):
     """One zeroed contiguous uint8 buffer + named views into it.
 
     ``sections`` is [(name, shape, dtype)]; each section's offset is
-    PACK_ALIGN aligned. Returns (buf, views)."""
+    PACK_ALIGN aligned. ``host(nbytes)``, when given, makes the buffer
+    (zeroed uint8 of ``nbytes``). Returns (buf, views)."""
     offs = []
     off = 0
     for _name, shape, dtype in sections:
         nb = int(np.prod(shape)) * np.dtype(dtype).itemsize
         offs.append((off, nb))
         off += _aligned(nb)
-    buf = np.zeros(off, dtype=np.uint8)
+    buf = np.zeros(off, dtype=np.uint8) if host is None else host(off)
     views = {}
     for (o, nb), (name, shape, dtype) in zip(offs, sections):
         views[name] = buf[o : o + nb].view(dtype).reshape(shape)
@@ -186,7 +196,7 @@ class BatchSpec:
         self.value_dtype = np.dtype(self.value_dtype)
 
 
-def alloc_ell_slot(spec: BatchSpec):
+def alloc_ell_slot(spec: BatchSpec, host=None):
     """(packed buffer, views) in the section order every ELL producer uses:
     indices, values, nnz, labels, weights."""
     B, K = spec.batch_size, int(spec.max_nnz)
@@ -196,10 +206,10 @@ def alloc_ell_slot(spec: BatchSpec):
         ("nnz", (B,), np.int32),
         ("labels", (B,), np.float32),
         ("weights", (B,), np.float32),
-    ])
+    ], host)
 
 
-def alloc_dense_slot(spec: BatchSpec):
+def alloc_dense_slot(spec: BatchSpec, host=None):
     """(packed buffer, views) in the section order every dense producer
     uses: x, labels, weights."""
     B, D = spec.batch_size, int(spec.num_features)
@@ -207,7 +217,34 @@ def alloc_dense_slot(spec: BatchSpec):
         ("x", (B, D), spec.value_dtype),
         ("labels", (B,), np.float32),
         ("weights", (B,), np.float32),
-    ])
+    ], host)
+
+
+_RING_HOST = threading.local()
+
+
+@contextlib.contextmanager
+def ring_host_memory(host):
+    """Inside the block, a ring that ``alloc_ring`` makes on this thread
+    takes each slot's buffer from ``host(nbytes)``: a zeroed,
+    page-aligned uint8 array. The staging pipeline drains its producer
+    under it, so a ring producer that first iterates there, through any
+    wrapper that iterates it on that thread, gets the pipeline's slots;
+    a producer drained elsewhere keeps numpy buffers."""
+    prev = getattr(_RING_HOST, "host", None)
+    _RING_HOST.host = host
+    try:
+        yield
+    finally:
+        _RING_HOST.host = prev
+
+
+def alloc_ring(alloc_slot, spec: BatchSpec, slots: int):
+    """``slots`` (packed buffer, views) pairs of ``alloc_slot`` (
+    ``alloc_ell_slot`` or ``alloc_dense_slot``), from this thread's
+    ``ring_host_memory`` when it runs under one, else numpy."""
+    host = getattr(_RING_HOST, "host", None)
+    return [alloc_slot(spec, host) for _ in range(slots)]
 
 
 def fill_dense_rows(views, blk: RowBlock, spec: BatchSpec) -> int:

@@ -40,7 +40,10 @@ The plain versions the tests and ``chip_smoke.py`` hold them to are
 parse core.
 
 A yielded batch views a ring slot and stays valid until ``ring_slots - 1``
-further batches have been produced.
+further batches have been produced. A producer allocates its ring at its
+first iteration, on the thread that drains it (``batcher.alloc_ring``):
+drained by a staging pipeline that copies ring slots to the card in
+place, the slots are page-locked.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ from .batcher import (
     FixedShapeBatcher,
     alloc_dense_slot,
     alloc_ell_slot,
+    alloc_ring,
     ell_batch,
     fill_ell_rows,
     pad_tail,
@@ -127,7 +131,8 @@ _PARSE_SPLIT_ROWS = _REG.counter(
 class EllRowRecBatches:
     """The plain rowrec producer: ELL Batches over part ``part_index`` of
     ``num_parts`` of a local rowrec file, decoded record by record in
-    numpy and written into a ring of ``ring`` packed slots."""
+    numpy and written into a ring of ``ring`` packed slots (allocated at
+    the first iteration)."""
 
     def __init__(
         self,
@@ -140,8 +145,8 @@ class EllRowRecBatches:
         _check_ell_spec(spec)
         self.spec = spec
         self._parser = RowRecParser(path, part_index, num_parts)
-        self._ring = [alloc_ell_slot(spec) for _ in range(max(2, ring))]
-        self.ring_slots = len(self._ring)
+        self.ring_slots = max(2, ring)
+        self._ring = None
         self._slot = 0
         self.truncated_nnz = 0
 
@@ -151,6 +156,8 @@ class EllRowRecBatches:
         return ell_batch(packed, views, n_valid)
 
     def __iter__(self) -> Iterator[Batch]:
+        if self._ring is None:
+            self._ring = alloc_ring(alloc_ell_slot, self.spec, self.ring_slots)
         B = self.spec.batch_size
         fill = 0
         for blk in self._parser:
@@ -459,8 +466,9 @@ class _MmapRawChunks(_MmapFile):
 
 
 class _RingBatches:
-    """A ring of ``ring`` packed slots in the producer's layout and the
-    counters every native producer keeps."""
+    """A ring of ``ring`` packed slots in the producer's layout, allocated
+    at the first iteration (``_open_ring``), and the counters every
+    native producer keeps."""
 
     _layout = "ell"
 
@@ -471,14 +479,19 @@ class _RingBatches:
               f"native producers stage f32/f16 values, not {spec.value_dtype}")
         if spec.layout == "ell":
             _check_ell_spec(spec)
-        alloc = alloc_ell_slot if spec.layout == "ell" else alloc_dense_slot
         self.spec = spec
-        self._ring = [alloc(spec) for _ in range(max(2, ring))]
-        self.ring_slots = len(self._ring)
+        self.ring_slots = max(2, ring)
+        self._ring = None
         self._slot = 0
         self.rows_in = 0
         self.rows_out = 0
         self.truncated_nnz = 0
+
+    def _open_ring(self) -> None:
+        """Allocate the ring on the draining thread, once."""
+        if self._ring is None:
+            alloc = alloc_ell_slot if self.spec.layout == "ell" else alloc_dense_slot
+            self._ring = alloc_ring(alloc, self.spec, self.ring_slots)
 
     @property
     def _views(self):
@@ -543,6 +556,7 @@ class _FusedTextBatches(_RingBatches):
         raise NotImplementedError
 
     def __iter__(self) -> Iterator[Batch]:
+        self._open_ring()
         if self._split is not None:
             self._split.before_first()
         elif self.path is not None:  # opened here: a refused URI leaks no fd
@@ -793,6 +807,7 @@ class FusedEllRowRecBatches(_RingBatches):
         return off + consumed, fill + rows, bool(rows or consumed)
 
     def __iter__(self) -> Iterator[Batch]:
+        self._open_ring()
         if self._gather:
             yield from self._iter_gather()
         elif self._mmap:

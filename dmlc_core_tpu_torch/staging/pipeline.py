@@ -30,6 +30,21 @@ the array, so the producer's liveness tracking sees it), and a buffer
 that fails the shape check (not page-aligned) is copied and counted in
 ``dsserve.slot_copies``.
 
+Ring slots in place (a CUDA pipeline, no mesh shard staging,
+``DMLC_STAGING_ADOPT`` on, a producer that declares ``ring_slots`` of at
+least ``prefetch + depth + 4``, ``ring_in_place``): the producer thread
+drains the source under ``batcher.ring_host_memory``, so a ring producer
+that allocates its ring there (at its first iteration, through any
+wrapper that iterates it on that thread) takes page-locked slots from
+torch's pinned caching allocator, and each such slot, page-aligned and
+pinned, is copied to the device as an adopted one is, with no pack
+copy. A slot is rewritten ``ring_slots`` batches after it was emitted;
+by then the batches after it fill at most 1 slot in the producer,
+``prefetch`` in its queue, 1 on the transfer thread and ``depth + 2``
+copies in flight (the oldest is waited for to make room), so its own
+copy has completed. A shorter ring, or a slot that is not pinned or not
+page-aligned, takes the pack copy.
+
 Mesh staging (``mesh=``, one rank of a ``parallel`` mesh): every rank
 reads the same global batch of B rows (the JAX package's single-process
 layout), packs only its own data coordinate's rows, every array's at a
@@ -85,7 +100,7 @@ from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from ..utils.profiler import annotate
-from .batcher import Batch, packed_layout, packed_shard_layout
+from .batcher import Batch, packed_layout, packed_shard_layout, ring_host_memory
 
 __all__ = [
     "StagingPipeline",
@@ -93,6 +108,7 @@ __all__ = [
     "device_put",
     "drain_close",
     "packed_layout",
+    "ring_in_place",
     "stage_batch",
 ]
 
@@ -206,19 +222,34 @@ class _CudaPinning:
     """Page-locking for an adopting CUDA pipeline's producer (see
     ``dsserve.client.set_host_pinning``): each pool bank comes from
     torch's pinned allocator, each mapped shm segment is registered with
-    ``cudaHostRegister`` once and unregistered before it is unmapped.
-    Counts what it pinned."""
+    ``cudaHostRegister`` once and unregistered before it is unmapped;
+    and for a pipeline that copies ring slots in place, each ring slot
+    comes from torch's pinned allocator too. Counts what it pinned."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.banks = 0
         self.segments = 0
         self.segments_unregistered = 0
+        self.ring_slots = 0
 
     def bank(self, nbytes: int) -> np.ndarray:
         with self._lock:
             self.banks += 1
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
+
+    def ring_slot(self, nbytes: int) -> np.ndarray:
+        """A zeroed page-locked ring slot (``batcher.ring_host_memory``)
+        that starts on a page, as ``adoptable_slot`` asks (the pinned
+        allocator need not align a small block to one); the caching
+        allocator hands a dropped ring's blocks to the next."""
+        with self._lock:
+            self.ring_slots += 1
+        raw = torch.empty(nbytes + _PAGE, dtype=torch.uint8, pin_memory=True).numpy()
+        start = -raw.ctypes.data % _PAGE
+        buf = raw[start:start + nbytes]
+        buf.fill(0)
+        return buf
 
     def register(self, addr: int, nbytes: int) -> None:
         _cuda_check(torch.cuda.cudart().cudaHostRegister(addr, nbytes, 0),
@@ -235,7 +266,8 @@ class _CudaPinning:
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"banks_pinned": self.banks, "segments_pinned": self.segments,
-                    "segments_unpinned": self.segments_unregistered}
+                    "segments_unpinned": self.segments_unregistered,
+                    "ring_slots_pinned": self.ring_slots}
 
 
 _PINNING: Optional[_CudaPinning] = None
@@ -252,9 +284,11 @@ def _cuda_pinning() -> _CudaPinning:
 
 def host_pinning_stats() -> Dict[str, int]:
     """What adopting CUDA pipelines had their producers page-lock so far
-    in this process: pool banks and shm segments (0s when none asked)."""
+    in this process: pool banks, shm segments and ring slots (0s when
+    none asked)."""
     return _PINNING.stats() if _PINNING is not None else {
-        "banks_pinned": 0, "segments_pinned": 0, "segments_unpinned": 0}
+        "banks_pinned": 0, "segments_pinned": 0, "segments_unpinned": 0,
+        "ring_slots_pinned": 0}
 
 
 def device_put(tree, device: DeviceLike = None):
@@ -336,17 +370,43 @@ class StagingStats:
             }
 
 
-def _produced(host_batches: Iterable[Batch]) -> Iterator[Batch]:
+def ring_in_place(source, device: torch.device, shard_staging: bool,
+                  prefetch: int, depth: int) -> Optional[str]:
+    """None when a pipeline may copy ``source``'s ring slots to ``device``
+    in place (the module docstring), else why it packs them."""
+    if device.type != "cuda":
+        return "a CPU pipeline copies every batch"
+    if shard_staging:
+        return "mesh shard staging packs this rank's rows"
+    if not _adopt_enabled():
+        return "DMLC_STAGING_ADOPT is off"
+    if getattr(source, "adopt_slots", False):
+        return "the producer's own buffers are adopted"
+    ring = getattr(source, "ring_slots", None)
+    if ring is None:
+        return "the producer declares no ring"
+    need = max(1, prefetch) + depth + 4
+    if ring < need:
+        return (f"producer ring has {ring} slots but an in-place copy needs "
+                f"{need} (1 being filled + prefetch={max(1, prefetch)} + 1 "
+                f"staging + depth+2={depth + 2} copies in flight)")
+    return None
+
+
+def _produced(host_batches: Iterable[Batch], ring_host=None) -> Iterator[Batch]:
     """The producer's batches, each pulled under a ``dmlc:produce`` span
     (the staging thread's work; its waits to hand a batch on are the
-    gaps between spans)."""
-    it = iter(host_batches)
-    while True:
-        with annotate("dmlc:produce"):
-            batch = next(it, None)
-        if batch is None:
-            return
-        yield batch
+    gaps between spans); under ``ring_host`` (``ring_host_memory``) when
+    given."""
+    with (ring_host_memory(ring_host) if ring_host is not None
+          else contextlib.nullcontext()):
+        it = iter(host_batches)
+        while True:
+            with annotate("dmlc:produce"):
+                batch = next(it, None)
+            if batch is None:
+                return
+            yield batch
 
 
 def _per_array(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -556,6 +616,11 @@ class StagingPipeline:
         # buffers stay stable until every view dies (dsserve's pooled and
         # shm receive buffers); ring producers recycle eagerly
         self._adopt = bool(getattr(host_batches, "adopt_slots", False)) and _adopt_enabled()
+        why = ring_in_place(host_batches, self._device, self._mesh is not None,
+                            prefetch, self._depth)
+        self._in_place = why is None
+        if why is not None and ring_slots is not None:
+            logger.debug("ring slots packed: %s", why)
         self.slots_adopted = 0
         self.slots_adopted_pinned = 0
         # wall seconds per stage; the transfer thread's stages overlap
@@ -579,8 +644,9 @@ class StagingPipeline:
             pin = getattr(host_batches, "pin_host_memory", None)
             if self._adopt and pin is not None:
                 pin(_cuda_pinning())
+        ring_host = _cuda_pinning().ring_slot if self._in_place else None
         self._host_iter = Prefetcher(
-            lambda: _produced(host_batches), prefetch, "staging"
+            lambda: _produced(host_batches, ring_host), prefetch, "staging"
         )
         self._xfer_iter = Prefetcher(self._staged, self._depth, "staging-xfer")
 
@@ -671,6 +737,15 @@ class StagingPipeline:
         self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
         return _Staged(u8=u8, event=event, layout=layout)
 
+    def _adopts(self, host: Batch) -> bool:
+        """Whether ``host.packed`` goes to the device as it is: a
+        page-aligned buffer of an adopting producer, or a page-aligned
+        pinned slot of a ring copied in place."""
+        if not adoptable_slot(host):
+            return False
+        return self._adopt or (self._in_place
+                               and torch.from_numpy(host.packed).is_pinned())
+
     def _staged(self) -> Iterator[_Staged]:
         """Transfer thread: pull host batches, start their copies."""
         with (torch.cuda.device(self._device) if self._cuda
@@ -707,7 +782,7 @@ class StagingPipeline:
                 self._observe("dispatch_put", time.perf_counter() - t0,
                               dispatch=True)
                 self.staging.tick_batch("per_array", len(item.arrays), self._device)
-            elif self._adopt and adoptable_slot(host):
+            elif self._adopts(host):
                 if self._cuda:
                     item = self._adopt_cuda(host.packed, layout)
                 else:

@@ -26,7 +26,11 @@ from dmlc_core_tpu_torch.models import FactorizationMachine, LogisticRegression
 from dmlc_core_tpu_torch.ops import _build, fm as tfm, sparse as tops
 from dmlc_core_tpu_torch.staging.batcher import BatchSpec
 from dmlc_core_tpu_torch.staging.fused import dense_batches, ell_batches
-from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close
+from dmlc_core_tpu_torch.staging.pipeline import (
+    StagingPipeline,
+    drain_close,
+    host_pinning_stats,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -274,6 +278,49 @@ def test_native_producers_stage_their_host_bytes(cuda, tmp_path, fmt, nthread):
     staged = [b"".join(batch[k].cpu().numpy().tobytes() for k in keys) for batch in pipe]
     assert drain_close(pipe, src)
     assert sorted(staged) == host
+
+
+@pytest.mark.parametrize("ring,in_place", [(8, True), (7, False)])
+def test_ring_slots_stage_in_place_under_a_stalled_copy_stream(cuda, tmp_path, ring,
+                                                               in_place):
+    """At the least ring an in-place copy admits (1 being filled +
+    prefetch 2 + 1 staging + depth 2 + 2 copies in flight = 8 slots),
+    with the pipeline's copy stream stalled behind a sleep at every batch
+    the loop takes, every staged batch equals the producer's bytes over
+    five ring wraps: the transfer thread waits for the oldest copy before
+    the producer can come round to its slot. A ring one slot shorter is
+    refused for the in-place path and packs."""
+    rng = np.random.default_rng(8)
+    n, d = 40 * 256 + 77, 28
+    rows = rng.integers(-2**15, 2**15, (n, d + 1)) / 2**10
+    path = tmp_path / "w.csv"
+    path.write_text("".join(",".join(f"{v:g}" for v in r) + "\n" for r in rows))
+    uri = f"{path}?format=csv&label_column=0"
+    spec = BatchSpec(batch_size=256, layout="dense", num_features=d)
+    want = [{k: v.copy() for k, v in b.as_dict().items()}
+            for b in dense_batches(uri, spec, ring=ring)]
+    pinned0 = host_pinning_stats()["ring_slots_pinned"]
+    src = dense_batches(uri, spec, ring=ring)
+    pipe = StagingPipeline(src, device=cuda)
+    got = []
+    for batch in pipe:
+        with torch.cuda.stream(pipe._copy_stream):
+            torch.cuda._sleep(20_000_000)  # ~10 ms: later copies queue behind it
+        got.append(batch)
+    torch.cuda.synchronize()
+    stats = pipe.staging_stats()
+    slot_wait = pipe.stage_seconds["dispatch_slot_wait"]
+    assert drain_close(pipe, src)
+    assert len(got) == len(want) == 41
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            np.testing.assert_array_equal(g[k].cpu().numpy(), v)
+    n_in_place = len(want) if in_place else 0
+    assert stats["packed_batches"] == len(want)
+    assert stats["slots_adopted"] == stats["slots_adopted_pinned"] == n_in_place
+    assert host_pinning_stats()["ring_slots_pinned"] - pinned0 == (ring if in_place else 0)
+    if in_place:
+        assert slot_wait > 0  # the stall filled the copies in flight
 
 
 def test_libsvm_fm_path_launches_the_kernels(cuda, tmp_path):
