@@ -158,8 +158,9 @@ Phases (any failure exits non-zero and prints no result line):
    equal to the local ``ell_batches`` batch's and the params within
    ``PARAM_REL`` of a local pass over the same batches; (b) four arms,
    TCP or shared memory (``DMLC_DSSERVE_SHM``) by adoption on or off
-   (``DMLC_STAGING_ADOPT``), each twice in turns beside a local-file
-   pass, 128 steps a pass: staged rows/s, wait share, step ms, the
+   (off: the client behind a wrapper that declares no ``adopt_slots``),
+   each twice in turns beside a local-file pass, 128 steps a pass:
+   staged rows/s, wait share, step ms, the
    ``dispatch_pack`` and ``dispatch_put`` seconds, the client's receive
    wait, the adopted slots (all of them with adoption on, none off),
    the copies (none with adoption on), the slots shared memory carried
@@ -1004,11 +1005,9 @@ class RowLog:
         self.source, self.rows = source, []
         self.digests = [] if digests else None
         # the producer contract the pipeline reads: a ring's size, or a
-        # dsserve client's adoptable slots and its host-memory pinning
+        # dsserve client's adoptable slots
         self.ring_slots = getattr(source, "ring_slots", None)
         self.adopt_slots = getattr(source, "adopt_slots", False)
-        if hasattr(source, "pin_host_memory"):
-            self.pin_host_memory = source.pin_host_memory
 
     def __iter__(self):
         for batch in self.source:
@@ -2943,27 +2942,41 @@ def stop_process(proc, what: str) -> None:
             fail(f"{what} ignored SIGTERM for 30 s")
 
 
+class Unadopted:
+    """A dsserve client passed through by a wrapper that declares no
+    ``adopt_slots``: the pipeline packs each received slot."""
+
+    def __init__(self, source) -> None:
+        self.source = source
+
+    def __iter__(self):
+        return iter(self.source)
+
+    def close(self) -> None:
+        self.source.close()
+
+
 def dsserve_pass(name, endpoint: str, inner: str, spec, dev, model, transport: str,
                  adopt: str, digests: bool = False):
     """One FM pass over ``dsserve://endpoint/inner`` (static mode, one
-    server) with the client's transport (``DMLC_DSSERVE_SHM``) and the
-    pipeline's adoption (``DMLC_STAGING_ADOPT``) set for it. Gates: adopt
-    on, every batch adopted and none copied; adopt off, none adopted;
-    shm, slots carried by shared memory."""
+    server) with the client's transport (``DMLC_DSSERVE_SHM``) set for
+    it; adopt off passes the client through a wrapper that declares no
+    ``adopt_slots``. Gates: adopt on, every batch adopted and none
+    copied; adopt off, none adopted; shm, slots carried by shared
+    memory."""
     from dmlc_core_tpu_torch.staging.fused import ell_batches
     from dmlc_core_tpu_torch.staging.pipeline import host_pinning_stats
     from dmlc_core_tpu_torch.telemetry import default_registry
 
-    keys = ("DMLC_DSSERVE_SHM", "DMLC_STAGING_ADOPT")
-    old = {k: os.environ.get(k) for k in keys}
+    old = {"DMLC_DSSERVE_SHM": os.environ.get("DMLC_DSSERVE_SHM")}
     os.environ["DMLC_DSSERVE_SHM"] = "on" if transport == "shm" else "off"
-    os.environ["DMLC_STAGING_ADOPT"] = adopt
     reg = default_registry()
     copies0 = reg.snapshot()["counters"].get("dsserve.slot_copies", 0)
     pin0 = host_pinning_stats()
     try:
         src = ell_batches(f"dsserve://{endpoint}{inner}", spec)
-        stats, _, _ = drive(name, model, src, dev, SHARD_LR, digests=digests)
+        stats, _, _ = drive(name, model, src if adopt == "on" else Unadopted(src), dev,
+                            SHARD_LR, digests=digests)
     finally:
         restore_env(old)
     io = src.io_stats()
@@ -2980,7 +2993,7 @@ def dsserve_pass(name, endpoint: str, inner: str, spec, dev, model, transport: s
     if adopt == "on" and not (adopted == n and copies == 0):
         fail(f"{name}: {adopted} of {n} batches adopted, {copies} copied")
     if adopt == "off" and adopted:
-        fail(f"{name}: {adopted} batches adopted with DMLC_STAGING_ADOPT=off")
+        fail(f"{name}: {adopted} batches adopted through a wrapper with no adopt_slots")
     if transport == "shm" and not io["shm_slots"] > 0:
         fail(f"{name}: no slot came through shared memory: {io}")
     if transport == "tcp" and io["shm_slots"]:

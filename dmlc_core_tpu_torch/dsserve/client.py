@@ -40,10 +40,11 @@ Where the port departs: the pooled receive buffer is picked once a
 frame's header names the payload's size, so the very first slot of a
 process lands in a page-aligned pooled bank too (the JAX client
 receives it into a fresh, unaligned allocation, which the staging
-pipeline then copies); and an adopting CUDA pipeline may install a
-host-memory pinning (``set_host_pinning``): pool banks are then carved
-from page-locked memory and each mapped shm segment is page-locked once,
-when it is first mapped, and released before it is unmapped.
+pipeline then copies); and a client drained under a CUDA pipeline's
+``batcher.host_pinning`` installs that pinning at its first iteration
+(``set_host_pinning``): pool banks are then carved from page-locked
+memory and each mapped shm segment is page-locked once, when it is
+first mapped, and released before it is unmapped.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ from ..io.retry import RetryPolicy, is_transient
 from ..io.shm import ShmSegment, shm_available, shm_transport_enabled
 from ..io.split import fileset_signature
 from ..io.uri import URISpec
-from ..staging.batcher import Batch, BatchSpec
+from ..staging.batcher import Batch, BatchSpec, current_host_pinning
 from ..telemetry import default_registry as _default_registry
 from ..telemetry import tracing as _tracing
 from ..utils.logging import Error, check
@@ -397,12 +398,6 @@ class DsServeBatches:
     #: may skip its dispatch_pack copy and copy ``batch.packed`` to the
     #: device directly — the received slot IS the staging slot
     adopt_slots = True
-
-    @staticmethod
-    def pin_host_memory(pinning) -> None:
-        """Producer-contract hook of an adopting CUDA pipeline: see
-        :func:`set_host_pinning`."""
-        set_host_pinning(pinning)
 
     def __init__(
         self,
@@ -923,6 +918,11 @@ class DsServeBatches:
             "instance (epoch=N) for the next epoch",
         )
         self._iterated = True
+        # drained by a CUDA pipeline that copies directly: page-lock what
+        # the pool carves and the shm segments mapped from now on
+        pinning = current_host_pinning()
+        if pinning is not None:
+            set_host_pinning(pinning)
         ended = 0
         errors: List = []
         while ended < len(self.endpoints):

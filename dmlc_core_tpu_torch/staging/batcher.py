@@ -15,9 +15,9 @@ in a single host→device copy. A partial final batch is zero padded to B
 rows with weight 0, so models use ``weights`` as the validity mask.
 
 A ring producer allocates its ring (``alloc_ring``) on the thread that
-first drains it: numpy buffers, or those of the allocator that thread
-runs under (``ring_host_memory``: the staging pipeline's page-locked
-slots on the card).
+first drains it: numpy buffers, or the page-locked slots of the
+pinning that thread runs under (``host_pinning``: that of a CUDA
+staging pipeline that copies directly).
 """
 
 from __future__ import annotations
@@ -41,10 +41,11 @@ __all__ = [
     "alloc_ell_slot",
     "alloc_packed_slot",
     "alloc_ring",
+    "current_host_pinning",
     "gather_slices",
+    "host_pinning",
     "packed_layout",
     "packed_shard_layout",
-    "ring_host_memory",
 ]
 
 # every section starts on an 8-byte boundary (the widest staged dtype),
@@ -220,30 +221,39 @@ def alloc_dense_slot(spec: BatchSpec, host=None):
     ], host)
 
 
-_RING_HOST = threading.local()
+_HOST = threading.local()
 
 
 @contextlib.contextmanager
-def ring_host_memory(host):
-    """Inside the block, a ring that ``alloc_ring`` makes on this thread
-    takes each slot's buffer from ``host(nbytes)``: a zeroed,
-    page-aligned uint8 array. The staging pipeline drains its producer
-    under it, so a ring producer that first iterates there, through any
-    wrapper that iterates it on that thread, gets the pipeline's slots;
-    a producer drained elsewhere keeps numpy buffers."""
-    prev = getattr(_RING_HOST, "host", None)
-    _RING_HOST.host = host
+def host_pinning(pinning):
+    """Inside the block, producers on this thread take page-locked host
+    memory from ``pinning`` (None: none): a ring that ``alloc_ring``
+    makes takes each slot's buffer from ``pinning.ring_slot(nbytes)``, a
+    zeroed page-aligned uint8 array, and a dsserve client installs it in
+    its receive pool (``pinning.bank``, ``register``, ``unregister``).
+    A CUDA staging pipeline that copies directly drains its producer
+    under it, so a producer that first iterates there, through any
+    wrapper that iterates it on that thread, gets the pipeline's
+    pinning; a producer drained elsewhere keeps unpinned buffers."""
+    prev = getattr(_HOST, "pinning", None)
+    _HOST.pinning = pinning
     try:
         yield
     finally:
-        _RING_HOST.host = prev
+        _HOST.pinning = prev
+
+
+def current_host_pinning():
+    """The ``host_pinning`` this thread runs under, or None."""
+    return getattr(_HOST, "pinning", None)
 
 
 def alloc_ring(alloc_slot, spec: BatchSpec, slots: int):
     """``slots`` (packed buffer, views) pairs of ``alloc_slot`` (
     ``alloc_ell_slot`` or ``alloc_dense_slot``), from this thread's
-    ``ring_host_memory`` when it runs under one, else numpy."""
-    host = getattr(_RING_HOST, "host", None)
+    ``host_pinning`` when it runs under one, else numpy."""
+    pinning = current_host_pinning()
+    host = pinning.ring_slot if pinning is not None else None
     return [alloc_slot(spec, host) for _ in range(slots)]
 
 

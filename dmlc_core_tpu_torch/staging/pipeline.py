@@ -13,37 +13,41 @@ recorded on the consumer's stream, so the caching allocator does not
 reuse it while the step still reads it. On the CPU ``torch.from_numpy``
 would share the producer's ring slot, so the bytes are copied first (a
 yielded batch must not change when the producer's ring wraps). Batches
-without a usable packed layout take one transfer per array.
+without a usable packed layout take one transfer per array. The transfer
+loop picks each batch's route (per array, mesh shard, direct or pack) and
+hands its bytes to the device's copier (``_CudaCopier`` or
+``_CpuCopier``), chosen once when the pipeline is built.
 
-Adopted slots (a producer that declares ``adopt_slots``, the dsserve
-client, and ``DMLC_STAGING_ADOPT`` on): the host→device copy reads the
-received buffer itself, with no copy into a pinned slot. The copy's
-source is kept referenced until the copy's event has completed (torch's
-caching host allocator tracks only the buffers it allocated, so nothing
-else would keep a pooled bank from being recycled, or an shm segment
-from being acked back to its server, under the DMA). The producer is
-asked to page-lock what it receives into (``pin_host_memory``): pool
-banks from torch's pinned allocator, each mapped shm segment registered
-once with ``cudaHostRegister``; a failed registration raises. On the CPU
-an adopted slot is shared with ``torch.from_numpy`` (the tensor holds
-the array, so the producer's liveness tracking sees it), and a buffer
-that fails the shape check (not page-aligned) is copied and counted in
-``dsserve.slot_copies``.
+Direct copies (``pack_reason``, decided once per pipeline, never under
+mesh shard staging): the host→device copy reads the producer's own
+buffer, with no pack copy, when the producer either
 
-Ring slots in place (a CUDA pipeline, no mesh shard staging,
-``DMLC_STAGING_ADOPT`` on, a producer that declares ``ring_slots`` of at
-least ``prefetch + depth + 4``, ``ring_in_place``): the producer thread
-drains the source under ``batcher.ring_host_memory``, so a ring producer
-that allocates its ring there (at its first iteration, through any
-wrapper that iterates it on that thread) takes page-locked slots from
-torch's pinned caching allocator, and each such slot, page-aligned and
-pinned, is copied to the device as an adopted one is, with no pack
-copy. A slot is rewritten ``ring_slots`` batches after it was emitted;
-by then the batches after it fill at most 1 slot in the producer,
-``prefetch`` in its queue, 1 on the transfer thread and ``depth + 2``
-copies in flight (the oldest is waited for to make room), so its own
-copy has completed. A shorter ring, or a slot that is not pinned or not
-page-aligned, takes the pack copy.
+- declares ``adopt_slots`` (the dsserve client), its promise that a
+  delivered buffer stays stable until every view over it dies: a
+  C-contiguous page-aligned buffer is copied directly on CUDA and shared
+  with ``torch.from_numpy`` on the CPU (the tensor holds the array, so
+  the producer's liveness tracking sees it); any other buffer is copied
+  and counted in ``dsserve.slot_copies``;
+- or, on CUDA, declares ``ring_slots`` of at least ``max(1, prefetch) +
+  depth + 4``: a slot that is page-aligned and pinned goes directly, any
+  other is packed. A slot is rewritten ``ring_slots`` batches after it
+  was emitted; by then the batches after it fill at most 1 slot in the
+  producer, ``prefetch`` in its queue, 1 on the transfer thread and
+  ``depth + 2`` copies in flight (the oldest is waited for to make
+  room), so its own copy has completed.
+
+A direct copy's source is kept referenced until the copy's event has
+completed (torch's caching host allocator tracks only the buffers it
+allocated, so nothing else would keep a pooled bank from being recycled,
+or an shm segment from being acked back to its server, under the DMA).
+A CUDA pipeline that copies directly drains its producer under
+``batcher.host_pinning``, so what the producer allocates on that thread,
+through any wrapper that iterates it there, is page-locked: a ring
+allocated at its first iteration takes its slots from torch's pinned
+caching allocator, and the dsserve client installs the pinning in its
+receive pool (pool banks from torch's pinned allocator, each mapped shm
+segment registered once with ``cudaHostRegister``; a failed
+registration raises).
 
 Mesh staging (``mesh=``, one rank of a ``parallel`` mesh): every rank
 reads the same global batch of B rows (the JAX package's single-process
@@ -87,10 +91,9 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import os
 import threading
 import time
-from typing import Any, Dict, Iterable, Iterator, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,15 +103,15 @@ from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import Error, check
 from ..utils.prefetch import Prefetcher
 from ..utils.profiler import annotate
-from .batcher import Batch, packed_layout, packed_shard_layout, ring_host_memory
+from .batcher import Batch, host_pinning, packed_layout, packed_shard_layout
 
 __all__ = [
     "StagingPipeline",
     "StagingStats",
     "device_put",
     "drain_close",
+    "pack_reason",
     "packed_layout",
-    "ring_in_place",
     "stage_batch",
 ]
 
@@ -149,18 +152,11 @@ _STAGE_HISTS = {
     )
     for stage in _STAGES
 }
+# the stages whose seconds also sum into ``stage_dispatch``
+_DISPATCH = ("dispatch_pack", "dispatch_put")
 
 
 _PAGE = 4096  # an adopted slot starts on a page, as a pinned ring slot does
-
-
-def _adopt_enabled() -> bool:
-    """``DMLC_STAGING_ADOPT`` gate (default on): off forces the
-    dispatch_pack copy even for adopt-capable producers — the A/B lever
-    for the zero-copy receive path."""
-    return os.environ.get("DMLC_STAGING_ADOPT", "on").strip().lower() not in (
-        "off", "0", "false", "no",
-    )
 
 
 def adoptable_slot(batch: Batch) -> bool:
@@ -219,12 +215,12 @@ def _cuda_check(err, what: str) -> None:
 
 
 class _CudaPinning:
-    """Page-locking for an adopting CUDA pipeline's producer (see
-    ``dsserve.client.set_host_pinning``): each pool bank comes from
-    torch's pinned allocator, each mapped shm segment is registered with
-    ``cudaHostRegister`` once and unregistered before it is unmapped;
-    and for a pipeline that copies ring slots in place, each ring slot
-    comes from torch's pinned allocator too. Counts what it pinned."""
+    """Page-locking for the producer of a CUDA pipeline that copies
+    directly (``batcher.host_pinning``): each ring slot and each dsserve
+    pool bank comes from torch's pinned allocator, each mapped shm
+    segment is registered with ``cudaHostRegister`` once and
+    unregistered before it is unmapped (``dsserve.client.
+    set_host_pinning``). Counts what it pinned."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -239,8 +235,8 @@ class _CudaPinning:
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True).numpy()
 
     def ring_slot(self, nbytes: int) -> np.ndarray:
-        """A zeroed page-locked ring slot (``batcher.ring_host_memory``)
-        that starts on a page, as ``adoptable_slot`` asks (the pinned
+        """A zeroed page-locked ring slot (``batcher.alloc_ring``) that
+        starts on a page, as ``adoptable_slot`` asks (the pinned
         allocator need not align a small block to one); the caching
         allocator hands a dropped ring's blocks to the next."""
         with self._lock:
@@ -283,9 +279,9 @@ def _cuda_pinning() -> _CudaPinning:
 
 
 def host_pinning_stats() -> Dict[str, int]:
-    """What adopting CUDA pipelines had their producers page-lock so far
-    in this process: pool banks, shm segments and ring slots (0s when
-    none asked)."""
+    """What the producers of CUDA pipelines that copy directly
+    page-locked so far in this process: pool banks, shm segments and
+    ring slots (0s when none did)."""
     return _PINNING.stats() if _PINNING is not None else {
         "banks_pinned": 0, "segments_pinned": 0, "segments_unpinned": 0,
         "ring_slots_pinned": 0}
@@ -370,36 +366,49 @@ class StagingStats:
             }
 
 
-def ring_in_place(source, device: torch.device, shard_staging: bool,
-                  prefetch: int, depth: int) -> Optional[str]:
-    """None when a pipeline may copy ``source``'s ring slots to ``device``
-    in place (the module docstring), else why it packs them."""
-    if device.type != "cuda":
-        return "a CPU pipeline copies every batch"
+def _ring_bounds(prefetch: int, depth: int) -> Dict[str, Tuple[int, str]]:
+    """The least ring a producer may have under a pipeline, each with the
+    sum it stands for: ``alive`` keeps valid every batch the pipeline
+    holds at once, ``in_place`` lets a slot's own copy complete before
+    the producer rewrites it (the module docstring)."""
+    p = max(1, prefetch)
+    return {
+        "alive": (prefetch + depth + 3,
+                  f"1 in producer + prefetch={prefetch} + 1 staging + "
+                  f"depth={depth} + 1 consumed"),
+        "in_place": (p + depth + 4,
+                     f"1 being filled + prefetch={p} + 1 staging + "
+                     f"depth+2={depth + 2} copies in flight"),
+    }
+
+
+def pack_reason(source, device: torch.device, shard_staging: bool,
+                prefetch: int, depth: int) -> Optional[str]:
+    """Why a pipeline packs every batch of ``source``, or None when its
+    host→device copy may read the source's own buffers (the module
+    docstring): an adopting source's on either device, a long enough
+    ring's on CUDA."""
     if shard_staging:
         return "mesh shard staging packs this rank's rows"
-    if not _adopt_enabled():
-        return "DMLC_STAGING_ADOPT is off"
     if getattr(source, "adopt_slots", False):
-        return "the producer's own buffers are adopted"
+        return None
+    if device.type != "cuda":
+        return "a CPU pipeline copies every batch"
     ring = getattr(source, "ring_slots", None)
     if ring is None:
         return "the producer declares no ring"
-    need = max(1, prefetch) + depth + 4
+    need, parts = _ring_bounds(prefetch, depth)["in_place"]
     if ring < need:
         return (f"producer ring has {ring} slots but an in-place copy needs "
-                f"{need} (1 being filled + prefetch={max(1, prefetch)} + 1 "
-                f"staging + depth+2={depth + 2} copies in flight)")
+                f"{need} ({parts})")
     return None
 
 
-def _produced(host_batches: Iterable[Batch], ring_host=None) -> Iterator[Batch]:
+def _produced(host_batches: Iterable[Batch], pinning=None) -> Iterator[Batch]:
     """The producer's batches, each pulled under a ``dmlc:produce`` span
     (the staging thread's work; its waits to hand a batch on are the
-    gaps between spans); under ``ring_host`` (``ring_host_memory``) when
-    given."""
-    with (ring_host_memory(ring_host) if ring_host is not None
-          else contextlib.nullcontext()):
+    gaps between spans), drained under ``host_pinning(pinning)``."""
+    with host_pinning(pinning):
         it = iter(host_batches)
         while True:
             with annotate("dmlc:produce"):
@@ -554,6 +563,101 @@ class _Staged:
         return _unpack(self.u8, self.layout)
 
 
+class _CudaCopier:
+    """Host→device copies to one card, each on the copy stream with its
+    event: a packed batch through one of ``depth + 2`` pinned slots, a
+    direct one from the producer's buffer, kept referenced until its
+    copy's event has completed (at most ``depth + 2`` in flight)."""
+
+    def __init__(self, device: torch.device, depth: int, stage) -> None:
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.slots = [_PinnedSlot() for _ in range(depth + 2)]
+        self._slot_i = 0
+        self._inflight = _InFlight(depth + 2)
+        self._stage = stage
+        self.pinning = _cuda_pinning()
+        self.direct_pinned = 0  # direct copies whose source was page-locked
+
+    def context(self):
+        return torch.cuda.device(self.device)
+
+    def _copy(self, src: torch.Tensor):
+        """(device u8 tensor, event) of one copy of ``src`` on the stream."""
+        with torch.cuda.stream(self.stream):
+            u8 = torch.empty(src.numel(), dtype=torch.uint8, device=self.device)
+            u8.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return u8, event
+
+    def pack(self, nbytes: int, fill, layout) -> _Staged:
+        """``fill(dst)`` writes the batch's ``nbytes`` into a pinned slot,
+        then one copy to the device."""
+        slot = self.slots[self._slot_i]
+        self._slot_i = (self._slot_i + 1) % len(self.slots)
+        if slot.event is not None:
+            with self._stage("dispatch_slot_wait"):
+                slot.wait()
+        with self._stage("dispatch_pack"):
+            src = slot.get(nbytes)
+            fill(src)
+        with self._stage("dispatch_put"):
+            u8, slot.event = self._copy(src)
+        return _Staged(u8=u8, event=slot.event, layout=layout)
+
+    def direct(self, packed: np.ndarray, layout) -> _Staged:
+        """The copy straight from the producer's buffer."""
+        self._inflight.prune()
+        if self._inflight.full():
+            with self._stage("dispatch_slot_wait"):
+                self._inflight.wait_oldest()
+        with self._stage("dispatch_put"):
+            src = torch.from_numpy(packed)
+            if src.is_pinned():
+                self.direct_pinned += 1
+            u8, event = self._copy(src)
+            self._inflight.add(event, packed)
+        return _Staged(u8=u8, event=event, layout=layout)
+
+    def drain(self) -> None:
+        """Wait for the direct copies still in flight."""
+        self._inflight.drain()
+
+
+class _CpuCopier:
+    """Hand-overs on the CPU: a packed batch is copied into a fresh
+    buffer, a direct one shares the producer's buffer. On the CPU the
+    put is the hand-over of the bytes; it is a stage all the same, as in
+    the JAX pipeline."""
+
+    slots = ()
+    pinning = None  # nothing is page-locked for the CPU
+    direct_pinned = 0
+
+    def __init__(self, stage) -> None:
+        self._stage = stage
+
+    def context(self):
+        return contextlib.nullcontext()
+
+    def pack(self, nbytes: int, fill, layout) -> _Staged:
+        with self._stage("dispatch_pack"):
+            u8 = torch.empty(nbytes, dtype=torch.uint8)
+            fill(u8)
+        with self._stage("dispatch_put"):
+            return _Staged(u8=u8, layout=layout)
+
+    def direct(self, packed: np.ndarray, layout) -> _Staged:
+        # the tensor holds the array, so the producer cannot recycle it
+        # under the consumer
+        with self._stage("dispatch_put"):
+            return _Staged(u8=torch.from_numpy(packed), layout=layout)
+
+    def drain(self) -> None:
+        pass
+
+
 class StagingPipeline:
     """Iterator of device-resident batch dicts with double buffering.
 
@@ -595,34 +699,26 @@ class StagingPipeline:
         self._plan_memo: Dict[Any, Any] = {}
         self._depth = max(1, depth)
         # a ring producer recycles its host buffers: its ring must outlast
-        # every batch this pipeline can hold at once — 1 in the producer
-        # thread's put + prefetch queued + 1 on the transfer thread +
-        # depth in the device queue + 1 with the consumer
-        ring_slots = getattr(host_batches, "ring_slots", None)
-        if ring_slots is not None:
-            need = prefetch + self._depth + 3
-            check(
-                ring_slots >= need,
-                f"producer ring has {ring_slots} slots but the pipeline "
-                f"keeps up to {need} batches alive "
-                f"(1 in producer + prefetch={prefetch} + 1 staging + "
-                f"depth={self._depth} + 1 consumed)",
-            )
+        # every batch this pipeline can hold at once
+        ring = getattr(host_batches, "ring_slots", None)
+        if ring is not None:
+            need, parts = _ring_bounds(prefetch, self._depth)["alive"]
+            check(ring >= need, f"producer ring has {ring} slots but the pipeline "
+                                f"keeps up to {need} batches alive ({parts})")
         self.rows_staged = 0
         self.batches_staged = 0
         self.bytes_staged = 0
         self.close_timed_out = False
-        # slot adoption only when the producer PROMISES its packed
-        # buffers stay stable until every view dies (dsserve's pooled and
-        # shm receive buffers); ring producers recycle eagerly
-        self._adopt = bool(getattr(host_batches, "adopt_slots", False)) and _adopt_enabled()
-        why = ring_in_place(host_batches, self._device, self._mesh is not None,
-                            prefetch, self._depth)
-        self._in_place = why is None
-        if why is not None and ring_slots is not None:
+        why = pack_reason(host_batches, self._device, self._mesh is not None,
+                          prefetch, self._depth)
+        if why is not None and ring is not None:
             logger.debug("ring slots packed: %s", why)
+        # which buffers go to the device as they are: none, an adopting
+        # producer's ("adopted": its promise covers any page-aligned one)
+        # or a ring's ("ring": a slot that is also pinned)
+        self._direct = None if why is not None else (
+            "adopted" if getattr(host_batches, "adopt_slots", False) else "ring")
         self.slots_adopted = 0
-        self.slots_adopted_pinned = 0
         # wall seconds per stage; the transfer thread's stages overlap
         # the consumer's, so the sum may exceed wall time
         self.stage_seconds: Dict[str, float] = {
@@ -635,51 +731,27 @@ class StagingPipeline:
         }
         self.staging = StagingStats()
         self._t_start: Optional[float] = None
-        self._cuda = self._device.type == "cuda"
-        if self._cuda:
-            self._copy_stream = torch.cuda.Stream(self._device)
-            self._slots = [_PinnedSlot() for _ in range(self._depth + 2)]
-            self._slot_i = 0
-            self._inflight = _InFlight(self._depth + 2)
-            pin = getattr(host_batches, "pin_host_memory", None)
-            if self._adopt and pin is not None:
-                pin(_cuda_pinning())
-        ring_host = _cuda_pinning().ring_slot if self._in_place else None
+        self._copier = (_CudaCopier(self._device, self._depth, self._stage)
+                        if self._device.type == "cuda" else _CpuCopier(self._stage))
+        pinning = self._copier.pinning if self._direct else None
         self._host_iter = Prefetcher(
-            lambda: _produced(host_batches, ring_host), prefetch, "staging"
+            lambda: _produced(host_batches, pinning), prefetch, "staging"
         )
         self._xfer_iter = Prefetcher(self._staged, self._depth, "staging-xfer")
 
-    def _observe(self, key: str, dt: float, dispatch: bool = False) -> None:
+    def _observe(self, key: str, dt: float) -> None:
         self.stage_seconds[key] += dt
-        if dispatch:
+        if key in _DISPATCH:
             self.stage_seconds["stage_dispatch"] += dt
         _STAGE_HISTS[key].observe(dt)
 
-    def _put_cuda(self, fill, nbytes: int, layout) -> _Staged:
-        """``fill(dst)`` writes the batch's ``nbytes`` into a pinned slot,
-        then one copy to the device on the copy stream."""
-        slot = self._slots[self._slot_i]
-        self._slot_i = (self._slot_i + 1) % len(self._slots)
-        if slot.event is not None:
-            t0 = time.perf_counter()
-            with annotate("dmlc:dispatch_slot_wait"):
-                slot.wait()
-            self._observe("dispatch_slot_wait", time.perf_counter() - t0)
+    @contextlib.contextmanager
+    def _stage(self, key: str, span: Optional[str] = None):
+        """Time the block as stage ``key``, under ``dmlc:<span or key>``."""
         t0 = time.perf_counter()
-        with annotate("dmlc:dispatch_pack"):
-            src = slot.get(nbytes)
-            fill(src)
-        self._observe("dispatch_pack", time.perf_counter() - t0, dispatch=True)
-        t0 = time.perf_counter()
-        with annotate("dmlc:dispatch_put"), torch.cuda.stream(self._copy_stream):
-            u8 = torch.empty(src.numel(), dtype=torch.uint8, device=self._device)
-            u8.copy_(src, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._copy_stream)
-        slot.event = event
-        self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
-        return _Staged(u8=u8, event=event, layout=layout)
+        with annotate(f"dmlc:{span or key}"):
+            yield
+        self._observe(key, time.perf_counter() - t0)
 
     def _plan_for(self, host: Batch):
         """``_shard_plan`` for this pipeline's mesh, memoized by the
@@ -695,138 +767,72 @@ class StagingPipeline:
             return None
         return plan
 
-    def _put_shard(self, host: Batch, plan) -> _Staged:
-        """This rank's block of a mesh batch: packed, then one copy."""
-        shard_entries, stride, n_shards = plan
-        coord = self._mesh.coords[self._data_axis]
-        layout = _local_layout(shard_entries, n_shards)
-        if self._cuda:
-            return self._put_cuda(
-                lambda dst: _pack_shard(host, shard_entries, n_shards, coord, dst.numpy()),
-                stride, layout)
-        t0 = time.perf_counter()
-        with annotate("dmlc:dispatch_pack"):
-            src = _pack_shard(host, shard_entries, n_shards, coord,
-                              np.zeros(stride, dtype=np.uint8))
-        self._observe("dispatch_pack", time.perf_counter() - t0, dispatch=True)
-        t0 = time.perf_counter()
-        with annotate("dmlc:dispatch_put"):
-            item = _Staged(u8=torch.from_numpy(src), layout=layout)
-        self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
-        return item
-
-    def _adopt_cuda(self, packed: np.ndarray, layout) -> _Staged:
-        """The copy straight from the producer's buffer, which stays
-        referenced until the copy's event completes."""
-        self._inflight.prune()
-        if self._inflight.full():
-            t0 = time.perf_counter()
-            with annotate("dmlc:dispatch_slot_wait"):
-                self._inflight.wait_oldest()
-            self._observe("dispatch_slot_wait", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        with annotate("dmlc:dispatch_put"), torch.cuda.stream(self._copy_stream):
-            src = torch.from_numpy(packed)
-            if src.is_pinned():
-                self.slots_adopted_pinned += 1
-            u8 = torch.empty(src.numel(), dtype=torch.uint8, device=self._device)
-            u8.copy_(src, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._copy_stream)
-        self._inflight.add(event, packed)
-        self._observe("dispatch_put", time.perf_counter() - t0, dispatch=True)
-        return _Staged(u8=u8, event=event, layout=layout)
-
-    def _adopts(self, host: Batch) -> bool:
+    def _goes_direct(self, host: Batch) -> bool:
         """Whether ``host.packed`` goes to the device as it is: a
         page-aligned buffer of an adopting producer, or a page-aligned
         pinned slot of a ring copied in place."""
-        if not adoptable_slot(host):
+        if self._direct is None or not adoptable_slot(host):
             return False
-        return self._adopt or (self._in_place
-                               and torch.from_numpy(host.packed).is_pinned())
+        return self._direct == "adopted" or torch.from_numpy(host.packed).is_pinned()
+
+    def _put(self, host: Batch) -> _Staged:
+        """Start one batch's copy on its route: mesh shard, per array,
+        direct or pack."""
+        dev = self._device
+        layout = None
+        if self._mesh is not None:
+            plan = self._plan_for(host)
+            if plan is not None:
+                shard_entries, stride, n_shards = plan
+                coord = self._mesh.coords[self._data_axis]
+                item = self._copier.pack(
+                    stride,
+                    lambda dst: _pack_shard(host, shard_entries, n_shards, coord,
+                                            dst.numpy()),
+                    _local_layout(shard_entries, n_shards))
+                self.staging.tick_batch("packed_shard", 1, dev)
+                return item
+        else:
+            layout = packed_layout(host)
+            if self._local_rows and layout is not None and self._pad_layout is None:
+                self._pad_layout = (layout, host.packed.nbytes)
+        if layout is None:
+            with self._stage("dispatch_put", span="stage"):
+                arrays = (_per_array(host, dev) if self._mesh is None else
+                          _stage_per_array_mesh(host, self._mesh, self._data_axis, dev))
+            self.staging.tick_batch("per_array", len(arrays), dev)
+            return _Staged(arrays=arrays)
+        packed = host.packed
+        if self._goes_direct(host):
+            item = self._copier.direct(packed, layout)
+            self.slots_adopted += 1
+            _SLOTS_ADOPTED.inc()
+        else:
+            if self._direct == "adopted":  # adopt-capable, but not page-aligned
+                _SLOT_COPIES.inc()
+            item = self._copier.pack(packed.nbytes,
+                                     lambda dst: dst.copy_(torch.from_numpy(packed)),
+                                     layout)
+        self.staging.tick_batch("packed", 1, dev)
+        return item
 
     def _staged(self) -> Iterator[_Staged]:
         """Transfer thread: pull host batches, start their copies."""
-        with (torch.cuda.device(self._device) if self._cuda
-              else contextlib.nullcontext()):
-            yield from self._staged_loop()
-
-    def _staged_loop(self) -> Iterator[_Staged]:
-        while True:
-            t0 = time.perf_counter()
-            with annotate("dmlc:host_pull"):
-                host = self._host_iter.next()
-            self._observe("host_pull", time.perf_counter() - t0)
-            if host is None:
-                return
-            plan = layout = None
-            if self._mesh is not None:
-                plan = self._plan_for(host)
-            else:
-                layout = packed_layout(host)
-                if self._local_rows and layout is not None and self._pad_layout is None:
-                    self._pad_layout = (layout, host.packed.nbytes)
-            if plan is not None:
-                item = self._put_shard(host, plan)
-                self.staging.tick_batch("packed_shard", 1, self._device)
-            elif layout is None:
-                t0 = time.perf_counter()
-                with annotate("dmlc:stage"):
-                    if self._mesh is not None:
-                        arrays = _stage_per_array_mesh(host, self._mesh, self._data_axis,
-                                                       self._device)
-                    else:
-                        arrays = _per_array(host, self._device)
-                    item = _Staged(arrays=arrays)
-                self._observe("dispatch_put", time.perf_counter() - t0,
-                              dispatch=True)
-                self.staging.tick_batch("per_array", len(item.arrays), self._device)
-            elif self._adopts(host):
-                if self._cuda:
-                    item = self._adopt_cuda(host.packed, layout)
-                else:
-                    # shared: the tensor holds the array, so the
-                    # producer cannot recycle it under the consumer
-                    t0 = time.perf_counter()
-                    with annotate("dmlc:dispatch_put"):
-                        item = _Staged(u8=torch.from_numpy(host.packed), layout=layout)
-                    self._observe("dispatch_put", time.perf_counter() - t0,
-                                  dispatch=True)
-                self.slots_adopted += 1
-                _SLOTS_ADOPTED.inc()
-                self.staging.tick_batch("packed", 1, self._device)
-            elif self._cuda:
-                if self._adopt:  # adopt-capable, but this buffer is unaligned
-                    _SLOT_COPIES.inc()
-                packed = host.packed
-                item = self._put_cuda(lambda dst: dst.copy_(torch.from_numpy(packed)),
-                                      packed.nbytes, layout)
-                self.staging.tick_batch("packed", 1, self._device)
-            else:
-                if self._adopt:
-                    _SLOT_COPIES.inc()
-                t0 = time.perf_counter()
-                with annotate("dmlc:dispatch_pack"):
-                    u8 = torch.from_numpy(np.array(host.packed, copy=True))
-                self._observe("dispatch_pack", time.perf_counter() - t0,
-                              dispatch=True)
-                # on the CPU the put is the hand-over of the copied bytes;
-                # it is a stage all the same, as in the JAX pipeline
-                t0 = time.perf_counter()
-                with annotate("dmlc:dispatch_put"):
-                    item = _Staged(u8=u8, layout=layout)
-                self._observe("dispatch_put", time.perf_counter() - t0,
-                              dispatch=True)
-                self.staging.tick_batch("packed", 1, self._device)
-            nbytes = sum(v.nbytes for v in host.as_dict().values())
-            self.rows_staged += host.n_valid
-            self.batches_staged += 1
-            self.bytes_staged += nbytes
-            _ROWS_STAGED.inc(host.n_valid)
-            _BYTES_STAGED.inc(nbytes)
-            del host  # release the producer's slot before blocking downstream
-            yield item
+        with self._copier.context():
+            while True:
+                with self._stage("host_pull"):
+                    host = self._host_iter.next()
+                if host is None:
+                    return
+                item = self._put(host)
+                nbytes = sum(v.nbytes for v in host.as_dict().values())
+                self.rows_staged += host.n_valid
+                self.batches_staged += 1
+                self.bytes_staged += nbytes
+                _ROWS_STAGED.inc(host.n_valid)
+                _BYTES_STAGED.inc(nbytes)
+                del host  # release the producer's slot before blocking downstream
+                yield item
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         if self._t_start is None:
@@ -898,9 +904,9 @@ class StagingPipeline:
         under ``per_array``."""
         out = self.staging.snapshot()
         out["dispatch_ring_depth"] = self._depth
-        out["dispatch_ring_slots"] = len(self._slots) if self._cuda else 0
+        out["dispatch_ring_slots"] = len(self._copier.slots)
         out["slots_adopted"] = self.slots_adopted
-        out["slots_adopted_pinned"] = self.slots_adopted_pinned
+        out["slots_adopted_pinned"] = self._copier.direct_pinned
         if self._local_rows:
             out["padding_batches"] = self.padding_batches
         return out
@@ -924,8 +930,8 @@ class StagingPipeline:
         xfer_joined = self._xfer_iter.destroy(timeout=1.0)
         if not (host_joined and xfer_joined):
             self.close_timed_out = True
-        elif self._cuda:
-            self._inflight.drain()  # the adopted sources' copies are done
+        else:
+            self._copier.drain()  # the direct copies' sources are released
         return host_joined and xfer_joined
 
 

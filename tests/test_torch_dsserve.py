@@ -8,11 +8,12 @@ staging pipeline's adopt path, against the JAX package:
   adaptive codec, shm) bit for bit against the local producer, the shm
   degrade drill, the slot pool under live views, the adoptable-slot
   predicate and the pipeline adopting every received slot;
-- the adopt rules of the port: ``DMLC_STAGING_ADOPT`` off copies every
-  slot, an adopted buffer stays out of the pool until its copy's event
-  has completed, a host pinning page-locks each pool bank and each
-  mapped shm segment once and releases a segment only when no view over
-  it lives, and the first slot of a fresh pool lands in a pooled bank;
+- the adopt rules of the port: a wrapper that declares no
+  ``adopt_slots`` has every slot copied, an adopted buffer stays out of
+  the pool until its copy's event has completed, a client drained under
+  a host pinning page-locks each pool bank and each mapped shm segment
+  once and releases a segment only when no view over it lives, and the
+  first slot of a fresh pool lands in a pooled bank;
 - across the packages: ``send_frame`` writes the same bytes; a JAX server
   feeds a port client and a port server a JAX client over TCP, TCP with
   zlib and shm, with slots equal to the local producer's; one drain moves
@@ -49,7 +50,7 @@ from dmlc_core_tpu_torch.io.recordio import IndexedRecordIOWriter
 from dmlc_core_tpu_torch.io.stream import FileStream
 from dmlc_core_tpu_torch.staging import fused
 from dmlc_core_tpu_torch.staging import pipeline as pl
-from dmlc_core_tpu_torch.staging.batcher import Batch, BatchSpec
+from dmlc_core_tpu_torch.staging.batcher import Batch, BatchSpec, host_pinning
 from dmlc_core_tpu_torch.telemetry import default_registry
 from dmlc_core_tpu_torch.utils.logging import Error
 
@@ -526,14 +527,27 @@ def pipeline_drain(src, **env):
     return got, stats
 
 
-@pytest.mark.parametrize("adopt", ["on", "off"])
-def test_staging_pipeline_adopts_received_slots(corpus, monkeypatch, adopt):
-    """recv → one hand-over: with DMLC_STAGING_ADOPT on every received
-    slot is adopted (no copy, ``dsserve.slot_copies`` flat); off, none is
-    and none counts as a copy. The staged arrays equal the local
-    producer's either way."""
+class PassThrough:
+    """A source passed through by a wrapper that declares no
+    ``adopt_slots``."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def __iter__(self):
+        return iter(self.source)
+
+    def close(self):
+        self.source.close()
+
+
+@pytest.mark.parametrize("adopt", ["on", "wrapped"])
+def test_staging_pipeline_adopts_received_slots(corpus, adopt):
+    """recv → one hand-over: every received slot is adopted (no copy,
+    ``dsserve.slot_copies`` flat); through a wrapper that declares no
+    ``adopt_slots``, none is and none counts as a copy. The staged
+    arrays equal the local producer's either way."""
     rec, idx = corpus
-    monkeypatch.setenv("DMLC_STAGING_ADOPT", adopt)
     want = []
     local = fused.ell_batches(uri_of(rec, idx), spec_of())
     for b in local:
@@ -544,7 +558,7 @@ def test_staging_pipeline_adopts_received_slots(corpus, monkeypatch, adopt):
     try:
         src = DsServeBatches(f"dsserve://127.0.0.1:{srv.port}{uri_of(rec, idx)}", spec_of(),
                              mode="static")
-        got, stats = pipeline_drain(src)
+        got, stats = pipeline_drain(src if adopt == "on" else PassThrough(src))
     finally:
         srv.close()
     assert len(got) == len(want) > 0
@@ -663,13 +677,13 @@ def test_host_pinning_covers_banks_and_segments(corpus, monkeypatch, transport):
     monkeypatch.setattr(port_client, "_POOL", port_client._SlotPool())
     monkeypatch.setattr(port_client, "_LINGER", [])
     pin = StubPinning()
-    DsServeBatches.pin_host_memory(pin)
     try:
         srv = DsServeServer().start()
         try:
             c = DsServeBatches(f"dsserve://127.0.0.1:{srv.port}{uri_of(rec, idx)}",
                                spec_of(), mode="static")
-            held = list(c)  # every slot's view alive at the end of the stream
+            with host_pinning(pin):
+                held = list(c)  # every slot's view alive at the end of the stream
             stats = c.io_stats()
             if transport == "shm":
                 assert stats["shm_slots"] >= 1
@@ -742,13 +756,12 @@ def test_a_failed_segment_pinning_fails_the_stream(corpus, monkeypatch):
     rec, idx = corpus
     monkeypatch.setenv("DMLC_DSSERVE_SHM", "on")
     monkeypatch.setattr(port_client, "_POOL", port_client._SlotPool())
-    DsServeBatches.pin_host_memory(FailingPinning())
     try:
         srv = DsServeServer().start()
         try:
             c = DsServeBatches(f"dsserve://127.0.0.1:{srv.port}{uri_of(rec, idx)}",
                                spec_of(), mode="static")
-            with pytest.raises(Error, match="dsserve") as exc:
+            with pytest.raises(Error, match="dsserve") as exc, host_pinning(FailingPinning()):
                 for _ in c:
                     pass
             stats = c.io_stats()

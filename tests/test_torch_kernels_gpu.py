@@ -304,7 +304,7 @@ def test_ring_slots_stage_in_place_under_a_stalled_copy_stream(cuda, tmp_path, r
     pipe = StagingPipeline(src, device=cuda)
     got = []
     for batch in pipe:
-        with torch.cuda.stream(pipe._copy_stream):
+        with torch.cuda.stream(pipe._copier.stream):
             torch.cuda._sleep(20_000_000)  # ~10 ms: later copies queue behind it
         got.append(batch)
     torch.cuda.synchronize()

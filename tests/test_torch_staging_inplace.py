@@ -1,10 +1,10 @@
 """Ring slots copied to the card in place: which producers a pipeline
-stages in place and which it packs (``ring_in_place``, the per-batch
+copies directly and which it packs (``pack_reason``, the per-batch
 pinned and page-aligned check), the ring bound's message, and where a
-producer's ring comes from (``batcher.ring_host_memory``): allocated at
-its first iteration, on the thread that drains it, page-locked only
-under a pipeline that copies in place. The copies themselves run on the
-card (``tests/test_torch_kernels_gpu.py``)."""
+producer's ring comes from (``batcher.host_pinning``): allocated at its
+first iteration, on the thread that drains it, page-locked only under a
+pipeline that copies in place. The copies themselves run on the card
+(``tests/test_torch_kernels_gpu.py``)."""
 
 import threading
 
@@ -19,10 +19,10 @@ from dmlc_core_tpu_torch.staging.batcher import (
     Batch,
     BatchSpec,
     alloc_dense_slot,
-    ring_host_memory,
+    host_pinning,
 )
 from dmlc_core_tpu_torch.staging.fused import dense_batches, ell_batches, plain_batches
-from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close, ring_in_place
+from dmlc_core_tpu_torch.staging.pipeline import StagingPipeline, drain_close, pack_reason
 from perfbench.loop import RowLog
 
 CUDA = torch.device("cuda", 0)
@@ -84,16 +84,12 @@ class _Source:
      "mesh shard staging packs this rank's rows"),
     ("cpu", (_Source(10), CPU, False, 2, 2), "a CPU pipeline copies every batch"),
     ("no_ring", (_Source(), CUDA, False, 2, 2), "the producer declares no ring"),
-    ("dsserve", (_Source(None, adopt_slots=True), CUDA, False, 2, 2),
-     "the producer's own buffers are adopted"),
+    ("dsserve", (_Source(None, adopt_slots=True), CUDA, False, 2, 2), None),
+    # shared on the CPU: the tensor holds the adopted buffer
+    ("dsserve_cpu", (_Source(None, adopt_slots=True), CPU, False, 2, 2), None),
 ])
 def test_ring_in_place_says_which_sources_pack(case, args, why):
-    assert ring_in_place(*args) == why
-
-
-def test_adopt_off_packs_every_ring(monkeypatch):
-    monkeypatch.setenv("DMLC_STAGING_ADOPT", "off")
-    assert ring_in_place(_Source(10), CUDA, False, 2, 2) == "DMLC_STAGING_ADOPT is off"
+    assert pack_reason(*args) == why
 
 
 def test_the_default_producers_and_their_paths(tmp_path):
@@ -106,9 +102,9 @@ def test_the_default_producers_and_their_paths(tmp_path):
                 plain_batches(rec, ESPEC)]
     fanned = [dense_batches(csv, DSPEC, nthread=2), ell_batches(rec, ESPEC, nthread=2)]
     for src in in_place:
-        assert ring_in_place(RowLog(src), CUDA, False, 2, 2) is None
+        assert pack_reason(RowLog(src), CUDA, False, 2, 2) is None
     for src in fanned:
-        assert "ring has 7 slots but an in-place copy needs 8" in ring_in_place(
+        assert "ring has 7 slots but an in-place copy needs 8" in pack_reason(
             src, CUDA, False, 2, 2)
     for src in in_place + fanned:
         src.close()
@@ -138,24 +134,24 @@ def test_each_batch_goes_in_place_only_pinned_and_page_aligned(monkeypatch, offs
     batch = _batch(_page_aligned(nbytes, offset))
     pipe = StagingPipeline(_Source(10), device="cpu")
     try:
-        pipe._in_place = True  # what a CUDA pipeline of this source decides
+        pipe._direct = "ring"  # what a CUDA pipeline of this source decides
         monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self: pinned)
-        assert pipe._adopts(batch) is adopts
-        pipe._in_place = False
-        assert pipe._adopts(batch) is False
+        assert pipe._goes_direct(batch) is adopts
+        pipe._direct = None
+        assert pipe._goes_direct(batch) is False
     finally:
         pipe.close()
 
 
 class _Host:
-    """A stand-in for the pipeline's pinned slots: zeroed page-aligned
-    buffers, each remembered."""
+    """A stand-in for the pipeline's pinning: zeroed page-aligned ring
+    slots, each remembered."""
 
     def __init__(self):
         self.made = []
         self.threads = set()
 
-    def __call__(self, nbytes):
+    def ring_slot(self, nbytes):
         self.threads.add(threading.get_ident())
         buf = _page_aligned(nbytes)
         self.made.append(buf)
@@ -198,7 +194,7 @@ def test_a_producer_drained_alone_keeps_a_numpy_ring(tmp_path):
     alone = dense_batches(csv, DSPEC)
     _bytes(alone)
     fanned = dense_batches(csv, DSPEC, nthread=2)
-    with ring_host_memory(host):
+    with host_pinning(host):
         _bytes(fanned)  # its sub-producers drain on threads of their own
     assert host.made == []
     for src in (alone, *fanned._producers):
